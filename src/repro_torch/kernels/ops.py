@@ -1,0 +1,95 @@
+"""Public wrappers around the mesh kernel.
+
+``mesh_apply`` and ``mesh_apply_cells`` build the ``[C', 8, P]``
+coefficients (ideal cells, or the hardware model with optional phase
+noise), apply the optional ``alpha_in``/``alpha`` phase screens as plain
+PyTorch, and run the column sweep through
+:func:`repro_torch.kernels.givens_mesh.mesh_forward`: the CUDA kernel on a
+CUDA tensor, its plain version on a CPU tensor.
+
+The JAX package's ``_auto_block``/``_pad_batch`` sized batch blocks for the
+TPU's VMEM; the CUDA kernel masks the ragged last tile itself, so there is
+no ``block_b`` argument here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import hardware as hw_lib
+from repro_torch.core import mesh as mesh_lib
+from repro_torch.core.cell import as_complex, cell_matrix
+from repro_torch.kernels import givens_mesh
+from repro_torch.kernels.schedule import (
+    MeshSchedule,
+    clements_schedule,
+    pack_cells,
+    parity_array,
+    schedule_from_plan,
+)
+
+#: Per-entry-point invocation counts of the kernel path (proof that a
+#: configuration went through ``mesh_forward``).
+KERNEL_PATH_CALLS = {"mesh_apply": 0, "mesh_apply_cells": 0}
+
+
+def _mesh_coefficients(sched: MeshSchedule, params: dict,
+                       hardware: hw_lib.HardwareModel | None,
+                       generator: torch.Generator | None) -> torch.Tensor:
+    """Packed [C', 8, P] coefficients from mesh params.
+
+    With a hardware model, cells come from ``imperfect_cell_matrix`` — the
+    same function (and the same generator draws) as the reference
+    ``apply_mesh_hw`` path.
+    """
+    theta, phi = params["theta"], params["phi"]
+    if hardware is None:
+        t_all = cell_matrix(theta, phi)
+    else:
+        t_all = hw_lib.imperfect_cell_matrix(theta, phi, hardware, generator)
+    return pack_cells(sched, t_all)
+
+
+def _sweep(sched: MeshSchedule, coef: torch.Tensor, x: torch.Tensor,
+           alpha_in, alpha) -> torch.Tensor:
+    batch_shape = x.shape[:-1]
+    if x.shape[-1] != sched.n:
+        raise ValueError(f"expected trailing dim {sched.n}, got {tuple(x.shape)}")
+    x2 = mesh_lib.apply_screens(as_complex(x).reshape(-1, sched.n), alpha_in)
+    y = givens_mesh.mesh_forward(coef, parity_array(sched, x2.device),
+                                 x2.contiguous())
+    y = mesh_lib.apply_screens(y, alpha)
+    return y.reshape(batch_shape + (sched.n,))
+
+
+def mesh_apply(params: dict, x: torch.Tensor, *, n: int,
+               plan: mesh_lib.MeshPlan | None = None,
+               hardware: hw_lib.HardwareModel | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Apply a mesh to ``x[..., n]`` through the kernel path.
+
+    Semantics match ``repro_torch.core.mesh.apply_mesh`` on the given plan
+    (``None`` = the Clements rectangle), including the optional phase
+    screens ``alpha_in`` / ``alpha``; with ``hardware`` they match
+    ``repro_torch.core.hardware.apply_mesh_hw`` (imperfect hybrids, per-cell
+    insertion loss, and ``generator``-sampled phase-shifter noise).
+    """
+    sched = clements_schedule(n) if plan is None else schedule_from_plan(plan)
+    KERNEL_PATH_CALLS["mesh_apply"] += 1
+    coef = _mesh_coefficients(sched, params, hardware, generator)
+    return _sweep(sched, coef, x, params.get("alpha_in"), params.get("alpha"))
+
+
+def mesh_apply_cells(t_all: torch.Tensor, x: torch.Tensor, *,
+                     plan: mesh_lib.MeshPlan,
+                     alpha_in: torch.Tensor | None = None,
+                     alpha: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel mesh apply from explicit per-cell 2x2 matrices ``[C, P, 2, 2]``.
+
+    The cells-level entry point: callers that build transfer matrices
+    directly (e.g. from noise draws made elsewhere) hit the same sweep
+    without going through (theta, phi).
+    """
+    sched = schedule_from_plan(plan)
+    KERNEL_PATH_CALLS["mesh_apply_cells"] += 1
+    return _sweep(sched, pack_cells(sched, t_all), x, alpha_in, alpha)

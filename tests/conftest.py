@@ -21,6 +21,7 @@ jax.config.update("jax_platform_name", "cpu")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow')")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,325 @@
+"""The port's kernel path against the JAX package's.
+
+Inputs are made with numpy from a seed and fed to both packages.  JAX runs
+``ops.mesh_apply`` in Pallas interpret mode on the CPU; the port runs the
+plain version of its CUDA kernel (a CPU tensor never reaches the kernel).
+Noisy paths are held through ``mesh_apply_cells`` with cells drawn by JAX,
+since the two packages' generators give different numbers.  Tolerance:
+atol 1e-5 * n, the bound of ``tests/test_kernels.py`` (float32 sums in
+another order).  The ``gpu`` tests hold the CUDA kernel to its plain
+version on the card and skip without one; they need no JAX (where it is
+absent, run them with ``pytest --noconftest -m gpu``).
+"""
+
+import importlib.util
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import hardware as t_hw  # noqa: E402
+from repro_torch.core import mesh as t_mesh  # noqa: E402
+from repro_torch.kernels import givens_mesh, ops, ref, schedule  # noqa: E402
+from repro_torch.paper.prototype import PROTOTYPE  # noqa: E402
+
+if importlib.util.find_spec("jax") is None:
+    jax = None  # the card's machine runs the gpu tests without JAX
+else:  # with JAX present, a broken reference package fails the run
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import hardware as j_hw
+    from repro.core import mesh as j_mesh
+    from repro.kernels import ops as j_ops
+    from repro.kernels import schedule as j_sched
+    from repro.paper.prototype import PROTOTYPE as J_PROTOTYPE
+
+    jax.config.update("jax_platform_name", "cpu")
+
+needs_jax = pytest.mark.skipif(jax is None,
+                               reason="needs the JAX reference package")
+
+
+def _params(rng, plan, alpha=True, alpha_in=False):
+    shape = plan.param_shape()
+    p = {"theta": rng.uniform(0, np.pi, shape).astype(np.float32),
+         "phi": rng.uniform(0, 2 * np.pi, shape).astype(np.float32)}
+    if alpha:
+        p["alpha"] = rng.uniform(0, 2 * np.pi, plan.n).astype(np.float32)
+    if alpha_in:
+        p["alpha_in"] = rng.uniform(0, 2 * np.pi, plan.n).astype(np.float32)
+    return p
+
+
+def _x(rng, b, n):
+    return (rng.normal(size=(b, n))
+            + 1j * rng.normal(size=(b, n))).astype(np.complex64)
+
+
+def _jax(p):
+    return {k: jnp.asarray(v) for k, v in p.items()}
+
+
+def _torch(p):
+    return {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+
+
+def _mixed_cells(rng, n, k=None):
+    """An ordered cell list whose greedy packing mixes parities."""
+    k = k or 3 * n
+    return [(int(rng.integers(0, n - 1)), float(rng.uniform(0, np.pi)),
+             float(rng.uniform(0, 2 * np.pi))) for _ in range(k)]
+
+
+# ---------------------------------------------------------------------------
+# schedules and packing: exact
+# ---------------------------------------------------------------------------
+
+@needs_jax
+@pytest.mark.parametrize("n", [2, 8, 16])
+def test_schedule_from_plan_matches_jax_clements(n):
+    js = j_sched.clements_schedule(n)
+    ts = schedule.clements_schedule(n)
+    assert (ts.n, ts.parity, ts.source) == (js.n, js.parity, js.source)
+    np.testing.assert_array_equal(
+        schedule.parity_array(ts).numpy(),
+        np.asarray(j_sched.parity_array(js)).reshape(-1))
+
+
+@needs_jax
+def test_schedule_from_plan_matches_jax_mixed_parity():
+    rng = np.random.default_rng(3)
+    cells = _mixed_cells(rng, 8)
+    jplan, _, _ = j_mesh.pack_cells_to_columns(8, cells)
+    tplan, _, _ = t_mesh.pack_cells_to_columns(8, cells)
+    assert tplan == t_mesh.MeshPlan(8, jplan.top, jplan.active, jplan.slot,
+                                    jplan.role)
+    js, ts = j_sched.schedule_from_plan(jplan), schedule.schedule_from_plan(tplan)
+    assert (ts.parity, ts.source) == (js.parity, js.source)
+    assert 0 in ts.parity and 1 in ts.parity
+    # the plan mixes parities within a column, so the schedule is longer
+    assert ts.n_columns > tplan.n_columns
+
+
+@needs_jax
+@pytest.mark.parametrize("mixed", [False, True])
+def test_pack_cells_exact(mixed):
+    rng = np.random.default_rng(4)
+    if mixed:
+        plan, _, _ = j_mesh.pack_cells_to_columns(8, _mixed_cells(rng, 8))
+    else:
+        plan = j_mesh.clements_plan(8)
+    c, p = plan.param_shape()
+    t_all = (rng.normal(size=(c, p, 2, 2))
+             + 1j * rng.normal(size=(c, p, 2, 2))).astype(np.complex64)
+    js = j_sched.schedule_from_plan(plan)
+    tplan = t_mesh.MeshPlan(8, plan.top, plan.active, plan.slot, plan.role)
+    ts = schedule.schedule_from_plan(tplan)
+    cj = np.asarray(j_sched.pack_cells(js, jnp.asarray(t_all)))
+    ct = schedule.pack_cells(ts, torch.from_numpy(t_all)).numpy()
+    assert ct.shape == (ts.n_columns, 8, 4) and ct.dtype == np.float32
+    np.testing.assert_array_equal(ct, cj)
+
+
+def test_pack_cells_rejects_foreign_cells():
+    sched = schedule.clements_schedule(8)
+    with pytest.raises(ValueError):
+        schedule.pack_cells(sched, torch.zeros(8, 3, 2, 2, dtype=torch.complex64))
+
+
+# ---------------------------------------------------------------------------
+# the plain twin
+# ---------------------------------------------------------------------------
+
+def test_split_merge_roundtrip():
+    x = torch.from_numpy(_x(np.random.default_rng(0), 5, 8))
+    torch.testing.assert_close(ref.merge_channels(*ref.split_channels(x)), x,
+                               rtol=0, atol=0)
+
+
+def test_plain_sweep_follows_parity_array_on_mixed_plan():
+    """The twin reads parities from the schedule (not from c % 2), so a
+    mixed-parity plan matches the reference column scan."""
+    rng = np.random.default_rng(5)
+    tplan, theta, phi = t_mesh.pack_cells_to_columns(8, _mixed_cells(rng, 8))
+    sched = schedule.schedule_from_plan(tplan)
+    assert list(sched.parity) != [c % 2 for c in range(sched.n_columns)]
+    x = torch.from_numpy(_x(rng, 6, 8))
+    params = {"theta": theta, "phi": phi}
+    y_ref = t_mesh.apply_mesh(tplan, params, x)
+    y = ops.mesh_apply(params, x, n=8, plan=tplan)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=8e-5)
+
+
+# ---------------------------------------------------------------------------
+# mesh_apply / mesh_apply_cells against JAX
+# ---------------------------------------------------------------------------
+
+_SHAPES = [(n, b) for n in (2, 8, 16, 64) for b in (1, 7)] + [(8, 130)]
+
+
+@needs_jax
+@pytest.mark.parametrize("n,b", _SHAPES)
+def test_mesh_apply_matches_jax(n, b):
+    rng = np.random.default_rng(100 * n + b)
+    plan = j_mesh.clements_plan(n)
+    p = _params(rng, plan, alpha_in=(n == 8))
+    x = _x(rng, b, n)
+    calls = ops.KERNEL_PATH_CALLS["mesh_apply"]
+    for jhw, thw in ((None, None), (J_PROTOTYPE, PROTOTYPE)):
+        yj = np.asarray(j_ops.mesh_apply(_jax(p), jnp.asarray(x), n=n,
+                                         hardware=jhw))
+        yt = ops.mesh_apply(_torch(p), torch.from_numpy(x), n=n,
+                            hardware=thw).numpy()
+        np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-5 * n)
+    assert ops.KERNEL_PATH_CALLS["mesh_apply"] == calls + 2
+
+
+@needs_jax
+@pytest.mark.parametrize("n,b", [(2, 7), (8, 7), (8, 130), (16, 1)])
+def test_mesh_apply_cells_noisy_matches_jax(n, b):
+    """Noisy cells drawn by JAX, handed to both packages."""
+    rng = np.random.default_rng(7 * n + b)
+    plan = j_mesh.clements_plan(n)
+    p = _params(rng, plan, alpha_in=True)
+    t_all = np.array(j_hw.imperfect_cell_matrix(
+        jnp.asarray(p["theta"]), jnp.asarray(p["phi"]), J_PROTOTYPE,
+        jax.random.PRNGKey(n)))
+    x = _x(rng, b, n)
+    yj = np.asarray(j_ops.mesh_apply_cells(
+        jnp.asarray(t_all), jnp.asarray(x), plan=plan,
+        alpha_in=jnp.asarray(p["alpha_in"]), alpha=jnp.asarray(p["alpha"])))
+    yt = ops.mesh_apply_cells(
+        torch.from_numpy(t_all), torch.from_numpy(x),
+        plan=t_mesh.clements_plan(n),
+        alpha_in=torch.from_numpy(p["alpha_in"]),
+        alpha=torch.from_numpy(p["alpha"])).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-5 * n)
+
+
+@needs_jax
+def test_mesh_apply_cells_mixed_parity_matches_jax():
+    rng = np.random.default_rng(11)
+    cells = _mixed_cells(rng, 16)
+    jplan, theta, phi = j_mesh.pack_cells_to_columns(16, cells)
+    tplan, _, _ = t_mesh.pack_cells_to_columns(16, cells)
+    t_all = np.array(j_hw.imperfect_cell_matrix(theta, phi, J_PROTOTYPE,
+                                                  jax.random.PRNGKey(1)))
+    x = _x(rng, 7, 16)
+    yj = np.asarray(j_ops.mesh_apply_cells(jnp.asarray(t_all), jnp.asarray(x),
+                                           plan=jplan))
+    yt = ops.mesh_apply_cells(torch.from_numpy(t_all), torch.from_numpy(x),
+                              plan=tplan).numpy()
+    np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-5 * 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mesh_apply_casts_real_inputs(dtype):
+    """float32/bf16 inputs are cast to complex64 first, as in the JAX ops."""
+    rng = np.random.default_rng(2)
+    plan = t_mesh.clements_plan(16)
+    p = _torch(_params(rng, plan))
+    x = torch.from_numpy(rng.normal(size=(5, 16)).astype(np.float32)).to(dtype)
+    y = ops.mesh_apply(p, x, n=16)
+    assert y.dtype == torch.complex64
+    y_ref = t_mesh.apply_mesh(plan, p, x.float().to(torch.complex64))
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5 * 16)
+
+
+def test_mesh_apply_batch_shapes_and_empty_batch():
+    rng = np.random.default_rng(9)
+    p = _torch(_params(rng, t_mesh.clements_plan(8)))
+    x = torch.from_numpy(_x(rng, 6, 8)).reshape(2, 3, 8)
+    y = ops.mesh_apply(p, x, n=8)
+    assert y.shape == (2, 3, 8)
+    torch.testing.assert_close(y.reshape(6, 8),
+                               ops.mesh_apply(p, x.reshape(6, 8), n=8))
+    empty = ops.mesh_apply(p, torch.zeros(0, 8, dtype=torch.complex64), n=8)
+    assert empty.shape == (0, 8)
+
+
+def test_mesh_apply_kernel_matches_reference_column_scan():
+    """Kernel backend (plain version here) == core/mesh reference scan."""
+    rng = np.random.default_rng(12)
+    plan = t_mesh.clements_plan(8)
+    p = _torch(_params(rng, plan, alpha_in=True))
+    x = torch.from_numpy(_x(rng, 9, 8))
+    torch.testing.assert_close(ops.mesh_apply(p, x, n=8),
+                               t_mesh.apply_mesh(plan, p, x),
+                               rtol=0, atol=8e-5)
+    torch.testing.assert_close(
+        ops.mesh_apply(p, x, n=8, hardware=PROTOTYPE),
+        t_hw.apply_mesh_hw(plan, p, x, PROTOTYPE), rtol=0, atol=8e-5)
+
+
+def test_mesh_forward_validates_inputs_and_devices():
+    sched = schedule.clements_schedule(8)
+    coef = torch.zeros(8, 8, 4)
+    par = schedule.parity_array(sched)
+    x = torch.zeros(3, 8, dtype=torch.complex64)
+    with pytest.raises(ValueError):
+        givens_mesh.mesh_forward(coef, par, x.real.contiguous())
+    with pytest.raises(ValueError):
+        givens_mesh.mesh_forward(coef[:, :, :3], par, x)
+    with pytest.raises(ValueError):
+        givens_mesh.mesh_forward(coef, par.long(), x)
+    with pytest.raises(ValueError):  # neither cuda nor cpu: never the plain path
+        givens_mesh.mesh_forward(coef.to("meta"), par.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError):  # the launcher refuses CPU tensors
+        givens_mesh.launch(coef, par, x)
+
+
+def test_cpu_tensor_never_launches_the_kernel():
+    before = givens_mesh.LAUNCHES["mesh_fwd"]
+    p = _torch(_params(np.random.default_rng(1), t_mesh.clements_plan(8)))
+    ops.mesh_apply(p, torch.zeros(4, 8, dtype=torch.complex64), n=8)
+    assert givens_mesh.LAUNCHES["mesh_fwd"] == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the mesh kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 8, 16, 64, 128])
+def test_mesh_kernel_matches_plain_on_card(cuda_device, n):
+    rng = np.random.default_rng(n)
+    plan = t_mesh.clements_plan(n)
+    p = _torch(_params(rng, plan))
+    sched = schedule.clements_schedule(n)
+    for hw in (None, PROTOTYPE):
+        coef = ops._mesh_coefficients(sched, p, hw, None)
+        par = schedule.parity_array(sched)
+        for b in (1, 7, 130, 4096):
+            x = torch.from_numpy(_x(rng, b, n))
+            y_plain = givens_mesh.mesh_forward_plain(coef, par, x)
+            before = givens_mesh.LAUNCHES["mesh_fwd"]
+            y = givens_mesh.mesh_forward(coef.to(cuda_device),
+                                         par.to(cuda_device),
+                                         x.to(cuda_device))
+            torch.cuda.synchronize()
+            assert givens_mesh.LAUNCHES["mesh_fwd"] == before + 1
+            torch.testing.assert_close(y.cpu(), y_plain, rtol=0,
+                                       atol=1e-5 * n)
+
+
+@pytest.mark.gpu
+def test_mesh_kernel_backward_raises_on_card(cuda_device):
+    """No fallback: a gradient through the kernel waits for kernel B2."""
+    sched = schedule.clements_schedule(8)
+    p = {k: v.to(cuda_device) for k, v in _torch(_params(
+        np.random.default_rng(0), t_mesh.clements_plan(8))).items()}
+    p["theta"].requires_grad_(True)
+    x = torch.ones(4, 8, dtype=torch.complex64, device=cuda_device)
+    y = ops.mesh_apply(p, x, n=8)
+    assert y.device.type == "cuda" and sched.n_columns == 8
+    with pytest.raises(NotImplementedError, match="B2"):
+        y.abs().sum().backward()
