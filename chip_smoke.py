@@ -8,25 +8,37 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, ``PATH`` or
 imports nothing of JAX.  Phases (each raises on failure, so the script
 exits non-zero):
 
-1. card name and power limit; build the CUDA kernel from ``csrc/``;
-2. the mesh kernel against its plain PyTorch version on the card, for
-   n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and PROTOTYPE
-   coefficients, a mixed-parity schedule and the main path's own shapes
-   (atol 1e-5 * n: FMA contraction and another order of adds);
+1. card name and power limit; build both CUDA kernels from ``csrc/``, one
+   ``nvcc`` each, started together;
+2. the forward kernel (B1) against its plain PyTorch version on the card,
+   for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
+   PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
+   shapes (atol 1e-5 * n: FMA contraction and another order of adds); then
+   the backward kernel (B2) for n in {2, 8, 16, 64}, B in {1, 7, 130,
+   4096}, ideal and PROTOTYPE, a mixed-parity schedule, B = 0 and the
+   training step's shape, against its plain version and against autograd
+   through the plain forward (each output within 1e-5 * n of its largest
+   magnitude), with bit-identical ``dcoef`` over two calls;
 3. ``MnistRFNN`` (8x8 analog mesh, PROTOTYPE hardware, Table-I phases) at
    full width on 1000 procedural digits: kernel-path logits against the
    reference backend on the card and the plain path on the CPU;
-4. the 2x2 RFNN decision maps on the kernel path against the two pinned
-   goldens of the JAX package (2e-5), and a 41x41 map;
-5. ``ServingEngine`` on the deployed 8x8 processor: 256 requests through
+4. training at full width: ``train_mnist`` with the paper's Algorithm I
+   (batch 10, lr 0.005, 3 epochs on 1000 digits); one epoch of
+   ``_train_loop`` on the card against the same epoch on the CPU; an SGD
+   step with and without hardware noise timed side by side;
+5. the 2x2 RFNN decision maps on the kernel path against the two pinned
+   goldens of the JAX package (2e-5), a 41x41 map, and
+   ``train_rfnn2x2(method="search")`` on the card against the CPU;
+6. ``ServingEngine`` on the deployed 8x8 processor: 256 requests through
    ``run()`` and through the dispatch thread, each equal to a direct apply;
-6. times at n = 8 with CUDA events: the kernel (per call, and on the
-   device alone), its bound, the plain version, the whole ``mesh_apply``
-   and a ``torch.matmul`` yardstick;
-7. the ``kernels`` line and, last, the ``ok``/``device`` line.
+7. times at n = 8 with CUDA events: each kernel (per call, and on the
+   device alone), its bound, its plain version and a ``torch.matmul``
+   yardstick, the whole ``mesh_apply`` and the SGD step;
+8. the ``kernels`` line and, last, the ``ok``/``device`` line.
 
-Launch counts are reset just before phases 3, 4 and 5 and read just after;
-launches made in phases 2 and 6 do not count.  Timings are also written to
+Every launch count is reset just before phases 3, 4, 5 and 6 (the main
+path) and read just after; launches made in phases 2 and 7 do not count.
+Timings are also written to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -36,6 +48,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,6 +57,12 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
 FLOPS_PER_PAIR = 28            # two outputs x (2 complex mul + 1 complex add)
+# backward, per row, pair and column: the inverse 2x2 product (28), four
+# conjugate products and their batch sums (32), the adjoint 2x2 product (28)
+FLOPS_PER_PAIR_BWD = 88
+FLOPS_PER_CELL_INV = 43        # det, |det|^2, 1/det and adj(t)/det, per cell
+KERNELS = ("mesh_fwd", "mesh_bwd")
+SGD_BATCH = 10                 # the paper's minibatch
 
 # decision_map(net, {w: [0.9, -1.1], b: 0.2}, 3, 5, n=5) of the JAX package,
 # pinned in tests/test_golden.py: the ideal device and the PROTOTYPE device.
@@ -136,11 +155,13 @@ def main() -> int:
     from repro_torch.core.analog_linear import AnalogUnitary
     from repro_torch.core.hardware import IDEAL
     from repro_torch.data.digits import load_digits
+    from repro_torch.data.toys import make_toy_dataset
     from repro_torch.kernels import cuda_build, givens_mesh, ops, schedule
-    from repro_torch.paper.mnist_rfnn import MnistRFNN
+    from repro_torch.paper.mnist_rfnn import MnistRFNN, _train_loop, train_mnist
     from repro_torch.paper.prototype import PROTOTYPE
-    from repro_torch.paper.rfnn2x2 import RFNN2x2, decision_map
+    from repro_torch.paper.rfnn2x2 import RFNN2x2, decision_map, train_rfnn2x2
     from repro_torch.serving import Request, ServingEngine
+    from repro_torch.train import make_sgd_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -152,11 +173,32 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     report["card"] = card
+    def timed_load(name):
+        t0 = time.perf_counter()
+        cuda_build.load(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    cuda_build.load("mesh_fwd")
-    build_s = time.perf_counter() - t0
-    print(f"[1] built mesh_fwd.cu in {build_s:.2f} s", flush=True)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        build_s = dict(zip(KERNELS, pool.map(timed_load, KERNELS)))
+    print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
+                                    for k, v in build_s.items())
+          + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
     report["build_s"] = build_s
+
+    def reset_launches():
+        for k in givens_mesh.LAUNCHES:
+            givens_mesh.LAUNCHES[k] = 0
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    def max_tree_diff(a, b):
+        if isinstance(a, dict):
+            return max(max_tree_diff(a[k], b[k]) for k in a)
+        return float((a.cpu() - b.cpu()).abs().max())
 
     # -- phase 2: the kernel against its plain version on the card ----------
     def params_for(n, seed):
@@ -222,29 +264,89 @@ def main() -> int:
     report["phase2_max_err_per_n"] = worst
     report["main_path_max_abs_err"] = main_err
 
-    launches: dict[str, int] = {}
+    def bwd_vs_plain(coef, par, x, g):
+        """B2 against its plain version and against autograd through the
+        plain forward; bit-identical dcoef over two calls.  Returns the
+        largest absolute error against the plain version."""
+        n = x.shape[1]
+        coef, par = coef.to(dev), par.to(dev)
+        y = givens_mesh.launch(coef, par, x)
+        dc, dx = givens_mesh.launch_backward(coef, par, y, g)
+        dc2, _ = givens_mesh.launch_backward(coef, par, y, g)
+        torch.cuda.synchronize()
+        check(torch.equal(dc, dc2), f"mesh_bwd dcoef differs between two "
+              f"calls (n={n}, B={x.shape[0]})")
+        pc, px = givens_mesh.mesh_backward_plain(coef, par, y, g)
+        cl = coef.clone().requires_grad_(True)
+        xl = x.clone().requires_grad_(True)
+        ac, ax = torch.autograd.grad(givens_mesh.mesh_forward_plain(cl, par, xl),
+                                     [cl, xl], grad_outputs=g)
+        for what, got, refs in (("dcoef", dc, (pc, ac)), ("dx", dx, (px, ax))):
+            for ref_name, ref in zip(("plain", "autograd"), refs):
+                scale = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                check(err <= 1e-5 * n * scale, f"mesh_bwd {what} vs {ref_name} "
+                      f"n={n} B={x.shape[0]}: {err} (scale {scale})")
+        if n > 2:
+            odd = (par == 1).nonzero().flatten()
+            check(bool((dc[odd, :, -1] == 0).all()), "odd wrap slot gradient")
+        return max(float((dc - pc).abs().max()), float((dx - px).abs().max()))
+
+    for n in (2, 8, 16, 64):
+        sched = schedule.clements_schedule(n)
+        par = schedule.parity_array(sched)
+        for hw in (None, PROTOTYPE):
+            coef = ops._mesh_coefficients(sched, params_for(n, n), hw, None)
+            for b in (1, 7, 130, 4096):
+                bwd_vs_plain(coef, par, rand_x(rng, b, n), rand_x(rng, b, n))
+        print(f"[2] n={n}: mesh_bwd == plain == autograd of the plain forward "
+              f"(ideal, PROTOTYPE; B 1..4096), dcoef bit-identical", flush=True)
+    cells = [(int(rng.integers(0, 15)), float(rng.uniform(0, np.pi)),
+              float(rng.uniform(0, 2 * np.pi))) for _ in range(48)]
+    plan, theta, phi = mesh_lib.pack_cells_to_columns(16, cells)
+    sched = schedule.schedule_from_plan(plan)
+    coef = ops._mesh_coefficients(sched, {"theta": theta, "phi": phi},
+                                  PROTOTYPE, None)
+    bwd_vs_plain(coef, schedule.parity_array(sched), rand_x(rng, 130, 16),
+                 rand_x(rng, 130, 16))
+    empty = torch.zeros(0, 16, dtype=torch.complex64, device=dev)
+    n_bwd = givens_mesh.LAUNCHES["mesh_bwd"]
+    dc0, dx0 = givens_mesh.launch_backward(
+        coef.to(dev), schedule.parity_array(sched, dev), empty, empty)
+    check(dx0.shape == (0, 16) and not bool(dc0.any())
+          and givens_mesh.LAUNCHES["mesh_bwd"] == n_bwd,
+          "B=0 backward must return zeros without a launch")
+    sched = schedule.clements_schedule(8)   # the SGD step's shape
+    coef = ops._mesh_coefficients(sched, params_for(8, 10), PROTOTYPE, None)
+    main_err_bwd = bwd_vs_plain(coef, schedule.parity_array(sched),
+                                rand_x(rng, SGD_BATCH, 8),
+                                rand_x(rng, SGD_BATCH, 8))
+    print(f"[2] mesh_bwd: mixed parity and B=0 ok; max err {main_err_bwd:.3e} "
+          f"at the SGD step's shape (n=8, B={SGD_BATCH})", flush=True)
+    report["main_path_max_abs_err_bwd"] = main_err_bwd
+
+    launches: dict[str, dict] = {}
 
     # -- phase 3: MNIST RFNN at full width ------------------------------------
     _, _, x_te, y_te = load_digits(n_train=0, n_test=1000, seed=0)
     model = MnistRFNN(analog=True, hardware=PROTOTYPE, quantize="table1")
     params = model.init(torch.Generator().manual_seed(0))
     check(params["w1"].device.type == "cuda", "MnistRFNN.init not on cuda")
-    givens_mesh.LAUNCHES["mesh_fwd"] = 0
+    reset_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
         logits = model.apply(params, x_te)
     torch.cuda.synchronize()
     mnist_s = time.perf_counter() - t0
-    launches["mnist"] = givens_mesh.LAUNCHES["mesh_fwd"]
-    check(launches["mnist"] >= 1, "MNIST apply never launched mesh_fwd")
+    launches["mnist"] = dict(givens_mesh.LAUNCHES)
+    check(launches["mnist"]["mesh_fwd"] >= 1, "MNIST apply never launched "
+          "mesh_fwd")
     check(tuple(logits.shape) == (1000, 10), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
     with torch.no_grad():
         ref = MnistRFNN(hardware=PROTOTYPE, quantize="table1",
                         backend="reference").apply(params, x_te)
-        cpu = model.apply({k: (v.cpu() if torch.is_tensor(v) else
-                               {kk: vv.cpu() for kk, vv in v.items()})
-                           for k, v in params.items()}, x_te)
+        cpu = model.apply(to_cpu(params), x_te)
     d_ref = float((logits - ref).abs().max())
     d_cpu = float((logits.cpu() - cpu).abs().max())
     torch.testing.assert_close(logits, ref, rtol=1e-5, atol=1e-5)
@@ -257,15 +359,134 @@ def main() -> int:
           f"|kernel-reference| {d_ref:.2e}, |card-cpu| {d_cpu:.2e}, "
           f"accuracy with random weights {acc:.3f}, first apply "
           f"{mnist_s * 1e3:.1f} ms, steady apply {steady_ms:.3f} ms, "
-          f"mesh_fwd launches {launches['mnist']}", flush=True)
+          f"launches {launches['mnist']}", flush=True)
     report["mnist"] = {"max_abs_vs_reference": d_ref, "max_abs_vs_cpu": d_cpu,
                        "first_apply_ms": mnist_s * 1e3,
                        "steady_apply_ms": steady_ms,
                        "launches": launches["mnist"]}
 
-    # -- phase 4: the 2x2 RFNN on the kernel path ------------------------------
+    # -- phase 4: training at full width ---------------------------------------
+    x_tr, y_tr, x_te3, y_te3 = load_digits(n_train=1000, n_test=300, seed=0)
+    epochs = 3
+    # Algorithm I: 2 stage-1 epochs, then 3 rounds of 1 epoch with the mesh
+    # frozen (train_mnist's own split of 3 epochs)
+    sgd_steps = (max(1, epochs * 2 // 3) + 3 * max(1, max(1, epochs // 3) // 3)) \
+        * (len(x_tr) // SGD_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = train_mnist(x_tr, y_tr, x_te3, y_te3, schedule="algorithm1",
+                      epochs=epochs, batch=SGD_BATCH, lr=0.005, seed=0,
+                      log_every=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches["train_mnist"] = dict(givens_mesh.LAUNCHES)
+    hist = res["history"]
+    check(len(hist) == 5, f"history {hist}")
+    check(all(np.isfinite(h["loss"]) for h in hist), f"non-finite loss {hist}")
+    check(hist[1]["loss"] < hist[0]["loss"], f"stage-1 loss did not fall: "
+          f"{hist[0]['loss']} -> {hist[1]['loss']}")
+    check(launches["train_mnist"]["mesh_bwd"] >= sgd_steps,
+          f"mesh_bwd launched {launches['train_mnist']['mesh_bwd']} times for "
+          f"{sgd_steps} SGD steps")
+    check(res["params"]["w1"].device.type == "cuda", "trained params left cuda")
+    print(f"[4] train_mnist(algorithm1, PROTOTYPE, table1, batch 10, lr 0.005, "
+          f"3 epochs, 1000 digits) on the card: {train_s:.1f} s, {sgd_steps} "
+          f"SGD steps, losses {[round(h['loss'], 5) for h in hist]}, train acc "
+          f"{res['train_acc']:.3f}, test acc {res['test_acc']:.3f}, launches "
+          f"{launches['train_mnist']}", flush=True)
+
+    tm = MnistRFNN(hardware=PROTOTYPE, quantize=None)
+    p0 = tm.init(torch.Generator().manual_seed(5))
+    kw = dict(epochs=1, batch=SGD_BATCH, lr=0.005, seed=11, log_every=1,
+              noisy_train=False)
+    reset_launches()
+    r_card = _train_loop(tm, p0, x_tr, y_tr, x_te3, y_te3, **kw)
+    launches["epoch"] = dict(givens_mesh.LAUNCHES)
+    r_cpu = _train_loop(tm, to_cpu(p0), x_tr, y_tr, x_te3, y_te3, **kw)
+    d_epoch = max_tree_diff(r_card["params"], r_cpu["params"])
+    check(d_epoch <= 1e-4, f"card vs CPU epoch params differ by {d_epoch}")
+    print(f"[4] one epoch of _train_loop (PROTOTYPE, continuous phases, 100 "
+          f"steps): card vs CPU params max |diff| {d_epoch:.2e} (bound 1e-4), "
+          f"loss {r_card['history'][0]['loss']:.6f} / "
+          f"{r_cpu['history'][0]['loss']:.6f}", flush=True)
+
+    def sgd_loop(model, noisy):
+        """A warmed-up SGD loop at batch 10 on the card's params: ``run(k)``
+        takes k steps (hardware noise from one generator when ``noisy``)."""
+        step = make_sgd_step(model.loss, lr=0.005)
+        state = {"p": model.init(torch.Generator().manual_seed(7))}
+        xb = torch.from_numpy(x_tr[:SGD_BATCH]).to(dev)
+        yb = torch.from_numpy(y_tr[:SGD_BATCH]).long().to(dev)
+        gen = torch.Generator().manual_seed(3) if noisy else None
+
+        def run(k):
+            for _ in range(k):
+                state["p"], (loss, _) = step(state["p"], xb, yb, gen)
+            return loss
+
+        run(5)
+        torch.cuda.synchronize()
+        return run
+
+    def sgd_step_ms(model, noisy, steps=50):
+        """Host ms per SGD step, ending in a synchronize."""
+        run = sgd_loop(model, noisy)
+        t0 = time.perf_counter()
+        loss = run(steps)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), "non-finite SGD loss")
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    step_model = MnistRFNN(hardware=PROTOTYPE, quantize="table1")
+    reset_launches()
+    step_ms = {"noiseless": [], "noisy": []}
+    for noisy in (False, True, True, False):
+        step_ms["noisy" if noisy else "noiseless"].append(
+            sgd_step_ms(step_model, noisy))
+    launches["sgd_steps"] = dict(givens_mesh.LAUNCHES)
+    print(f"[4] SGD step, MnistRFNN(PROTOTYPE, table1) at batch 10: noiseless "
+          f"{step_ms['noiseless']} ms, with hardware noise (host draws) "
+          f"{step_ms['noisy']} ms per step (runs in the order noiseless, "
+          f"noisy, noisy, noiseless)", flush=True)
+
+    # device time inside a noiseless step, from the profiler's device events
+    run = sgd_loop(step_model, False)
+    prof_steps = 20
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(prof_steps)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(dev_events) > 0, "the profiler recorded no device events")
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events) / prof_steps
+    ours_us = {k: sum(e.time_range.elapsed_us() for e in dev_events
+                      if k in e.name) / prof_steps
+               for k in ("mesh_fwd_kernel", "mesh_bwd_kernel", "mesh_bwd_reduce")}
+    check(ours_us["mesh_fwd_kernel"] > 0 and ours_us["mesh_bwd_kernel"] > 0,
+          f"the profiled SGD steps show no mesh kernel: {ours_us}")
+    step_mean = sum(step_ms["noiseless"]) / len(step_ms["noiseless"])
+    profile_row = {"device_events_per_step": len(dev_events) / prof_steps,
+                   "device_busy_us_per_step": busy_us,
+                   "busy_share_of_step": busy_us / (step_mean * 1e3),
+                   "mesh_kernels_us_per_step": ours_us}
+    per_step = profile_row["device_events_per_step"]
+    print(f"[4] profiler, noiseless SGD step: {per_step:.0f} device events "
+          f"and {busy_us:.1f} us of device time per "
+          f"step, {100 * profile_row['busy_share_of_step']:.1f}% of the "
+          f"{step_mean:.3f} ms step; mesh kernels per step (us) {ours_us}",
+          flush=True)
+    report["train"] = {"train_mnist_s": train_s, "sgd_steps": sgd_steps,
+                       "history": hist, "train_acc": res["train_acc"],
+                       "test_acc": res["test_acc"],
+                       "epoch_card_vs_cpu_max_abs": d_epoch,
+                       "sgd_step_ms": step_ms, "sgd_step_profile": profile_row,
+                       "launches": launches}
+
+    # -- phase 5: the 2x2 RFNN on the kernel path ------------------------------
     p2 = {"w": np.asarray([0.9, -1.1], np.float32), "b": np.float32(0.2)}
-    givens_mesh.LAUNCHES["mesh_fwd"] = 0
+    reset_launches()
     for hw, golden in ((IDEAL, GOLDEN_2X2_MAP), (PROTOTYPE,
                                                  GOLDEN_2X2_MAP_PROTO)):
         grid, zmap = decision_map(RFNN2x2(hardware=hw), p2, 3, 5, lim=30.0,
@@ -274,16 +495,39 @@ def main() -> int:
         np.testing.assert_allclose(zmap, np.asarray(golden, np.float32),
                                    atol=2e-5)
     _, zk = decision_map(RFNN2x2(), p2, 1, 4, n=41)
-    launches["rfnn2x2"] = givens_mesh.LAUNCHES["mesh_fwd"]
-    check(launches["rfnn2x2"] >= 3, "2x2 maps did not launch mesh_fwd")
+    launches["rfnn2x2"] = dict(givens_mesh.LAUNCHES)
+    check(launches["rfnn2x2"]["mesh_fwd"] >= 3, "2x2 maps did not launch "
+          "mesh_fwd")
     _, zr = decision_map(RFNN2x2(backend="reference"), p2, 1, 4, n=41)
     check(zk.shape == (41, 41), f"41x41 map shape {zk.shape}")
     np.testing.assert_allclose(zk, zr, atol=2e-5)
-    print(f"[4] 2x2 goldens (IDEAL, PROTOTYPE) ok on the kernel path; 41x41 "
-          f"map == reference ({float(np.abs(zk - zr).max()):.1e}); mesh_fwd "
-          f"launches {launches['rfnn2x2']}", flush=True)
+    print(f"[5] 2x2 goldens (IDEAL, PROTOTYPE) ok on the kernel path; 41x41 "
+          f"map == reference ({float(np.abs(zk - zr).max()):.1e}); launches "
+          f"{launches['rfnn2x2']}", flush=True)
+    x2, y2 = make_toy_dataset("corner", n=160, seed=2)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, post_card, codes_card, info_card = train_rfnn2x2(x2, y2, method="search",
+                                                       seed=0)
+    torch.cuda.synchronize()
+    train2_s = time.perf_counter() - t0
+    launches["train_rfnn2x2"] = dict(givens_mesh.LAUNCHES)
+    check(launches["train_rfnn2x2"]["mesh_fwd"] >= 6, "2x2 search did not "
+          "measure through mesh_fwd")
+    _, post_cpu, codes_cpu, info_cpu = train_rfnn2x2(x2, y2, method="search",
+                                                     seed=0, device="cpu")
+    d_post = max_tree_diff(post_card, post_cpu)
+    check(codes_card == codes_cpu, f"2x2 codes {codes_card} vs {codes_cpu}")
+    check(d_post <= 1e-5, f"2x2 post params differ by {d_post}")
+    print(f"[5] train_rfnn2x2(search) on the card in {train2_s:.2f} s: codes "
+          f"{codes_card} == CPU, post params max |diff| {d_post:.1e}, train acc "
+          f"{info_card['train_acc']:.4f} (CPU {info_cpu['train_acc']:.4f}); "
+          f"launches {launches['train_rfnn2x2']}", flush=True)
+    report["rfnn2x2_train"] = {"codes": codes_card, "post_max_abs": d_post,
+                               "train_acc": info_card["train_acc"],
+                               "seconds": train2_s}
 
-    # -- phase 5: serving the deployed 8x8 processor ---------------------------
+    # -- phase 6: serving the deployed 8x8 processor ---------------------------
     proc = AnalogUnitary(n=8, hardware=PROTOTYPE, quantize="table1",
                          output="abs")
     pparams = proc.init(torch.Generator().manual_seed(1))
@@ -291,7 +535,7 @@ def main() -> int:
     with torch.no_grad():
         direct = [proc.apply(pparams, torch.from_numpy(feats[i:i + 1]))
                   .cpu().numpy()[0] for i in range(256)]
-    givens_mesh.LAUNCHES["mesh_fwd"] = 0
+    reset_launches()
     engine = ServingEngine(proc, pparams, slots=64)
     reqs = [Request(i, features=f) for i, f in enumerate(feats)]
     for r in reqs:
@@ -304,8 +548,9 @@ def main() -> int:
         for r in treqs:
             check(threaded.submit(r), "submit refused")
         check(all(r.wait(timeout=120) for r in treqs), "requests not served")
-    launches["serving"] = givens_mesh.LAUNCHES["mesh_fwd"]
-    check(launches["serving"] >= 8, "serving did not launch mesh_fwd per tick")
+    launches["serving"] = dict(givens_mesh.LAUNCHES)
+    check(launches["serving"]["mesh_fwd"] >= 8, "serving did not launch "
+          "mesh_fwd per tick")
     worst_req = 0.0
     for r, t, d in zip(reqs, treqs, direct):
         check(r.done and not r.failed and t.done and not t.failed,
@@ -318,16 +563,16 @@ def main() -> int:
                         float(np.abs(t.result - d).max()))
     check(sync_stats["served"] == 256 and threaded.stats["served"] == 256,
           "not every request served")
-    print(f"[5] engine: 256 requests via run() and via the dispatch thread "
-          f"== direct apply (max diff {worst_req:.1e}); mesh_fwd launches "
+    print(f"[6] engine: 256 requests via run() and via the dispatch thread "
+          f"== direct apply (max diff {worst_req:.1e}); launches "
           f"{launches['serving']}", flush=True)
-    print(f"[5] run() stats {json.dumps(sync_stats)}", flush=True)
-    print(f"[5] thread stats {json.dumps(threaded.stats)}", flush=True)
+    print(f"[6] run() stats {json.dumps(sync_stats)}", flush=True)
+    print(f"[6] thread stats {json.dumps(threaded.stats)}", flush=True)
     report["serving"] = {"run": sync_stats, "thread": threaded.stats,
                          "max_diff_vs_direct": worst_req,
                          "launches": launches["serving"]}
 
-    # -- phase 6: times at n = 8 -----------------------------------------------
+    # -- phase 7: times at n = 8 -----------------------------------------------
     n = 8
     plan = mesh_lib.clements_plan(n)
     sched = schedule.clements_schedule(n)
@@ -340,6 +585,18 @@ def main() -> int:
     torch.testing.assert_close(torch.matmul(x, mat.T),
                                givens_mesh.mesh_forward(coef, par, x),
                                rtol=0, atol=1e-5 * n)  # the same function
+    g = rand_x(rng, 1000, n)
+    torch.testing.assert_close(   # dx = M^H g per row: the same function
+        torch.matmul(g, mat.conj()),
+        givens_mesh.launch_backward(coef, par, givens_mesh.launch(coef, par, x),
+                                    g)[1], rtol=0, atol=1e-5 * n)
+
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
     rows = []
     for b in (64, 1000, 65536):
         x = rand_x(rng, b, n)
@@ -356,41 +613,87 @@ def main() -> int:
         ld_ms = device_ms(torch, lambda: torch.matmul(x, mat.T), 100)
         nbytes = 2 * b * n * 8 + coef.numel() * 4 + par.numel() * 4
         flops = FLOPS_PER_PAIR * b * pairs
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, flops)
         row = {"B": b, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
                "plain_ms": p_ms, "mesh_apply_ms": a_ms, "matmul_ms": l_ms,
-               "matmul_device_ms": ld_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes, "flops": flops}
+               "matmul_device_ms": ld_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
         rows.append(row)
-        print(f"[6] {card} | n=8 B={b}: kernel {k_ms:.5f} ms per call, "
-              f"{kd_ms:.5f} ms on the device; bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']}); plain {p_ms:.4f} ms per call (it reads "
-              f"the parities back to the host); mesh_apply "
+        print(f"[7] {card} | mesh_fwd n=8 B={b}: kernel {k_ms:.5f} ms per "
+              f"call, {kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
+              f"({bound_by}); plain {p_ms:.4f} ms per call; mesh_apply "
               f"{a_ms:.4f} ms; matmul {l_ms:.5f} ms per call, {ld_ms:.5f} ms "
               f"on the device", flush=True)
     report["timings_n8"] = rows
+
+    rows_bwd = []
+    for b in (SGD_BATCH, 1000, 65536):
+        x, g = rand_x(rng, b, n), rand_x(rng, b, n)
+        y = givens_mesh.launch(coef, par, x)
+        iters = 200 if b < 65536 else 100
+        k_ms = cuda_ms(torch, lambda: givens_mesh.launch_backward(
+            coef, par, y, g), iters)
+        kd_ms = device_ms(torch, lambda: givens_mesh.launch_backward(
+            coef, par, y, g), 100)
+        p_ms = cuda_ms(torch, lambda: givens_mesh.mesh_backward_plain(
+            coef, par, y, g), 10)
+        l_ms = cuda_ms(torch, lambda: torch.matmul(g, mat.conj()), iters)
+        ld_ms = device_ms(torch, lambda: torch.matmul(g, mat.conj()), 100)
+        # read y and g, write dx; read coef and parity, write dcoef
+        nbytes = 3 * b * n * 8 + 2 * coef.numel() * 4 + par.numel() * 4
+        flops = FLOPS_PER_PAIR_BWD * b * pairs \
+            + FLOPS_PER_CELL_INV * coef.shape[0] * coef.shape[2]
+        bound_ms, bound_by = bound(nbytes, flops)
+        row = {"B": b, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+               "plain_ms": p_ms, "matmul_dx_only_ms": l_ms,
+               "matmul_dx_only_device_ms": ld_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        rows_bwd.append(row)
+        print(f"[7] {card} | mesh_bwd n=8 B={b}: kernel {k_ms:.5f} ms per "
+              f"call, {kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
+              f"({bound_by}); plain {p_ms:.4f} ms per call; matmul for the dx "
+              f"half alone {l_ms:.5f} ms per call, {ld_ms:.5f} ms on the "
+              f"device", flush=True)
+    report["timings_bwd_n8"] = rows_bwd
+    step_ms_mean = sum(step_ms["noiseless"]) / len(step_ms["noiseless"])
+    print(f"[7] {card} | SGD step, MnistRFNN(PROTOTYPE, table1), batch 10: "
+          f"{step_ms_mean:.3f} ms, {1e3 / step_ms_mean:.1f} steps/s "
+          f"(noiseless, mean of two runs of 50 steps)", flush=True)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 7: the kernels line and the device line -------------------------
-    main = next(r for r in rows if r["B"] == 1000)   # the MNIST test batch
+    # -- phase 8: the kernels line and the device line -------------------------
+    main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving")
+    fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
+    bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{
         "name": "mesh_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mesh_fwd.cu",
         "replaces": "src/repro/kernels/givens_mesh.py:109",
-        "launches": sum(launches.values()),
+        "launches": sum(launches[k]["mesh_fwd"] for k in main_path),
         "max_abs_err": main_err,
-        "ms": main["kernel_device_ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["matmul_device_ms"],
+        "ms": fwd["kernel_device_ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": fwd["matmul_device_ms"],
+    }, {
+        "name": "mesh_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mesh_bwd.cu",
+        "replaces": "src/repro/kernels/givens_mesh.py:321",
+        "launches": sum(launches[k]["mesh_bwd"] for k in main_path),
+        "max_abs_err": main_err_bwd,
+        "ms": bwd["kernel_device_ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        # no single PyTorch call computes (dcoef, dx): torch.matmul(g, M^*)
+        # is the dx half alone
+        "library_ms": bwd["matmul_dx_only_device_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

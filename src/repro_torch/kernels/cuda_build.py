@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled by one ``nvcc`` call for
 ``sm_90a`` into a shared library with a plain C interface (loaded with
 ``ctypes``), inside ``kernels/_build/`` (listed in ``.gitignore``).  The
 library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is built when a
+rebuilt and a stale library is never loaded.  Each source has its own lock,
+so threads loading different kernels run their ``nvcc`` builds at once.  Nothing is built when a
 module is imported: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -24,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -54,7 +56,9 @@ def library_path(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
     A failed build raises with nvcc's stderr."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib

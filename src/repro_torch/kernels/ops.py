@@ -7,6 +7,11 @@ PyTorch, and run the column sweep through
 :func:`repro_torch.kernels.givens_mesh.mesh_forward`: the CUDA kernel on a
 CUDA tensor, its plain version on a CPU tensor.
 
+Both are differentiable with respect to the params (or ``t_all``), the
+screens and ``x``: the sweep's backward is kernel B2 on a CUDA tensor and
+its plain version on a CPU tensor, and autograd carries the gradient
+through the coefficient build and the screens around it.
+
 The JAX package's ``_auto_block``/``_pad_batch`` sized batch blocks for the
 TPU's VMEM; the CUDA kernel masks the ragged last tile itself, so there is
 no ``block_b`` argument here.
