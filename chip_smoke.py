@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, ``PATH`` or
 ``/usr/local/cuda``) and the repository's ``src/`` beside this file; it
 imports nothing of JAX.  Phases (each raises on failure, so the script
 exits non-zero):
 
-1. card name and power limit; build both CUDA kernels from ``csrc/``, one
-   ``nvcc`` each, started together;
+1. card name and power limit; build the four CUDA libraries from ``csrc/``
+   (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``, all
+   including the shared ``mesh_sweep.cuh``), one ``nvcc`` each, started
+   together;
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -18,7 +20,12 @@ exits non-zero):
    4096}, ideal and PROTOTYPE, a mixed-parity schedule, B = 0 and the
    training step's shape, against its plain version and against autograd
    through the plain forward (each output within 1e-5 * n of its largest
-   magnitude), with bit-identical ``dcoef`` over two calls;
+   magnitude), with bit-identical ``dcoef`` over two calls; then the fused
+   layer's kernels B3, B4 and B5 for n in {2, 8, 16, 64}, B in {1, 7, 130,
+   4096}, Clements and Reck plans (Cv != Cu), ideal and PROTOTYPE, zero
+   attenuations, zero input rows and B = 0, against their plain versions
+   (B5 also against autograd through the plain B4), with bit-identical
+   ``dcv``/``dcu``/``dg`` over two calls;
 3. ``MnistRFNN`` (8x8 analog mesh, PROTOTYPE hardware, Table-I phases) at
    full width on 1000 procedural digits: kernel-path logits against the
    reference backend on the card and the plain path on the CPU;
@@ -31,19 +38,30 @@ exits non-zero):
    ``train_rfnn2x2(method="search")`` on the card against the CPU;
 6. ``ServingEngine`` on the deployed 8x8 processor: 256 requests through
    ``run()`` and through the dispatch thread, each equal to a direct apply;
-7. times at n = 8 with CUDA events: each kernel (per call, and on the
+7. the paper's Eq. 31 processor at full width (n = 8): an 8x8 matrix W from
+   ``--seed`` programmed into ``AnalogLinear(8, 8, output="abs")`` by
+   ``init_from_matrix`` and applied to 4096 inputs (|W x| within
+   1e-4 * max, B3 only); ``svd_synthesis.synthesize`` of a 3x5 matrix; the
+   ``fit`` program of W on the card, and 100 steps of it against the CPU;
+8. training the fused layer at full width: ``AnalogLinear(8, 8, "abs",
+   "table1", PROTOTYPE)`` learns |W x| of a second seeded layer through
+   ``make_sgd_step`` (batch 1000): the loss falls below half its start
+   within 40 steps, 20 steps agree with the CPU within 1e-5, B4 and B5
+   launch once per step and B3 never;
+9. times at n = 8 with CUDA events: each kernel (per call, and on the
    device alone), its bound, its plain version and a ``torch.matmul``
    yardstick, the whole ``mesh_apply`` and the SGD step;
-8. the ``kernels`` line and, last, the ``ok``/``device`` line.
+10. the ``kernels`` line and, last, the ``ok``/``device`` line.
 
-Every launch count is reset just before phases 3, 4, 5 and 6 (the main
-path) and read just after; launches made in phases 2 and 7 do not count.
-Timings are also written to
-``chiprun_out/chip_smoke.json``.
+Every launch count is reset just before each main-path phase (3 to 8) and
+read just after; launches made in phases 2 and 9 do not count.  Timings
+are also written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,8 +79,16 @@ FLOPS_PER_PAIR = 28            # two outputs x (2 complex mul + 1 complex add)
 # conjugate products and their batch sums (32), the adjoint 2x2 product (28)
 FLOPS_PER_PAIR_BWD = 88
 FLOPS_PER_CELL_INV = 43        # det, |det|^2, 1/det and adj(t)/det, per cell
-KERNELS = ("mesh_fwd", "mesh_bwd")
+# fused layer, per row and channel: the two gain products and |.| (16);
+# backward: the |.| backward, both gains' conjugate products and row sums
+FLOPS_PER_CHANNEL_FUSED = 16
+FLOPS_PER_CHANNEL_FUSED_BWD = 41
+LIBRARIES = ("mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd")
 SGD_BATCH = 10                 # the paper's minibatch
+PROC_BATCH = 4096              # inputs through the programmed processor
+FUSED_BATCH = 1000             # the fused layer's training batch
+FUSED_LR = 60.0                # set on the CPU run of the port (seed 0)
+FUSED_STEPS = 40               # the loss halves by step 33 there
 
 # decision_map(net, {w: [0.9, -1.1], b: 0.2}, 3, 5, n=5) of the JAX package,
 # pinned in tests/test_golden.py: the ideal device and the PROTOTYPE device.
@@ -137,7 +163,29 @@ def device_ms(torch, fn, iters: int, warmup: int = 5) -> float:
     return events[1].elapsed_time(events[2]) / iters
 
 
-def main() -> int:
+def profile_steps(torch, run, steps: int, names) -> tuple:
+    """``run(steps)`` under ``torch.profiler``: device events per step,
+    device-busy us per step and the us per step of the kernels whose names
+    contain each of ``names``."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(dev_events) > 0, "the profiler recorded no device events")
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events) / steps
+    ours_us = {k: sum(e.time_range.elapsed_us() for e in dev_events
+                      if k in e.name) / steps for k in names}
+    return len(dev_events) / steps, busy_us, ours_us
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the Eq. 31 phases' matrices and inputs")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -151,12 +199,14 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch import compile as compile_mod
+    from repro_torch.core import decompose, svd_synthesis
     from repro_torch.core import mesh as mesh_lib
-    from repro_torch.core.analog_linear import AnalogUnitary
+    from repro_torch.core.analog_linear import AnalogLinear, AnalogUnitary
     from repro_torch.core.hardware import IDEAL
     from repro_torch.data.digits import load_digits
     from repro_torch.data.toys import make_toy_dataset
-    from repro_torch.kernels import cuda_build, givens_mesh, ops, schedule
+    from repro_torch.kernels import cuda_build, givens_mesh, ops, ref, schedule
     from repro_torch.paper.mnist_rfnn import MnistRFNN, _train_loop, train_mnist
     from repro_torch.paper.prototype import PROTOTYPE
     from repro_torch.paper.rfnn2x2 import RFNN2x2, decision_map, train_rfnn2x2
@@ -179,8 +229,8 @@ def main() -> int:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        build_s = dict(zip(KERNELS, pool.map(timed_load, KERNELS)))
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
@@ -325,6 +375,121 @@ def main() -> int:
           f"at the SGD step's shape (n=8, B={SGD_BATCH})", flush=True)
     report["main_path_max_abs_err_bwd"] = main_err_bwd
 
+    def fused_inputs(n, hw, plans, zero_atten, seed):
+        """Coefficients, parities and gains of a fused layer on the card.
+        ``plans``: "clements" (both meshes), "reck_v" (a Reck V over a
+        Clements U: Cv != Cu) or "reck" (both Reck, as ``init_from_matrix``
+        programs them).  Random complex gains with, optionally, exact zeros
+        in g1 (zero attenuations)."""
+        def mesh(reck, s):
+            if not reck:
+                return schedule.clements_schedule(n), params_for(n, s)
+            plan, p = decompose.reck_program(decompose.random_unitary(n, s),
+                                             device="cpu")
+            return schedule.schedule_from_plan(plan), p
+
+        sv, vp = mesh(plans != "clements", seed)
+        su, up = mesh(plans == "reck", seed + 1)
+        gains = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(8, n // 2)).astype(np.float32))
+        if zero_atten:
+            gains[:2, : max(1, n // 4)] = 0.0
+        return [t.to(dev) for t in (
+            ops._mesh_coefficients(sv, vp, hw, None), schedule.parity_array(sv),
+            ops._mesh_coefficients(su, up, hw, None), schedule.parity_array(su),
+            gains)]
+
+    def max_rel_check(what, got, want, n):
+        """|got - want| within 1e-5 * n of want's largest magnitude."""
+        if want.numel() == 0:
+            return 0.0
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * n * max(scale, 1e-30),
+              f"{what}: {err} (scale {scale})")
+        return err
+
+    def fused_vs_plain(inputs, x, g, autograd=True):
+        """B3, B4 and B5 against their plain versions (B5 also against
+        autograd through the plain B4); bit-identical gradients over two
+        calls.  Returns the largest absolute error against the plain
+        versions: (forward, backward)."""
+        n = x.shape[1]
+        out3 = givens_mesh.launch_rfnn(*inputs, x)
+        out4, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
+        grads = givens_mesh.launch_rfnn_backward(*inputs, v, u, g)
+        grads2 = givens_mesh.launch_rfnn_backward(*inputs, v, u, g)
+        torch.cuda.synchronize()
+        for a, c in zip(grads[:3], grads2[:3]):
+            check(torch.equal(a, c), f"rfnn_bwd gradients differ between two "
+                  f"calls (n={n}, B={x.shape[0]})")
+        pout, pv, pu = givens_mesh.rfnn_forward_plain(*inputs, x)
+        tag = f"n={n} B={x.shape[0]} Cv={inputs[0].shape[0]}"
+        e_fwd = max(max_rel_check(f"rfnn_fwd {tag}", out3, pout, n),
+                    max_rel_check(f"rfnn_fwd_res out {tag}", out4, pout, n),
+                    max_rel_check(f"rfnn_fwd_res post-V {tag}", v, pv, n),
+                    max_rel_check(f"rfnn_fwd_res post-U {tag}", u, pu, n))
+        plain = givens_mesh.rfnn_backward_plain(*inputs, v, u, g)
+        names = ("dcv", "dcu", "dg", "dx")
+        e_bwd = max(max_rel_check(f"rfnn_bwd {k} vs plain {tag}", a, b, n)
+                    for k, a, b in zip(names, grads, plain))
+        check(all(bool(torch.isfinite(t).all()) for t in grads),
+              f"rfnn_bwd non-finite gradients {tag}")
+        if autograd:
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (inputs[0], inputs[2], inputs[4], x)]
+            o, _, _ = ref.rfnn_linear_planes(leaves[0], inputs[1], leaves[1],
+                                             inputs[3], leaves[2], leaves[3])
+            auto = torch.autograd.grad(o, leaves, grad_outputs=g)
+            for k, a, b in zip(names, grads, auto):
+                max_rel_check(f"rfnn_bwd {k} vs autograd {tag}", a, b, n)
+        return e_fwd, e_bwd
+
+    for n in (2, 8, 16, 64):
+        for hw, plans in ((None, "clements"), (PROTOTYPE, "clements"),
+                          (None, "reck_v"), (PROTOTYPE, "reck_v")):
+            inputs = fused_inputs(n, hw, plans, plans == "reck_v", seed=n)
+            for b in (1, 7, 130, 4096):
+                x = rand_x(rng, b, n)
+                g = torch.from_numpy(rng.normal(size=(b, n)).astype(
+                    np.float32)).to(dev)
+                zero_rows = b == 130
+                if zero_rows:  # |.| at the origin: exactly zero, finite grads
+                    x[::9] = 0
+                fused_vs_plain(inputs, x, g, autograd=not zero_rows)
+        print(f"[2] n={n}: rfnn_fwd (B3), rfnn_fwd_res (B4) and rfnn_bwd (B5) "
+              f"== plain, B5 == autograd of the plain B4 (Clements and Reck "
+              f"V, ideal and PROTOTYPE, zero attenuations and input rows; "
+              f"B 1..4096), gradients bit-identical", flush=True)
+    inputs = fused_inputs(8, None, "reck_v", False, seed=3)
+    empty = torch.zeros(0, 8, dtype=torch.complex64, device=dev)
+    n_before = dict(givens_mesh.LAUNCHES)
+    out0, v0, u0 = givens_mesh.launch_rfnn(*inputs, empty, save_stages=True)
+    grads0 = givens_mesh.launch_rfnn_backward(
+        *inputs, v0, u0, torch.zeros(0, 8, device=dev))
+    check(givens_mesh.LAUNCHES == n_before and out0.shape == (0, 8)
+          and grads0[3].shape == (0, 8)
+          and not any(bool(t.any()) for t in grads0[:3]),
+          "B=0 must return empty outputs and zero gradients without a launch")
+    # the main path's shapes: the programmed processor (Reck V and U) at
+    # B = 4096, the fused layer's training step (Clements, PROTOTYPE) at 1000
+    proc_inputs = fused_inputs(8, None, "reck", False, seed=5)
+    check(proc_inputs[0].shape[0] == proc_inputs[2].shape[0] == 13,
+          f"a Reck program at n = 8 has {proc_inputs[0].shape[0]} parity "
+          "columns, not 13")
+    main_err_fused = fused_vs_plain(proc_inputs, rand_x(rng, PROC_BATCH, 8),
+                                    torch.rand(PROC_BATCH, 8, device=dev))
+    main_err_fused_train = fused_vs_plain(
+        fused_inputs(8, PROTOTYPE, "clements", False, seed=6),
+        rand_x(rng, FUSED_BATCH, 8), torch.rand(FUSED_BATCH, 8, device=dev))
+    print(f"[2] fused kernels: B=0 ok; max err vs plain {main_err_fused[0]:.3e} "
+          f"(B3, programmed processor, B={PROC_BATCH}), "
+          f"{main_err_fused_train[0]:.3e} (B4) and {main_err_fused_train[1]:.3e} "
+          f"(B5) at the training step (B={FUSED_BATCH})", flush=True)
+    report["main_path_max_abs_err_fused"] = {
+        "rfnn_fwd": main_err_fused[0], "rfnn_fwd_res": main_err_fused_train[0],
+        "rfnn_bwd": main_err_fused_train[1]}
+
     launches: dict[str, dict] = {}
 
     # -- phase 3: MNIST RFNN at full width ------------------------------------
@@ -450,28 +615,16 @@ def main() -> int:
           f"noisy, noisy, noiseless)", flush=True)
 
     # device time inside a noiseless step, from the profiler's device events
-    run = sgd_loop(step_model, False)
-    prof_steps = 20
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        run(prof_steps)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(dev_events) > 0, "the profiler recorded no device events")
-    busy_us = sum(e.time_range.elapsed_us() for e in dev_events) / prof_steps
-    ours_us = {k: sum(e.time_range.elapsed_us() for e in dev_events
-                      if k in e.name) / prof_steps
-               for k in ("mesh_fwd_kernel", "mesh_bwd_kernel", "mesh_bwd_reduce")}
+    per_step, busy_us, ours_us = profile_steps(
+        torch, sgd_loop(step_model, False), 20,
+        ("mesh_fwd_kernel", "mesh_bwd_kernel", "reduce_partials"))
     check(ours_us["mesh_fwd_kernel"] > 0 and ours_us["mesh_bwd_kernel"] > 0,
           f"the profiled SGD steps show no mesh kernel: {ours_us}")
     step_mean = sum(step_ms["noiseless"]) / len(step_ms["noiseless"])
-    profile_row = {"device_events_per_step": len(dev_events) / prof_steps,
+    profile_row = {"device_events_per_step": per_step,
                    "device_busy_us_per_step": busy_us,
                    "busy_share_of_step": busy_us / (step_mean * 1e3),
                    "mesh_kernels_us_per_step": ours_us}
-    per_step = profile_row["device_events_per_step"]
     print(f"[4] profiler, noiseless SGD step: {per_step:.0f} device events "
           f"and {busy_us:.1f} us of device time per "
           f"step, {100 * profile_row['busy_share_of_step']:.1f}% of the "
@@ -572,7 +725,145 @@ def main() -> int:
                          "max_diff_vs_direct": worst_req,
                          "launches": launches["serving"]}
 
-    # -- phase 7: times at n = 8 -----------------------------------------------
+    # -- phase 7: the Eq. 31 processor at full width ---------------------------
+    rng_w = np.random.default_rng(args.seed)
+    w = rng_w.normal(size=(8, 8))
+    proc = AnalogLinear(8, 8, output="abs")
+    x_proc = torch.from_numpy(rng_w.normal(size=(PROC_BATCH, 8)).astype(
+        np.float32)).to(dev)
+    m35 = rng_w.normal(size=(3, 5))
+    reset_launches()
+    t0 = time.perf_counter()
+    proc_params = proc.init_from_matrix(w)
+    check(proc_params["atten_logit"].device.type == "cuda",
+          "init_from_matrix did not program the card")
+    with torch.no_grad():
+        y_proc = proc.apply(proc_params, x_proc)
+    torch.cuda.synchronize()
+    proc_ms = (time.perf_counter() - t0) * 1e3
+    launches["processor_apply"] = dict(givens_mesh.LAUNCHES)
+    want = np.abs(x_proc.cpu().numpy().astype(np.float64) @ w.T)
+    d_proc = float(np.abs(y_proc.cpu().numpy() - want).max())
+    check(tuple(y_proc.shape) == (PROC_BATCH, 8), f"processor output "
+          f"{tuple(y_proc.shape)}")
+    check(d_proc <= 1e-4 * want.max(), f"programmed processor vs |W x|: "
+          f"{d_proc} (max {want.max()})")
+    check(launches["processor_apply"] == {**{k: 0 for k in givens_mesh.LAUNCHES},
+                                          "rfnn_fwd": 1},
+          f"the programmed processor's inference must launch B3 once and "
+          f"nothing else: {launches['processor_apply']}")
+    proc_cpu = AnalogLinear(8, 8, output="abs")
+    with torch.no_grad():
+        y_proc_cpu = proc_cpu.apply(proc_cpu.init_from_matrix(w, device="cpu"),
+                                    x_proc.cpu())
+    d_proc_cpu = float((y_proc.cpu() - y_proc_cpu).abs().max())
+    check(d_proc_cpu <= 1e-5 * 8 * want.max(), f"processor card vs CPU "
+          f"{d_proc_cpu}")
+    print(f"[7] AnalogLinear(8, 8, abs).init_from_matrix(W) on the card (Reck "
+          f"plans, {proc.n_cells()} cells, {proc_params['v']['theta'].shape[0]} "
+          f"plan columns per mesh): {PROC_BATCH} inputs, max |y - |W x|| "
+          f"{d_proc:.2e} (bound {1e-4 * want.max():.2e}), card vs CPU "
+          f"{d_proc_cpu:.2e}, program + first apply {proc_ms:.1f} ms, "
+          f"launches {launches['processor_apply']}", flush=True)
+
+    reset_launches()
+    syn = svd_synthesis.synthesize(m35)
+    syn_err = svd_synthesis.synthesis_error(m35, syn)
+    check(syn_err < 1e-4, f"svd_synthesis of a 3x5 matrix: {syn_err}")
+    check(float(syn.attenuation.max()) <= 1 + 1e-6, "attenuation above 1")
+    t0 = time.perf_counter()
+    prog = compile_mod.program(compile_mod.synthesize(w), method="fit")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_err = compile_mod.program_error(prog)
+    launches["processor_program"] = dict(givens_mesh.LAUNCHES)
+    check(launches["processor_program"]["mesh_fwd"] >= 2 * 1500
+          and launches["processor_program"]["mesh_bwd"] >= 2 * 1500,
+          f"the fit did not run on B1/B2: {launches['processor_program']}")
+    check(fit_err < 0.1, f"fit program error {fit_err}")
+    short_card = compile_mod.program(compile_mod.synthesize(w), method="fit",
+                                     steps=100)
+    short_cpu = compile_mod.program(compile_mod.synthesize(w, device="cpu"),
+                                    method="fit", steps=100)
+    d_fit = max(max_tree_diff(a.v_params, b.v_params) for a, b in
+                zip(short_card.layers, short_cpu.layers))
+    d_fit = max(d_fit, max(max_tree_diff(a.u_params, b.u_params) for a, b in
+                           zip(short_card.layers, short_cpu.layers)))
+    check(d_fit <= 1e-5, f"fit card vs CPU after 100 steps: {d_fit}")
+    print(f"[7] svd_synthesis(3x5) error {syn_err:.2e}; program(synthesize(W), "
+          f"fit, 1500 AdamW steps per mesh) on the card in {fit_s:.1f} s: "
+          f"program_error {fit_err:.3e}; 100 steps card vs CPU params max "
+          f"|diff| {d_fit:.2e} (bound 1e-5); launches "
+          f"{launches['processor_program']}", flush=True)
+    report["processor"] = {"max_abs_vs_abs_wx": d_proc,
+                           "card_vs_cpu": d_proc_cpu,
+                           "svd_synthesis_3x5_error": syn_err,
+                           "fit_program_error": fit_err, "fit_s": fit_s,
+                           "fit_100_card_vs_cpu": d_fit,
+                           "launches": {k: launches[k] for k in (
+                               "processor_apply", "processor_program")}}
+
+    # -- phase 8: training the fused layer at full width ------------------------
+    layer_t = AnalogLinear(8, 8, output="abs", quantize="table1",
+                           hardware=PROTOTYPE)
+
+    def fused_training(device, steps):
+        """``steps`` SGD steps of a seeded student toward a second seeded
+        layer's |W x| on ``FUSED_BATCH`` inputs; returns the params and the
+        losses (tensors)."""
+        teacher = layer_t.init(torch.Generator().manual_seed(args.seed + 1),
+                               device=device)
+        xb = torch.from_numpy(np.random.default_rng(args.seed).normal(
+            size=(FUSED_BATCH, 8)).astype(np.float32)).to(device)
+        with torch.no_grad():
+            yb = layer_t.apply(teacher, xb)
+
+        def loss_fn(p, xx, yy):
+            loss = ((layer_t.apply(p, xx) - yy) ** 2).mean()
+            return loss, loss
+
+        step = make_sgd_step(loss_fn, lr=FUSED_LR)
+        p = layer_t.init(torch.Generator().manual_seed(args.seed),
+                         device=device)
+        if torch.device(device).type == "cuda":
+            reset_launches()
+        losses = []
+        for _ in range(steps):
+            p, (loss, _) = step(p, xb, yb)
+            losses.append(loss)
+        return p, losses
+
+    t0 = time.perf_counter()
+    p_card, losses = fused_training(dev, FUSED_STEPS)
+    torch.cuda.synchronize()
+    fused_train_s = time.perf_counter() - t0
+    launches["train_fused"] = dict(givens_mesh.LAUNCHES)
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite fused losses {losses}")
+    check(min(losses) < 0.5 * losses[0], f"the fused layer's loss did not "
+          f"halve in {FUSED_STEPS} steps: {losses}")
+    expect = {**{k: 0 for k in givens_mesh.LAUNCHES},
+              "rfnn_fwd_res": FUSED_STEPS, "rfnn_bwd": FUSED_STEPS}
+    check(launches["train_fused"] == expect, f"training must launch B4 and B5 "
+          f"once per step and nothing else: {launches['train_fused']}")
+    p20_card, _ = fused_training(dev, 20)
+    p20_cpu, _ = fused_training("cpu", 20)
+    d_fused = max_tree_diff(p20_card, p20_cpu)
+    check(d_fused <= 1e-5, f"fused training card vs CPU after 20 steps: "
+          f"{d_fused}")
+    first_half = next(i for i, v in enumerate(losses) if v < 0.5 * losses[0])
+    print(f"[8] AnalogLinear(8, 8, abs, table1, PROTOTYPE) learns a seeded "
+          f"teacher (SGD, lr {FUSED_LR}, batch {FUSED_BATCH}) on the card: "
+          f"{FUSED_STEPS} steps in {fused_train_s:.2f} s, loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} (below half first at step "
+          f"{first_half}); 20 steps card vs CPU params max |diff| "
+          f"{d_fused:.2e} (bound 1e-5); launches {launches['train_fused']}",
+          flush=True)
+    report["train_fused"] = {"losses": losses, "seconds": fused_train_s,
+                             "card_vs_cpu_20_steps": d_fused,
+                             "launches": launches["train_fused"]}
+
+    # -- phase 9: times at n = 8 -----------------------------------------------
     n = 8
     plan = mesh_lib.clements_plan(n)
     sched = schedule.clements_schedule(n)
@@ -619,7 +910,7 @@ def main() -> int:
                "matmul_device_ms": ld_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "flops": flops}
         rows.append(row)
-        print(f"[7] {card} | mesh_fwd n=8 B={b}: kernel {k_ms:.5f} ms per "
+        print(f"[9] {card} | mesh_fwd n=8 B={b}: kernel {k_ms:.5f} ms per "
               f"call, {kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
               f"({bound_by}); plain {p_ms:.4f} ms per call; mesh_apply "
               f"{a_ms:.4f} ms; matmul {l_ms:.5f} ms per call, {ld_ms:.5f} ms "
@@ -649,23 +940,163 @@ def main() -> int:
                "matmul_dx_only_device_ms": ld_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": nbytes, "flops": flops}
         rows_bwd.append(row)
-        print(f"[7] {card} | mesh_bwd n=8 B={b}: kernel {k_ms:.5f} ms per "
+        print(f"[9] {card} | mesh_bwd n=8 B={b}: kernel {k_ms:.5f} ms per "
               f"call, {kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
               f"({bound_by}); plain {p_ms:.4f} ms per call; matmul for the dx "
               f"half alone {l_ms:.5f} ms per call, {ld_ms:.5f} ms on the "
               f"device", flush=True)
     report["timings_bwd_n8"] = rows_bwd
     step_ms_mean = sum(step_ms["noiseless"]) / len(step_ms["noiseless"])
-    print(f"[7] {card} | SGD step, MnistRFNN(PROTOTYPE, table1), batch 10: "
+    print(f"[9] {card} | SGD step, MnistRFNN(PROTOTYPE, table1), batch 10: "
           f"{step_ms_mean:.3f} ms, {1e3 / step_ms_mean:.1f} steps/s "
           f"(noiseless, mean of two runs of 50 steps)", flush=True)
+
+    # the fused layer at n = 8: B3 on the programmed processor's
+    # coefficients (Reck V and U, 13 columns each), B4 and B5 on the trained
+    # layer's (Clements, PROTOTYPE, Table-I phases)
+    def layer_inputs(layer, params):
+        with torch.no_grad():
+            v_p, u_p = layer._quant(params["v"]), layer._quant(params["u"])
+            sv = schedule.schedule_from_plan(layer.v_plan)
+            su = schedule.schedule_from_plan(layer.u_plan)
+            return [ops._mesh_coefficients(sv, v_p, layer.hardware, None),
+                    schedule.parity_array(sv, dev),
+                    ops._mesh_coefficients(su, u_p, layer.hardware, None),
+                    schedule.parity_array(su, dev),
+                    ops._gains(torch.sigmoid(params["atten_logit"]),
+                               torch.nn.functional.softplus(params["log_scale"]),
+                               v_p, u_p, 8, dev)]
+
+    def realized(layer, params):
+        """The complex 8x8 matrix of the layer's linear half (no |.|)."""
+        with torch.no_grad():
+            eye = torch.eye(8, dtype=torch.complex64, device=dev)
+            return dataclasses.replace(layer, output="complex").apply(
+                params, eye).T.contiguous()
+
+    def cells(coef, par):
+        """The cells this mesh's data needs: every pair slot except the
+        parity-1 wrap slot and the identity slots that pad a Reck program's
+        columns."""
+        eye = torch.tensor([1, 0, 0, 0, 0, 0, 1, 0], dtype=coef.dtype,
+                           device=coef.device)[:, None]
+        real = ~(coef == eye).all(1)
+        real[par == 1, -1] = False
+        return int(real.sum())
+
+    def fused_bound(name, inputs, b):
+        coef_bytes = 4 * sum(inputs[k].numel() for k in range(4))
+        gain_bytes = 4 * inputs[4].numel()
+        pairs = cells(inputs[0], inputs[1]) + cells(inputs[2], inputs[3])
+        if name == "rfnn_bwd":  # read v, u, gout and the coefficients; write
+            # dx, dcv, dcu and dg
+            nbytes = b * n * (8 + 8 + 4 + 8) + 2 * coef_bytes + 2 * gain_bytes
+            flops = FLOPS_PER_PAIR_BWD * b * pairs \
+                + FLOPS_PER_CHANNEL_FUSED_BWD * b * n + FLOPS_PER_CELL_INV * pairs
+        else:  # read x and the coefficients; write out (and v, u for B4)
+            nbytes = b * n * (8 + 4) + coef_bytes + gain_bytes
+            if name == "rfnn_fwd_res":
+                nbytes += 2 * b * n * 8
+            flops = FLOPS_PER_PAIR * b * pairs + FLOPS_PER_CHANNEL_FUSED * b * n
+        return (*bound(nbytes, flops), nbytes, flops)
+
+    proc_in = layer_inputs(proc, proc_params)
+    train_in = layer_inputs(layer_t, p_card)
+    mats = {"processor": realized(proc, proc_params),
+            "training": realized(layer_t, p_card)}
+    rows_fused = []
+    for name, layer_name, inputs, batches in (
+            ("rfnn_fwd", "processor", proc_in, (1000, PROC_BATCH, 65536)),
+            ("rfnn_fwd", "training", train_in, (FUSED_BATCH,)),
+            ("rfnn_fwd_res", "training", train_in, (FUSED_BATCH,)),
+            ("rfnn_bwd", "training", train_in, (FUSED_BATCH,))):
+        for b in batches:
+            x = rand_x(rng, b, n)
+            iters = 200 if b < 65536 else 100
+            if name == "rfnn_bwd":
+                _, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
+                g = torch.rand(b, n, device=dev)
+                gc = rand_x(rng, b, n)
+                mat = mats["training"]
+                call = lambda: givens_mesh.launch_rfnn_backward(  # noqa: E731
+                    *inputs, v, u, g)
+                plain = lambda: givens_mesh.rfnn_backward_plain(  # noqa: E731
+                    *inputs, v, u, g)
+                lib = lambda: torch.matmul(gc, mat.conj())  # noqa: E731
+            else:
+                save = name == "rfnn_fwd_res"
+                mat = mats[layer_name]
+                call = lambda: givens_mesh.launch_rfnn(  # noqa: E731
+                    *inputs, x, save_stages=save)
+                plain = lambda: givens_mesh.rfnn_forward_plain(  # noqa: E731
+                    *inputs, x)
+                lib = lambda: torch.matmul(x, mat.T)  # noqa: E731
+            k_ms = cuda_ms(torch, call, iters)
+            kd_ms = device_ms(torch, call, 100)
+            p_ms = cuda_ms(torch, plain, 10)
+            l_ms = cuda_ms(torch, lib, iters)
+            ld_ms = device_ms(torch, lib, 100)
+            bound_ms, bound_by, nbytes, flops = fused_bound(name, inputs, b)
+            rows_fused.append({"kernel": name, "layer": layer_name, "B": b,
+                               "kernel_ms": k_ms,
+                               "kernel_device_ms": kd_ms, "plain_ms": p_ms,
+                               "matmul_ms": l_ms, "matmul_device_ms": ld_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "bytes": nbytes, "flops": flops,
+                               "columns": [inputs[0].shape[0],
+                                           inputs[2].shape[0]]})
+            half = "the dx half" if name == "rfnn_bwd" else "the linear half"
+            print(f"[9] {card} | {name} n=8 B={b} ({layer_name}; Cv, Cu = "
+                  f"{inputs[0].shape[0]}, {inputs[2].shape[0]}): kernel "
+                  f"{k_ms:.5f} ms per call, {kd_ms:.5f} ms on the device; bound "
+                  f"{bound_ms:.6f} ms ({bound_by}); plain {p_ms:.4f} ms per "
+                  f"call; matmul for {half} alone {l_ms:.5f} ms per call, "
+                  f"{ld_ms:.5f} ms on the device", flush=True)
+    report["timings_fused_n8"] = rows_fused
+
+    fused_step = make_sgd_step(lambda p, xx, yy: (
+        ((layer_t.apply(p, xx) - yy) ** 2).mean(),) * 2, lr=FUSED_LR)
+    xb = torch.from_numpy(np.random.default_rng(args.seed).normal(
+        size=(FUSED_BATCH, 8)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        yb = layer_t.apply(p_card, xb)
+    state = {"p": layer_t.init(torch.Generator().manual_seed(args.seed + 2))}
+
+    def fused_steps(k=50):
+        for _ in range(k):
+            state["p"], (loss, _) = fused_step(state["p"], xb, yb)
+        return loss
+
+    fused_steps(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = fused_steps()
+    torch.cuda.synchronize()
+    fused_step_ms = (time.perf_counter() - t0) * 1e3 / 50
+    check(bool(torch.isfinite(loss)), "non-finite fused SGD loss")
+    per_step, busy_us, ours_us = profile_steps(
+        torch, fused_steps, 20, ("rfnn_fwd_kernel", "rfnn_bwd_kernel",
+                                 "reduce_partials"))
+    check(ours_us["rfnn_fwd_kernel"] > 0 and ours_us["rfnn_bwd_kernel"] > 0,
+          f"the profiled fused SGD steps show no fused kernel: {ours_us}")
+    print(f"[9] {card} | SGD step, AnalogLinear(8, 8, abs, table1, PROTOTYPE), "
+          f"batch {FUSED_BATCH}: {fused_step_ms:.3f} ms, "
+          f"{1e3 / fused_step_ms:.1f} steps/s (50 steps); profiler: "
+          f"{per_step:.0f} device events and {busy_us:.1f} us of device time "
+          f"per step ({100 * busy_us / (fused_step_ms * 1e3):.1f}%), fused "
+          f"kernels per step (us) {ours_us}", flush=True)
+    report["fused_sgd_step"] = {"ms": fused_step_ms,
+                                "device_events_per_step": per_step,
+                                "device_busy_us_per_step": busy_us,
+                                "fused_kernels_us_per_step": ours_us}
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 8: the kernels line and the device line -------------------------
-    main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving")
+    # -- phase 10: the kernels line and the device line ------------------------
+    main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
+                 "processor_apply", "processor_program", "train_fused")
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{
@@ -695,6 +1126,37 @@ def main() -> int:
         # is the dx half alone
         "library_ms": bwd["matmul_dx_only_device_ms"],
     }]
+    # B3 at the programmed processor's batch, B4 and B5 at the training step's
+    fused_rows = {"rfnn_fwd": ("processor", PROC_BATCH,
+                               "src/repro_torch/kernels/csrc/rfnn_fwd.cu",
+                               "src/repro/kernels/givens_mesh.py:174"),
+                  "rfnn_fwd_res": ("training", FUSED_BATCH,
+                                   "src/repro_torch/kernels/csrc/rfnn_fwd.cu",
+                                   "src/repro/kernels/givens_mesh.py:370"),
+                  "rfnn_bwd": ("training", FUSED_BATCH,
+                               "src/repro_torch/kernels/csrc/rfnn_bwd.cu",
+                               "src/repro/kernels/givens_mesh.py:416")}
+    for name, (layer_name, b, source, replaces) in fused_rows.items():
+        row = next(r for r in rows_fused if r["kernel"] == name
+                   and r["layer"] == layer_name and r["B"] == b)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(launches[k][name] for k in main_path),
+            "max_abs_err": report["main_path_max_abs_err_fused"][name],
+            "ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # torch.matmul of the realized matrix: the linear half alone for
+            # B3/B4 (no |.|), the dx half alone for B5 (no coefficient or
+            # gain gradients)
+            "library_ms": row["matmul_device_ms"],
+        })
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
 A port of the JAX package ``repro`` that mirrors its layout
 (``repro_torch.core.cell`` is the counterpart of ``repro.core.cell``, and
-so on).  The mesh sweep runs as a hand-written CUDA kernel for Hopper
-(``repro_torch.kernels.givens_mesh``); everything around it is plain
+so on).  The mesh sweep, the fused analog linear layer and their
+backwards run as hand-written CUDA kernels for Hopper
+(``repro_torch.kernels.givens_mesh``); everything around them is plain
 PyTorch.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.  The package imports neither ``jax`` nor ``repro``.
 """

@@ -27,7 +27,18 @@ from repro_torch.core.hardware import (
     apply_mesh_hw,
     detect_magnitude,
 )
-from repro_torch.core.analog_linear import AnalogUnitary
+from repro_torch.core.analog_linear import AnalogLinear, AnalogUnitary
+from repro_torch.core.decompose import (
+    fit_program,
+    random_unitary,
+    reck_program,
+    reconstruction_error,
+)
+from repro_torch.core.svd_synthesis import (
+    SynthesizedMatrix,
+    synthesis_error,
+    synthesize,
+)
 
 __all__ = [
     "TABLE_I_PHASES_DEG", "TABLE_I_PHASES_RAD", "cell_matrix", "output_powers",
@@ -35,5 +46,7 @@ __all__ = [
     "clements_plan", "init_mesh_params", "mesh_matrix", "pack_cells_to_columns",
     "ste_quantize", "table_i_codebook", "uniform_codebook",
     "IDEAL", "HardwareModel", "apply_mesh_hw", "detect_magnitude",
-    "AnalogUnitary",
+    "AnalogLinear", "AnalogUnitary", "fit_program", "random_unitary",
+    "reck_program", "reconstruction_error", "SynthesizedMatrix",
+    "synthesis_error", "synthesize",
 ]

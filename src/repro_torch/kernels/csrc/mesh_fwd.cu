@@ -12,10 +12,11 @@
 // this kernel replaces on Hopper.
 //
 // Design: one block owns a tile of R rows, staged in shared memory as
-// float2[R][n].  The C columns run in a loop inside the block; each thread
-// takes (row, slot) pairs, reads its cell through __ldg and rotates the pair
-// in place (pairs within a column are disjoint), and __syncthreads()
-// separates the columns.  The last tile is masked to the rows that exist.
+// float2[R][n].  The C columns run in a loop inside the block
+// (mesh_sweep.cuh: forward_sweep); each thread takes (row, slot) pairs,
+// reads its cell through __ldg and rotates the pair in place (pairs within
+// a column are disjoint), and __syncthreads() separates the columns.  The
+// last tile is masked to the rows that exist.
 // The coefficients are read from global memory (L1/L2-resident: they are
 // the same for every block); staging all of them would take 16 n^2 bytes of
 // shared memory, 256 KiB at n = 128, above the 227 KiB a block may use.
@@ -27,18 +28,17 @@
 // the bytes take 0.16 us at B = 4096, far under a launch's own latency, so
 // there a launch is bound by launch latency.
 
-#include <cuda_runtime.h>
+#include "mesh_sweep.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using mesh_sweep::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 mesh_fwd_kernel(const float2* __restrict__ x, float2* __restrict__ y,
                 const float* __restrict__ coef, const int* __restrict__ parity,
                 int batch, int n, int n_cols, int rows_per_block) {
   extern __shared__ float2 tile[];  // [rows_per_block][n]
-  const int p = n / 2;
   const long long row0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long left = batch - row0;
   const int rows = left < rows_per_block ? static_cast<int>(left)
@@ -48,34 +48,7 @@ mesh_fwd_kernel(const float2* __restrict__ x, float2* __restrict__ y,
 
   for (int i = threadIdx.x; i < count; i += blockDim.x) tile[i] = x[base + i];
   __syncthreads();
-
-  for (int c = 0; c < n_cols; ++c) {
-    const int par = __ldg(parity + c);
-    const int slots = par ? p - 1 : p;  // 0 for n = 2, parity 1
-    const float* cc = coef + static_cast<long long>(c) * 8 * p;
-    const int work = rows * slots;
-    for (int i = threadIdx.x; i < work; i += blockDim.x) {
-      const int r = i / slots;
-      const int s = i - r * slots;
-      float2* row = tile + r * n;
-      const int top = 2 * s + par;  // top + 1 <= n - 1
-      const float2 a = row[top];
-      const float2 b = row[top + 1];
-      const float t00r = __ldg(cc + 0 * p + s), t00i = __ldg(cc + 1 * p + s);
-      const float t01r = __ldg(cc + 2 * p + s), t01i = __ldg(cc + 3 * p + s);
-      const float t10r = __ldg(cc + 4 * p + s), t10i = __ldg(cc + 5 * p + s);
-      const float t11r = __ldg(cc + 6 * p + s), t11i = __ldg(cc + 7 * p + s);
-      float2 a2, b2;
-      a2.x = t00r * a.x - t00i * a.y + t01r * b.x - t01i * b.y;
-      a2.y = t00r * a.y + t00i * a.x + t01r * b.y + t01i * b.x;
-      b2.x = t10r * a.x - t10i * a.y + t11r * b.x - t11i * b.y;
-      b2.y = t10r * a.y + t10i * a.x + t11r * b.y + t11i * b.x;
-      row[top] = a2;
-      row[top + 1] = b2;
-    }
-    __syncthreads();
-  }
-
+  mesh_sweep::forward_sweep(tile, coef, parity, n_cols, rows, n);
   for (int i = threadIdx.x; i < count; i += blockDim.x) y[base + i] = tile[i];
 }
 
@@ -89,11 +62,9 @@ mesh_fwd_kernel(const float2* __restrict__ x, float2* __restrict__ y,
 extern "C" int mesh_fwd_launch(const void* x, void* y, const void* coef,
                                const void* parity, int batch, int n,
                                int n_cols, void* stream) {
-  const int p = n / 2;
-  int rows_per_block = kThreads / p;
-  if (rows_per_block < 1) rows_per_block = 1;
+  const int rows_per_block = mesh_sweep::rows_per_tile(n);
   const size_t smem = static_cast<size_t>(rows_per_block) * n * sizeof(float2);
-  const int blocks = (batch + rows_per_block - 1) / rows_per_block;
+  const int blocks = mesh_sweep::tile_count(batch, rows_per_block);
   mesh_fwd_kernel<<<blocks, kThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(x), static_cast<float2*>(y),

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled by one ``nvcc`` call for
 ``sm_90a`` into a shared library with a plain C interface (loaded with
 ``ctypes``), inside ``kernels/_build/`` (listed in ``.gitignore``).  The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.  Each source has its own lock,
+library's file name carries a hash of its source and of every header under
+``csrc/`` (``*.cuh``), so an edited source or shared header is rebuilt and
+a stale library is never loaded.  Each source has its own lock,
 so threads loading different kernels run their ``nvcc`` builds at once.  Nothing is built when a
 module is imported: the CPU tests import every module on machines without
 ``nvcc``.
@@ -48,7 +49,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives: its file name hashes
+    the source, every ``*.cuh`` header beside it and the nvcc flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

@@ -1,5 +1,6 @@
-"""The mesh kernels on Hopper (forward B1, backward B2) and their plain
-PyTorch versions.
+"""The mesh kernels on Hopper (forward B1, backward B2), the fused analog
+linear layer's kernels (B3, B4, backward B5) and their plain PyTorch
+versions.
 
 ``mesh_forward(coef, parity, x)`` computes ``y = T_{C-1} ... T_0 x`` for a
 mesh of arbitrary complex 2x2 cells:
@@ -33,6 +34,20 @@ bytes of a call take well under a microsecond, so a launch there is bound
 by launch latency.  The TPU kernel's de-interleaved planes were a lane
 layout; the CUDA kernel reads and writes interleaved complex64 directly,
 which drops the split/merge passes around every call.
+
+``rfnn_forward(coef_v, par_v, coef_u, par_u, gains, x)`` is the fused
+analog linear layer ``|g2 * U (g1 * V x)|`` (paper Eq. 31): two meshes
+(``Cv`` and ``Cu`` columns, which may differ), a complex mid gain ``g1``
+and post gain ``g2`` in the JAX package's float32 ``[8, P]`` layout (rows
+0-3 g1, 4-7 g2; even re, even im, odd re, odd im) and the detector's
+magnitude, float32 ``[B, n]`` in channel order.  On a CUDA tensor it runs
+``csrc/rfnn_fwd.cu``: kernel B3 (``rfnn_linear_kernel``) when no input
+needs a gradient, else kernel B4 (``rfnn_linear_fwd_kernel``), which also
+saves the post-V and post-U stage boundaries, and on the way back kernel
+B5 (``csrc/rfnn_bwd.cu``, ``rfnn_linear_bwd_kernel``).  On a CPU tensor it
+runs the plain versions in :mod:`ref`.  ``dg`` is the real-plane gradient
+of the gains; autograd carries it back into the attenuation, the scale and
+the folded phase screens.
 """
 
 from __future__ import annotations
@@ -49,7 +64,8 @@ from repro_torch.kernels.ref import (  # noqa: F401  (part of this API)
 
 #: Launch counters: each is incremented once per launch of its CUDA
 #: kernel, nowhere else.  Proof that a run went through the kernels.
-LAUNCHES = {"mesh_fwd": 0, "mesh_bwd": 0}
+LAUNCHES = {"mesh_fwd": 0, "mesh_bwd": 0, "rfnn_fwd": 0, "rfnn_fwd_res": 0,
+            "rfnn_bwd": 0}
 
 #: The kernels index rows with int32.
 _MAX_BATCH = 2**31 - 256
@@ -226,3 +242,185 @@ def mesh_forward(coef: torch.Tensor, parity: torch.Tensor,
         raise ValueError(f"mesh_forward runs on cuda or cpu tensors, got "
                          f"{x.device}")
     return _MeshSweep.apply(coef, parity, x)
+
+
+# ---------------------------------------------------------------------------
+# the fused analog linear layer: B3 / B4 forward, B5 backward
+# ---------------------------------------------------------------------------
+
+def _check_rfnn(coef_v, par_v, coef_u, par_u, gains, x) -> None:
+    _check(coef_v, par_v, x)
+    _check(coef_u, par_u, x)
+    p = x.shape[1] // 2
+    if gains.shape != (8, p) or gains.dtype != torch.float32:
+        raise ValueError(f"gains must be float32 [8, {p}], got {gains.dtype} "
+                         f"{tuple(gains.shape)}")
+    if gains.device != x.device:
+        raise ValueError(f"gains on {gains.device}, x on {x.device}")
+
+
+def _check_rfnn_backward(coef_v, par_v, coef_u, par_u, gains, v, u, g) -> None:
+    _check_rfnn(coef_v, par_v, coef_u, par_u, gains, v)
+    if u.shape != v.shape or u.dtype != v.dtype or u.device != v.device:
+        raise ValueError(f"post-U boundary must match post-V {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}, got {u.dtype} "
+                         f"{tuple(u.shape)} on {u.device}")
+    if g.shape != v.shape or g.dtype != torch.float32 or g.device != v.device:
+        raise ValueError(f"cotangent must be float32 {tuple(v.shape)} on "
+                         f"{v.device}, got {g.dtype} {tuple(g.shape)} on "
+                         f"{g.device}")
+
+
+def rfnn_forward_plain(coef_v, par_v, coef_u, par_u, gains, x):
+    """The plain PyTorch version of kernels B3/B4: ``(out, v, u)``, the
+    magnitudes and the post-V and post-U stage boundaries."""
+    _check_rfnn(coef_v, par_v, coef_u, par_u, gains, x)
+    return ref.rfnn_linear_planes(coef_v, par_v, coef_u, par_u, gains, x)
+
+
+def rfnn_backward_plain(coef_v, par_v, coef_u, par_u, gains, v, u, g):
+    """The plain PyTorch version of kernel B5: ``(dcv, dcu, dg, dx)`` from
+    the saved boundaries ``v``, ``u`` and the magnitudes' cotangent ``g``."""
+    _check_rfnn_backward(coef_v, par_v, coef_u, par_u, gains, v, u, g)
+    return ref.rfnn_linear_planes_bwd(coef_v, par_v, coef_u, par_u, gains,
+                                      v, u, g)
+
+
+_RFNN_FWD_ARGS = {"rfnn_fwd_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _P,
+                                      _I, _I, _P],
+                  "rfnn_fwd_res_launch": [_P] * 6 + [_I, _P, _P, _I, _P, _I,
+                                                     _I, _P]}
+_RFNN_BWD_ARGS = {"rfnn_bwd_blocks": [_I, _I],
+                  "rfnn_bwd_launch": [_P] * 5 + [_I, _P, _P, _I] + [_P] * 4
+                  + [_I, _I, _I, _P]}
+
+
+def launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x, *,
+                save_stages: bool = False):
+    """Launch kernel B3 (``out``) or, with ``save_stages``, kernel B4
+    (``(out, v, u)``) on the current stream (no autograd)."""
+    _check_rfnn(coef_v, par_v, coef_u, par_u, gains, x)
+    _on_card("rfnn", x)
+    b, n = x.shape
+    cv, cu = coef_v.shape[0], coef_u.shape[0]
+    coef_v, par_v = coef_v.contiguous(), par_v.contiguous()
+    coef_u, par_u = coef_u.contiguous(), par_u.contiguous()
+    gains, x = gains.contiguous(), _dense(x)
+    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    v = torch.empty_like(x) if save_stages else None
+    u = torch.empty_like(x) if save_stages else None
+    if b > 0:  # a grid of 0 blocks is an invalid launch
+        lib = _lib("rfnn_fwd", _RFNN_FWD_ARGS)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            tail = (coef_v.data_ptr(), par_v.data_ptr(), cv, coef_u.data_ptr(),
+                    par_u.data_ptr(), cu, gains.data_ptr(), b, n, stream)
+            if save_stages:
+                err = lib.rfnn_fwd_res_launch(x.data_ptr(), out.data_ptr(),
+                                              v.data_ptr(), u.data_ptr(), *tail)
+            else:
+                err = lib.rfnn_fwd_launch(x.data_ptr(), out.data_ptr(), *tail)
+        name = "rfnn_fwd_res" if save_stages else "rfnn_fwd"
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                               f"(B={b}, n={n}, Cv={cv}, Cu={cu})")
+        LAUNCHES[name] += 1
+    return (out, v, u) if save_stages else out
+
+
+def launch_rfnn_backward(coef_v, par_v, coef_u, par_u, gains, v, u, g):
+    """Launch kernel B5 on the current stream: ``(dcv, dcu, dg, dx)`` from
+    the saved boundaries and the magnitudes' cotangent (no autograd).
+
+    Each block writes its batch-summed gradients into its own slice of a
+    ``[blocks, (Cv + Cu + 1) * 8 * P]`` scratch and a second kernel sums the
+    slices in block order: the three gradients are the same bits on every
+    call.  They are views of one buffer.
+    """
+    _check_rfnn_backward(coef_v, par_v, coef_u, par_u, gains, v, u, g)
+    _on_card("rfnn backward", v)
+    b, n = v.shape
+    p = n // 2
+    cv, cu = coef_v.shape[0], coef_u.shape[0]
+    coef_v, par_v = coef_v.contiguous(), par_v.contiguous()
+    coef_u, par_u = coef_u.contiguous(), par_u.contiguous()
+    gains, v, u, g = gains.contiguous(), _dense(v), _dense(u), _dense(g)
+    total = (cv + cu + 1) * 8 * p
+    # written whole by the reduce; zeros only when there is nothing to sum
+    grads = (torch.empty if b > 0 else torch.zeros)(
+        total, dtype=torch.float32, device=v.device)
+    dx = torch.empty_like(v)
+    if b > 0:  # nothing to sum and a 0-block grid is an invalid launch
+        lib = _lib("rfnn_bwd", _RFNN_BWD_ARGS)
+        with torch.cuda.device(v.device):
+            blocks = lib.rfnn_bwd_blocks(b, n)
+            if blocks <= 0:
+                raise RuntimeError(f"rfnn_bwd_blocks failed: CUDA error "
+                                   f"{-blocks}")
+            partial = torch.empty((blocks, total), dtype=torch.float32,
+                                  device=v.device)
+            stream = torch.cuda.current_stream(v.device).cuda_stream
+            err = lib.rfnn_bwd_launch(
+                v.data_ptr(), u.data_ptr(), g.data_ptr(), coef_v.data_ptr(),
+                par_v.data_ptr(), cv, coef_u.data_ptr(), par_u.data_ptr(), cu,
+                gains.data_ptr(), partial.data_ptr(), grads.data_ptr(),
+                dx.data_ptr(), b, n, blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"rfnn_bwd launch failed: CUDA error {err} "
+                               f"(B={b}, n={n}, Cv={cv}, Cu={cu}, "
+                               f"blocks={blocks})")
+        LAUNCHES["rfnn_bwd"] += 1
+    dcv, dcu, dg = grads.split([cv * 8 * p, cu * 8 * p, 8 * p])
+    return (dcv.view(cv, 8, p), dcu.view(cu, 8, p), dg.view(8, p), dx)
+
+
+class _RfnnSweep(torch.autograd.Function):
+    """The fused layer under autograd: B4 forward and B5 backward on a CUDA
+    tensor, their plain versions on a CPU tensor.  Saves only the two stage
+    boundaries (and the inputs); everything inside a mesh is rebuilt by the
+    reversed sweeps."""
+
+    @staticmethod
+    def forward(ctx, coef_v, par_v, coef_u, par_u, gains, x):
+        if x.device.type == "cuda":
+            out, v, u = launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x,
+                                    save_stages=True)
+        else:
+            out, v, u = rfnn_forward_plain(coef_v, par_v, coef_u, par_u,
+                                           gains, x)
+        ctx.save_for_backward(coef_v, par_v, coef_u, par_u, gains, v, u)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        coef_v, par_v, coef_u, par_u, gains, v, u = ctx.saved_tensors
+        if v.device.type == "cuda":
+            dcv, dcu, dg, dx = launch_rfnn_backward(coef_v, par_v, coef_u,
+                                                    par_u, gains, v, u, g)
+        elif v.device.type == "cpu":
+            dcv, dcu, dg, dx = rfnn_backward_plain(coef_v, par_v, coef_u,
+                                                   par_u, gains, v, u, g)
+        else:
+            raise ValueError(f"no rfnn backward for {v.device} tensors")
+        return dcv, None, dcu, None, dg, dx
+
+
+def rfnn_forward(coef_v, par_v, coef_u, par_u, gains, x) -> torch.Tensor:
+    """``|g2 * U (g1 * V x)|``, float32 ``[B, n]``.
+
+    When a gradient is wanted (grad mode on and an input requires grad) it
+    goes through B4 and, on the way back, B5; otherwise through B3, which
+    writes no residuals (serving, programmed-matrix probes).  The choice is
+    made here: inside ``autograd.Function.forward`` grad mode is off.  CPU
+    tensors take the plain versions; any other device raises.
+    """
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"rfnn_forward runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (coef_v, coef_u, gains, x)):
+        return _RfnnSweep.apply(coef_v, par_v, coef_u, par_u, gains, x)
+    if x.device.type == "cuda":
+        return launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x)
+    return rfnn_forward_plain(coef_v, par_v, coef_u, par_u, gains, x)[0]

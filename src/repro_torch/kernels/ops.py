@@ -1,4 +1,4 @@
-"""Public wrappers around the mesh kernel.
+"""Public wrappers around the mesh kernels.
 
 ``mesh_apply`` and ``mesh_apply_cells`` build the ``[C', 8, P]``
 coefficients (ideal cells, or the hardware model with optional phase
@@ -12,6 +12,11 @@ screens and ``x``: the sweep's backward is kernel B2 on a CUDA tensor and
 its plain version on a CPU tensor, and autograd carries the gradient
 through the coefficient build and the screens around it.
 
+``rfnn_linear`` is the fused analog linear layer ``|scale * U D V x|``
+(paper Eq. 31) over kernels B3/B4 (forward) and B5 (backward): the phase
+screens fold into the gains around the kernel, and autograd carries the
+gains gradient back into the attenuation and the scale.
+
 The JAX package's ``_auto_block``/``_pad_batch`` sized batch blocks for the
 TPU's VMEM; the CUDA kernel masks the ragged last tile itself, so there is
 no ``block_b`` argument here.
@@ -23,7 +28,7 @@ import torch
 
 from repro_torch.core import hardware as hw_lib
 from repro_torch.core import mesh as mesh_lib
-from repro_torch.core.cell import as_complex, cell_matrix
+from repro_torch.core.cell import as_complex, cell_matrix, expj
 from repro_torch.kernels import givens_mesh
 from repro_torch.kernels.schedule import (
     MeshSchedule,
@@ -35,7 +40,7 @@ from repro_torch.kernels.schedule import (
 
 #: Per-entry-point invocation counts of the kernel path (proof that a
 #: configuration went through ``mesh_forward``).
-KERNEL_PATH_CALLS = {"mesh_apply": 0, "mesh_apply_cells": 0}
+KERNEL_PATH_CALLS = {"mesh_apply": 0, "mesh_apply_cells": 0, "rfnn_linear": 0}
 
 
 def _mesh_coefficients(sched: MeshSchedule, params: dict,
@@ -98,3 +103,57 @@ def mesh_apply_cells(t_all: torch.Tensor, x: torch.Tensor, *,
     sched = schedule_from_plan(plan)
     KERNEL_PATH_CALLS["mesh_apply_cells"] += 1
     return _sweep(sched, pack_cells(sched, t_all), x, alpha_in, alpha)
+
+
+def _gains(atten, scale, v_params: dict, u_params: dict, n: int,
+           device) -> torch.Tensor:
+    """The kernel's float32 ``[8, P]`` gains: g1 = atten with V's output
+    screen and U's input screen folded in (rows 0-3), g2 = scale with U's
+    output screen (rows 4-7); even re, even im, odd re, odd im.  All are
+    diagonal, so they commute with each other."""
+    g1 = torch.as_tensor(atten, device=device).to(torch.complex64)
+    for alpha in (v_params.get("alpha"), u_params.get("alpha_in")):
+        if alpha is not None:
+            g1 = g1 * expj(alpha)
+    g2 = torch.as_tensor(scale, dtype=torch.float32, device=device) \
+        .expand(n).to(torch.complex64)
+    if u_params.get("alpha") is not None:
+        g2 = g2 * expj(u_params["alpha"])
+    return torch.stack([part for g in (g1, g2) for h in (g[0::2], g[1::2])
+                        for part in (h.real, h.imag)]).to(torch.float32)
+
+
+def rfnn_linear(v_params: dict, atten, u_params: dict, x: torch.Tensor, *,
+                n: int, scale=1.0, v_plan: mesh_lib.MeshPlan | None = None,
+                u_plan: mesh_lib.MeshPlan | None = None,
+                hardware: hw_lib.HardwareModel | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+    """Fused analog linear layer ``|scale * U (D (V x))|`` through the
+    kernel path; the counterpart of the JAX package's ``ops.rfnn_linear``.
+
+    ``atten``: [n] attenuation (the paper's diagonal D / sigma_max);
+    ``scale``: the digital gamma.  Returns the detected magnitude
+    ``[..., n]`` (float32); ``hardware.detect_magnitude`` composes on top for
+    the detector's noise and floor.  ``v_plan``/``u_plan`` default to the
+    Clements rectangle; Reck programs (more columns) run in the same fused
+    sweep.  With ``hardware`` the cells come from the imperfection model,
+    V's phase noise and then U's drawn from ``generator``.  V's input screen
+    ``alpha_in`` applies before the kernel; the other screens fold into the
+    gains.  Differentiable in both meshes' params, ``atten``, ``scale`` and
+    ``x``.
+    """
+    sched_v = clements_schedule(n) if v_plan is None else schedule_from_plan(v_plan)
+    sched_u = clements_schedule(n) if u_plan is None else schedule_from_plan(u_plan)
+    KERNEL_PATH_CALLS["rfnn_linear"] += 1
+    batch_shape = x.shape[:-1]
+    if x.shape[-1] != n:
+        raise ValueError(f"expected trailing dim {n}, got {tuple(x.shape)}")
+    x2 = mesh_lib.apply_screens(as_complex(x).reshape(-1, n),
+                                v_params.get("alpha_in"))
+    coef_v = _mesh_coefficients(sched_v, v_params, hardware, generator)
+    coef_u = _mesh_coefficients(sched_u, u_params, hardware, generator)
+    gains = _gains(atten, scale, v_params, u_params, n, x2.device)
+    out = givens_mesh.rfnn_forward(
+        coef_v, parity_array(sched_v, x2.device), coef_u,
+        parity_array(sched_u, x2.device), gains, x2.contiguous())
+    return out.reshape(batch_shape + (n,))

@@ -1,4 +1,5 @@
-"""Plain-PyTorch twin of the mesh kernels (forward B1 and backward B2).
+"""Plain-PyTorch twin of the mesh kernels: the mesh sweep (forward B1,
+backward B2) and the fused analog linear layer (B3, B4 and backward B5).
 
 Re-expresses the mesh semantics in the de-interleaved (even/odd channel)
 layout the column sweep is written in, so the CUDA kernels can be held
@@ -154,3 +155,107 @@ def mesh_apply_planes_bwd(coef: torch.Tensor, parity, y_planes, g_planes):
             rows[c] = torch.cat([r, r.new_zeros(8, 1)], 1)
         g = _column(adj[c], par[c], *g)
     return torch.stack(rows).to(coef.dtype), g
+
+
+# ---------------------------------------------------------------------------
+# the fused analog linear layer (the plain versions of kernels B3/B4 and B5)
+# ---------------------------------------------------------------------------
+
+def _gain_planes(gains: torch.Tensor, first: int):
+    """The (even re, even im, odd re, odd im) rows ``first .. first + 3`` of
+    the ``[8, P]`` gains: g1 at 0, g2 at 4."""
+    return tuple(gains[first + k] for k in range(4))
+
+
+def _gain(planes, g):
+    er, ei = _cmul(planes[0], planes[1], g[0], g[1])
+    orr, oi = _cmul(planes[2], planes[3], g[2], g[3])
+    return er, ei, orr, oi
+
+
+def _gain_adjoint(planes, g):
+    """conj(g) * planes: the cotangent carried back through a gain."""
+    er, ei = _cmul(g[0], -g[1], planes[0], planes[1])
+    orr, oi = _cmul(g[2], -g[3], planes[2], planes[3])
+    return er, ei, orr, oi
+
+
+def _gain_grad_rows(planes, g_planes) -> torch.Tensor:
+    """Batch-summed conj(state) * cotangent for a gain: rows (even re,
+    even im, odd re, odd im) ``[4, P]``."""
+    return torch.stack([*_conj_dot(*planes[:2], *g_planes[:2]),
+                        *_conj_dot(*planes[2:], *g_planes[2:])])
+
+
+def rfnn_linear_planes(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
+                       par_u, gains: torch.Tensor, x: torch.Tensor):
+    """The fused layer ``|g2 * U (g1 * V x)|`` as kernels B3/B4 compute it.
+
+    coef_v: [Cv, 8, P]; coef_u: [Cu, 8, P]; parities [Cv], [Cu]; gains:
+    float32 [8, P] (rows 0-3 g1, 4-7 g2: even re, even im, odd re, odd im);
+    x: complex [B, n].  Returns ``(out, v, u)``: the magnitudes float32
+    [B, n] in channel order, and the post-V and post-U stage boundaries
+    complex64 [B, n], both taken before their gain.
+    """
+    v = mesh_apply_planes(coef_v, par_v, *split_channels(x))
+    u = mesh_apply_planes(coef_u, par_u, *_gain(v, _gain_planes(gains, 0)))
+    zer, zei, zor, zoi = _gain(u, _gain_planes(gains, 4))
+    oe = torch.sqrt(zer * zer + zei * zei)
+    oo = torch.sqrt(zor * zor + zoi * zoi)
+    out = torch.stack([oe, oo], -1).reshape(oe.shape[:-1] + (2 * oe.shape[-1],))
+    return out, merge_channels(*v), merge_channels(*u)
+
+
+def rfnn_linear_planes_bwd(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
+                           par_u, gains: torch.Tensor, v: torch.Tensor,
+                           u: torch.Tensor, g: torch.Tensor):
+    """The VJP of :func:`rfnn_linear_planes`, as kernel B5 computes it.
+
+    From the saved boundaries ``v``, ``u`` (complex [B, n]) and the
+    cotangent ``g`` of the magnitudes (float32 [B, n]): the |.| backward
+    (``g z / |z|``, exactly 0 where ``|z| = 0``), the g2 gradient, U's
+    reversed sweep from ``u``, the g1 gradient and V's reversed sweep from
+    ``v``.  Returns ``(dcv [Cv, 8, P], dcu [Cu, 8, P], dg [8, P], dx)``
+    with ``dx`` complex64 [B, n] (dL/dRe + i dL/dIm).
+    """
+    g1, g2 = _gain_planes(gains, 0), _gain_planes(gains, 4)
+    v_planes, u_planes = split_channels(v), split_channels(u)
+    zer, zei, zor, zoi = _gain(u_planes, g2)
+    g_even, g_odd = g[..., 0::2].float(), g[..., 1::2].float()
+    me = torch.sqrt(zer * zer + zei * zei)
+    mo = torch.sqrt(zor * zor + zoi * zoi)
+    we = torch.where(me > 0, g_even / torch.where(me > 0, me, 1.0), 0.0)
+    wo = torch.where(mo > 0, g_odd / torch.where(mo > 0, mo, 1.0), 0.0)
+    gz_planes = (we * zer, we * zei, wo * zor, wo * zoi)
+    dg2 = _gain_grad_rows(u_planes, gz_planes)
+    dcu, gh = mesh_apply_planes_bwd(coef_u, par_u, u_planes,
+                                    _gain_adjoint(gz_planes, g2))
+    dg1 = _gain_grad_rows(v_planes, gh)
+    dcv, gx = mesh_apply_planes_bwd(coef_v, par_v, v_planes,
+                                    _gain_adjoint(gh, g1))
+    return dcv, dcu, torch.cat([dg1, dg2]).to(gains.dtype), merge_channels(*gx)
+
+
+def rfnn_linear_ref(v_params: dict, atten: torch.Tensor, u_params: dict,
+                    x: torch.Tensor, n: int, scale=1.0) -> torch.Tensor:
+    """The composition oracle ``|scale * U (atten * V x)|`` on the Clements
+    rectangle: two :func:`mesh_apply_ref` sweeps (each reading its parity
+    array) with each mesh's output screen ``alpha``, independent of the
+    fused kernel and its gains layout."""
+    # imported here: repro_torch.core imports the kernels, which import this
+    # module
+    from repro_torch.core.cell import cell_matrix, expj
+    from repro_torch.kernels.schedule import (clements_schedule, pack_cells,
+                                              parity_array)
+
+    sched = clements_schedule(n)
+    par = parity_array(sched, x.device)
+
+    def mesh(params, h):
+        coef = pack_cells(sched, cell_matrix(params["theta"], params["phi"]))
+        y = mesh_apply_ref(coef, par, h)
+        alpha = params.get("alpha")
+        return y if alpha is None else y * expj(alpha)
+
+    h = mesh(v_params, x.to(torch.complex64)) * atten.to(torch.complex64)
+    return (scale * mesh(u_params, h)).abs()

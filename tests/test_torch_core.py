@@ -348,7 +348,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_importing_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops,"
             " repro_torch.paper, repro_torch.serving, repro_torch.data,"
-            " repro_torch.runtime, repro_torch.interop, repro_torch.paper.rfnn2x2;"
+            " repro_torch.runtime, repro_torch.interop, repro_torch.paper.rfnn2x2,"
+            " repro_torch.compile, repro_torch.optim, repro_torch.core.decompose;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",

@@ -23,7 +23,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import hardware as t_hw  # noqa: E402
 from repro_torch.core import mesh as t_mesh  # noqa: E402
-from repro_torch.kernels import givens_mesh, ops, ref, schedule  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    cuda_build,
+    givens_mesh,
+    ops,
+    ref,
+    schedule,
+)
 from repro_torch.paper.prototype import PROTOTYPE  # noqa: E402
 
 if importlib.util.find_spec("jax") is None:
@@ -466,6 +472,28 @@ def test_mesh_backward_validates_and_never_launches_on_cpu():
         .abs().sum().backward()
     assert givens_mesh.LAUNCHES["mesh_bwd"] == before
     assert all(v.grad is not None for v in p.values())
+
+
+def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared ``*.cuh`` header changes every library's file
+    name, so no stale library is loaded after it (checked on a copy)."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "no shared header under csrc/"
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert {"mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd"} <= set(names)
+    before = {name: cuda_build.library_path(name) for name in names}
+    assert before == {name: cuda_build.library_path(name) for name in names}
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    after = {name: cuda_build.library_path(name) for name in names}
+    assert all(after[name] != before[name] for name in names)
+    (csrc / "rfnn_fwd.cu").write_bytes(b"// another source\n")
+    assert cuda_build.library_path("rfnn_fwd") != after["rfnn_fwd"]
+    assert cuda_build.library_path("mesh_fwd") == after["mesh_fwd"]
 
 
 # ---------------------------------------------------------------------------
