@@ -8,10 +8,10 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, ``PATH`` or
 imports nothing of JAX.  Phases (each raises on failure, so the script
 exits non-zero):
 
-1. card name and power limit; build the four CUDA libraries from ``csrc/``
-   (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``, all
-   including the shared ``mesh_sweep.cuh``), one ``nvcc`` each, started
-   together;
+1. card name and power limit; build the six CUDA libraries from ``csrc/``
+   (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``,
+   ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
+   ``mesh_sweep.cuh``), one ``nvcc`` each, started together;
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -51,11 +51,37 @@ exits non-zero):
 9. times at n = 8 with CUDA events: each kernel (per call, and on the
    device alone), its bound, its plain version and a ``torch.matmul``
    yardstick, the whole ``mesh_apply`` and the SGD step;
-10. the ``kernels`` line and, last, the ``ok``/``device`` line.
+10. the deep-grid kernels B6, B7 and B8 against their plain versions for
+    (L, To, Ti, n) in {(1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16),
+    (4, 4, 4, 16), (1, 2, 3, 4)}, B in {1, 7, 130, 1024} and B = 0, both
+    readouts, ideal and PROTOTYPE coefficients and a mixed Reck/Clements
+    grid (identity padding), zero input rows and a parked tile (scale 0:
+    its V, U and attenuation gradients exactly 0), within 1e-5 * n of
+    each output's largest magnitude, with bit-identical gradients over two
+    calls; then the main path's shapes;
+11. ``MnistRFNN(analog_depth=4, PROTOTYPE, table1)``: 1000 logits through
+    one B6 launch (against the reference backend and the CPU), one STE
+    epoch of ``train_mnist`` on 1000 digits at batch 10 (B7 and B8 once
+    per step, B6 only for the two evaluations), 20 SGD steps card vs CPU;
+12. ``TiledAnalogLinear(64, 64, tile_size=16, table1)``: forward at B = 256
+    and 1024 (one B6 launch each, against the reference backend) and 5 SGD
+    steps (B7 and B8 once per step, card vs CPU);
+13. the 4-layer 64x64 cascade (``ops.deep_apply``, 4x4 tiles of 16, Reck V
+    plans, C = 29): fwd+bwd at B = 1024 through one B7 and one B8 launch,
+    output and every gradient card vs CPU;
+14. ``ServingEngine`` over ``TiledAnalogLinear(64, 64)`` and
+    ``AnalogSequence(8, 4)``: 256 requests each equal to a direct apply,
+    ``PACK_EVENTS`` unchanged after the first tick;
+15. times of B6, B7 and B8 at the main path's shapes (the cascade, the
+    depth-4 MNIST network, the tiled layer), as phase 9, with a
+    ``torch.matmul`` yardstick on each layer's precomputed complex matrix
+    (then ``.abs()``);
+16. the ``kernels`` line (eight entries) and, last, the ``ok``/``device``
+    line.
 
-Every launch count is reset just before each main-path phase (3 to 8) and
-read just after; launches made in phases 2 and 9 do not count.  Timings
-are also written to ``chiprun_out/chip_smoke.json``.
+Every launch count is reset just before each main-path phase (3 to 8, 11
+to 14) and read just after; launches made in phases 2, 9, 10 and 15 do not
+count.  Timings are also written to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -83,12 +109,27 @@ FLOPS_PER_CELL_INV = 43        # det, |det|^2, 1/det and adj(t)/det, per cell
 # backward: the |.| backward, both gains' conjugate products and row sums
 FLOPS_PER_CHANNEL_FUSED = 16
 FLOPS_PER_CHANNEL_FUSED_BWD = 41
-LIBRARIES = ("mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd")
+LIBRARIES = ("mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd", "deepgrid_fwd",
+             "deepgrid_bwd")
 SGD_BATCH = 10                 # the paper's minibatch
 PROC_BATCH = 4096              # inputs through the programmed processor
 FUSED_BATCH = 1000             # the fused layer's training batch
 FUSED_LR = 60.0                # set on the CPU run of the port (seed 0)
 FUSED_STEPS = 40               # the loss halves by step 33 there
+# the deep grid, per row and tile channel: the three gain products (6 each)
+# and the row combine's add (2); per row channel of a layer: |.| (2 mul, an
+# add and a sqrt).  Backward: three gain gradients (conjugate product and row
+# sum, 8 each), three adjoint gain products (6 each), the combine's
+# transpose (2) and the boundary's row rebuild (8); per row channel the |.|
+# backward and the input's re-detection
+FLOPS_PER_TILE_CHANNEL_DEEP = 20
+FLOPS_PER_ROW_CHANNEL_DEEP = 4
+FLOPS_PER_TILE_CHANNEL_DEEP_BWD = 52
+FLOPS_PER_ROW_CHANNEL_DEEP_BWD = 12
+DEEP_BATCH = 1024              # the 64x64 cascade's batch
+DEEP_LR = 0.02                 # the JAX package's advice for deep stacks
+TILED_LR = 0.3                 # its toy |W x| task's rate for the tile grid
+TILED_STEPS = 5
 
 # decision_map(net, {w: [0.9, -1.1], b: 0.2}, 3, 5, n=5) of the JAX package,
 # pinned in tests/test_golden.py: the ideal device and the PROTOTYPE device.
@@ -202,7 +243,9 @@ def main(argv=None) -> int:
     from repro_torch import compile as compile_mod
     from repro_torch.core import decompose, svd_synthesis
     from repro_torch.core import mesh as mesh_lib
-    from repro_torch.core.analog_linear import AnalogLinear, AnalogUnitary
+    from repro_torch.core.analog_linear import (AnalogLinear, AnalogSequence,
+                                                AnalogUnitary,
+                                                TiledAnalogLinear)
     from repro_torch.core.hardware import IDEAL
     from repro_torch.data.digits import load_digits
     from repro_torch.data.toys import make_toy_dataset
@@ -210,7 +253,7 @@ def main(argv=None) -> int:
     from repro_torch.paper.mnist_rfnn import MnistRFNN, _train_loop, train_mnist
     from repro_torch.paper.prototype import PROTOTYPE
     from repro_torch.paper.rfnn2x2 import RFNN2x2, decision_map, train_rfnn2x2
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import Request, ServingEngine, as_servable
     from repro_torch.train import make_sgd_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -240,14 +283,21 @@ def main(argv=None) -> int:
         for k in givens_mesh.LAUNCHES:
             givens_mesh.LAUNCHES[k] = 0
 
-    def to_cpu(tree):
+    def tree_map(fn, tree):
         if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        return tree.cpu()
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(tree_map(fn, v) for v in tree)
+        return fn(tree)
+
+    def to_cpu(tree):
+        return tree_map(lambda t: t.cpu(), tree)
 
     def max_tree_diff(a, b):
         if isinstance(a, dict):
             return max(max_tree_diff(a[k], b[k]) for k in a)
+        if isinstance(a, (tuple, list)):
+            return max(max_tree_diff(u, v) for u, v in zip(a, b))
         return float((a.cpu() - b.cpu()).abs().max())
 
     # -- phase 2: the kernel against its plain version on the card ----------
@@ -1090,13 +1140,552 @@ def main(argv=None) -> int:
                                 "device_busy_us_per_step": busy_us,
                                 "fused_kernels_us_per_step": ours_us}
 
+
+    # -- phase 10: the deep-grid kernels against their plain versions --------
+    def deep_grid(n, depth, to, ti, seed, *, reck="none", parked=None,
+                  hw=None):
+        """A deep grid's tile dicts on the card and its pack: random
+        Clements phases with output screens, attenuations in [0.2, 0.9] and
+        scales near 1.  ``reck``: "none", "mixed" (a Reck V, input screen
+        included, on every tile with o + i even: identity padding) or "all"
+        (a Reck V on every tile: C = 2n - 3).  ``parked``: (l, o, i) of a
+        tile with scale 0.  Returns ``(layers, plans, packed)``."""
+        r = np.random.default_rng(seed)
+        shape = mesh_lib.clements_plan(n).param_shape()
+
+        def t(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+        def clements():
+            return {"theta": t(r.uniform(0, np.pi, shape)),
+                    "phi": t(r.uniform(0, 2 * np.pi, shape)),
+                    "alpha": t(r.uniform(0, 2 * np.pi, n))}
+
+        layers, plans = [], []
+        for l in range(depth):
+            rows, prow = [], []
+            for o in range(to):
+                row, pr = [], []
+                for i in range(ti):
+                    v, pair = clements(), None
+                    if reck == "all" or (reck == "mixed" and (o + i) % 2 == 0):
+                        plan, v = decompose.reck_program(
+                            decompose.random_unitary(n, int(r.integers(1 << 30))),
+                            device=dev)
+                        pair = (plan, None)
+                    row.append({"v": v, "u": clements(),
+                                "atten": t(r.uniform(0.2, 0.9, n)),
+                                "scale": torch.tensor(
+                                    0.0 if parked == (l, o, i)
+                                    else 1.0 + 0.05 * (o + i), device=dev)})
+                    pr.append(pair)
+                rows.append(tuple(row))
+                prow.append(tuple(pr))
+            layers.append(tuple(rows))
+            plans.append(tuple(prow))
+        layers, plans = tuple(layers), tuple(plans)
+        with torch.no_grad():
+            packed = ops.pack_deep_grid(layers, n=n, plans=plans, hardware=hw)
+        return layers, plans, packed
+
+    def deep_inputs(packed):
+        deep, (cv, cu, gains) = packed
+        pv, pu = schedule.deep_grid_parity_arrays(deep, dev)
+        return [cv, pv, cu, pu, gains]
+
+    def deep_vs_plain(inputs, x, g, detect_last, parked=None):
+        """B6, B7 and B8 against their plain versions on the same card
+        inputs (1e-5 * n of each output's largest magnitude, as B3-B5);
+        bit-identical gradients over two calls; a parked tile's V, U and
+        attenuation (g1) gradients exactly 0.  Returns the largest absolute
+        errors (forward, backward)."""
+        n = 2 * inputs[0].shape[-1]
+        kw = {"detect_last": detect_last}
+        out6 = givens_mesh.launch_deepgrid(*inputs, x, **kw)
+        out7, sv, su = givens_mesh.launch_deepgrid(*inputs, x, save_stages=True,
+                                                   **kw)
+        grads = givens_mesh.launch_deepgrid_backward(*inputs, x, sv, su, g, **kw)
+        grads2 = givens_mesh.launch_deepgrid_backward(*inputs, x, sv, su, g,
+                                                      **kw)
+        torch.cuda.synchronize()
+        tag = (f"L, To, Ti, n = {tuple(inputs[0].shape[:3]) + (n,)} "
+               f"B={x.shape[0]} C={inputs[0].shape[3]} detect={detect_last}")
+        check(torch.equal(out6, out7), f"B6 and B7 outputs differ {tag}")
+        for a, c in zip(grads[:3], grads2[:3]):
+            check(torch.equal(a, c), f"deepgrid_bwd gradients differ between "
+                  f"two calls {tag}")
+        pout, psv, psu = givens_mesh.deepgrid_forward_plain(*inputs, x, **kw)
+        e_fwd = max(max_rel_check(f"deepgrid_fwd {tag}", out6, pout, n),
+                    max_rel_check(f"deepgrid_fwd_res post-V {tag}", sv, psv, n),
+                    max_rel_check(f"deepgrid_fwd_res post-U {tag}", su, psu, n))
+        plain = givens_mesh.deepgrid_backward_plain(*inputs, x, sv, su, g, **kw)
+        e_bwd = max(max_rel_check(f"deepgrid_bwd {k} {tag}", a, b, n)
+                    for k, a, b in zip(("dcv", "dcu", "dg", "dx"), grads, plain))
+        check(all(bool(torch.isfinite(t).all()) for t in grads),
+              f"deepgrid_bwd non-finite gradients {tag}")
+        if parked is not None:
+            dcv, dcu, dg, _ = grads
+            check(not (dcv[parked].any() or dcu[parked].any()
+                       or dg[parked][4:8].any()),
+                  f"a parked tile's V, U or attenuation gradient is not 0 {tag}")
+        return e_fwd, e_bwd
+
+    deep_cases = ((1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16), (4, 4, 4, 16),
+                  (1, 2, 3, 4))
+    for depth, to, ti, n in deep_cases:
+        for hw, reck in ((None, "none"), (PROTOTYPE, "none"),
+                         (None, "mixed")):
+            parked = (depth - 1, to - 1, 0) if to * ti > 1 else None
+            _, _, packed = deep_grid(n, depth, to, ti, seed=depth + n, reck=reck,
+                                     parked=parked, hw=hw)
+            inputs = deep_inputs(packed)
+            if reck == "mixed" and n > 2:
+                check(inputs[0].shape[3] > schedule.clements_schedule(n)
+                      .n_columns, "the mixed grid used no identity padding")
+            for b in (1, 7, 130, 1024):
+                x = rand_x(rng, b, ti * n)
+                x[1::9] = 0                   # zero rows: exact zeros
+                for detect_last in (True, False):
+                    g = (torch.rand(b, to * n, device=dev) if detect_last
+                         else rand_x(rng, b, to * n))
+                    deep_vs_plain(inputs, x, g, detect_last, parked)
+        print(f"[10] L, To, Ti, n = {depth}, {to}, {ti}, {n}: deepgrid_fwd "
+              f"(B6), deepgrid_fwd_res (B7) and deepgrid_bwd (B8) == plain "
+              f"(ideal, PROTOTYPE, mixed Reck/Clements; both readouts; zero "
+              f"rows and a parked tile; B 1..1024), gradients bit-identical",
+              flush=True)
+    _, _, packed = deep_grid(4, 2, 2, 2, seed=1)
+    inputs = deep_inputs(packed)
+    empty = torch.zeros(0, 8, dtype=torch.complex64, device=dev)
+    n_before = dict(givens_mesh.LAUNCHES)
+    out0, sv0, su0 = givens_mesh.launch_deepgrid(*inputs, empty,
+                                                 save_stages=True)
+    grads0 = givens_mesh.launch_deepgrid_backward(
+        *inputs, empty, sv0, su0, torch.zeros(0, 8, device=dev))
+    check(givens_mesh.LAUNCHES == n_before and out0.shape == (0, 8)
+          and grads0[3].shape == (0, 8)
+          and not any(bool(t.any()) for t in grads0[:3]),
+          "B=0 must return empty outputs and zero gradients without a launch")
+    # the main path's shapes: the 4-layer 64x64 cascade (Reck V, C = 29) at
+    # B = 1024, the MNIST depth-4 network at the SGD batch and the test batch
+    cascade_layers, cascade_plans, cascade_packed = deep_grid(
+        16, 4, 4, 4, seed=args.seed + 40, reck="all")
+    cascade_in = deep_inputs(cascade_packed)
+    check(cascade_in[0].shape[3] == 2 * 16 - 3,
+          f"a Reck program at n = 16 has {cascade_in[0].shape[3]} parity "
+          "columns, not 29")
+    x = rand_x(rng, DEEP_BATCH, 64)
+    main_err_deep = deep_vs_plain(cascade_in, x, torch.rand(DEEP_BATCH, 64,
+                                                            device=dev), True)
+    _, _, mnist_packed = deep_grid(8, 4, 1, 1, seed=args.seed + 41,
+                                   hw=PROTOTYPE)
+    mnist_in = deep_inputs(mnist_packed)
+    main_err_deep_mnist = max(
+        deep_vs_plain(mnist_in, rand_x(rng, b, 8), torch.rand(b, 8, device=dev),
+                      True)[k] for b, k in ((1000, 0), (SGD_BATCH, 1)))
+    print(f"[10] deep kernels: B=0 ok; max err vs plain at the 64x64 cascade "
+          f"(L=4, 4x4 tiles of 16, Reck V, B={DEEP_BATCH}) {main_err_deep[0]:.3e} "
+          f"(B6/B7), {main_err_deep[1]:.3e} (B8); MNIST depth 4 "
+          f"{main_err_deep_mnist:.3e}", flush=True)
+    report["main_path_max_abs_err_deep"] = {
+        "cascade_fwd": main_err_deep[0], "cascade_bwd": main_err_deep[1],
+        "mnist_depth4": main_err_deep_mnist}
+
+    # -- phase 11: the 4-layer MNIST RFNN at full width -----------------------
+    deep_model = MnistRFNN(analog=True, hardware=PROTOTYPE, quantize="table1",
+                           analog_depth=4)
+    dparams = deep_model.init(torch.Generator().manual_seed(args.seed))
+    reset_launches()
+    with torch.no_grad():
+        dlogits = deep_model.apply(dparams, x_te)
+    torch.cuda.synchronize()
+    launches["mnist_deep"] = dict(givens_mesh.LAUNCHES)
+    check(launches["mnist_deep"] == {**{k: 0 for k in givens_mesh.LAUNCHES},
+                                     "deepgrid_fwd": 1},
+          f"the depth-4 MNIST inference must launch B6 once and nothing else: "
+          f"{launches['mnist_deep']}")
+    check(tuple(dlogits.shape) == (1000, 10)
+          and bool(torch.isfinite(dlogits).all()), "depth-4 logits")
+    with torch.no_grad():
+        dref = dataclasses.replace(deep_model, backend="reference").apply(
+            dparams, x_te)
+        dcpu = deep_model.apply(to_cpu(dparams), x_te)
+    d_dref = float((dlogits - dref).abs().max())
+    d_dcpu = float((dlogits.cpu() - dcpu).abs().max())
+    torch.testing.assert_close(dlogits, dref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dlogits.cpu(), dcpu, rtol=1e-5, atol=1e-5)
+    print(f"[11] MnistRFNN(analog_depth=4, PROTOTYPE, table1) 1000x784 logits "
+          f"ok: |kernel-reference| {d_dref:.2e}, |card-cpu| {d_dcpu:.2e}; "
+          f"launches {launches['mnist_deep']}", flush=True)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dres = train_mnist(x_tr, y_tr, x_te3, y_te3, analog_depth=4,
+                       schedule="ste", epochs=1, batch=SGD_BATCH, lr=DEEP_LR,
+                       seed=args.seed, log_every=1)
+    torch.cuda.synchronize()
+    deep_train_s = time.perf_counter() - t0
+    launches["train_mnist_deep"] = dict(givens_mesh.LAUNCHES)
+    deep_steps = len(x_tr) // SGD_BATCH
+    check(launches["train_mnist_deep"] == {
+        **{k: 0 for k in givens_mesh.LAUNCHES}, "deepgrid_fwd": 2,
+        "deepgrid_fwd_res": deep_steps, "deepgrid_bwd": deep_steps},
+        f"one depth-4 epoch must launch B7 and B8 once per SGD step and B6 "
+        f"only for the two evaluations: {launches['train_mnist_deep']}")
+    check(np.isfinite(dres["history"][0]["loss"]), "non-finite depth-4 loss")
+    dstep = make_sgd_step(deep_model.loss, lr=DEEP_LR)
+    xb = torch.from_numpy(x_tr[:SGD_BATCH])
+    yb = torch.from_numpy(y_tr[:SGD_BATCH]).long()
+    xb_dev, yb_dev = xb.to(dev), yb.to(dev)
+    deep_state = {"p": dparams}
+
+    def deep_sgd(k):
+        """k SGD steps of the depth-4 network on the card's params."""
+        for _ in range(k):
+            deep_state["p"], (loss, _) = dstep(deep_state["p"], xb_dev,
+                                               yb_dev)
+        return loss
+
+    t0 = time.perf_counter()
+    deep_sgd(20)
+    torch.cuda.synchronize()
+    deep_step_ms = (time.perf_counter() - t0) * 1e3 / 20
+    p_cpu = to_cpu(dparams)
+    for _ in range(20):
+        p_cpu, _ = dstep(p_cpu, xb, yb)
+    d_deep20 = max_tree_diff(deep_state["p"], p_cpu)
+    check(d_deep20 <= 1e-4, f"depth-4 SGD card vs CPU after 20 steps: "
+          f"{d_deep20}")
+    per_step_d, busy_d, ours_d = profile_steps(
+        torch, deep_sgd, 20, ("deepgrid_fwd_kernel", "deepgrid_bwd_kernel",
+                              "reduce_partials"))
+    check(ours_d["deepgrid_fwd_kernel"] > 0 and ours_d["deepgrid_bwd_kernel"] > 0,
+          f"the profiled depth-4 SGD steps show no deep kernel: {ours_d}")
+    print(f"[11] train_mnist(analog_depth=4, ste, PROTOTYPE, table1, batch "
+          f"{SGD_BATCH}, lr {DEEP_LR}, 1 epoch, 1000 digits) on the card: "
+          f"{deep_train_s:.1f} s, {deep_steps} SGD steps, loss "
+          f"{dres['history'][0]['loss']:.5f}, train acc "
+          f"{dres['train_acc']:.3f}, test acc {dres['test_acc']:.3f}; 20 steps "
+          f"card vs CPU params max |diff| {d_deep20:.2e} (bound 1e-4); "
+          f"launches {launches['train_mnist_deep']}", flush=True)
+    print(f"[11] {card} | SGD step, MnistRFNN(analog_depth=4, PROTOTYPE, "
+          f"table1), batch {SGD_BATCH}: {deep_step_ms:.3f} ms (20 steps); "
+          f"profiler: {per_step_d:.0f} device events and {busy_d:.1f} us of "
+          f"device time per step ({100 * busy_d / (deep_step_ms * 1e3):.1f}%), "
+          f"deep kernels per step (us) {ours_d}", flush=True)
+    report["mnist_deep"] = {"max_abs_vs_reference": d_dref,
+                            "max_abs_vs_cpu": d_dcpu,
+                            "train_s": deep_train_s, "history": dres["history"],
+                            "train_acc": dres["train_acc"],
+                            "test_acc": dres["test_acc"],
+                            "card_vs_cpu_20_steps": d_deep20,
+                            "sgd_step_ms": deep_step_ms,
+                            "device_events_per_step": per_step_d,
+                            "device_busy_us_per_step": busy_d,
+                            "deep_kernels_us_per_step": ours_d}
+
+    # -- phase 12: TiledAnalogLinear(64, 64) ----------------------------------
+    tiled = TiledAnalogLinear(64, 64, tile_size=16, quantize="table1", output="abs")
+    tparams = tiled.init(torch.Generator().manual_seed(args.seed + 3))
+    teacher = tiled.init(torch.Generator().manual_seed(args.seed + 4))
+    tiled_x = {b: torch.from_numpy(np.random.default_rng(b).normal(
+        size=(b, 64)).astype(np.float32)).to(dev) for b in (256, 1024)}
+    reset_launches()
+    with torch.no_grad():
+        tiled_y = {b: tiled.apply(tparams, x) for b, x in tiled_x.items()}
+    torch.cuda.synchronize()
+    launches["tiled_apply"] = dict(givens_mesh.LAUNCHES)
+    check(launches["tiled_apply"] == {**{k: 0 for k in givens_mesh.LAUNCHES},
+                                      "deepgrid_fwd": 2},
+          f"each TiledAnalogLinear forward must be one B6 launch: "
+          f"{launches['tiled_apply']}")
+    d_tiled = 0.0
+    with torch.no_grad():
+        for b, x in tiled_x.items():
+            want = dataclasses.replace(tiled, backend="reference").apply(
+                tparams, x)
+            d_tiled = max(d_tiled, max_rel_check(
+                f"tiled 64x64 B={b} vs the reference backend", tiled_y[b],
+                want, 16))
+    with torch.no_grad():
+        ty = tiled.apply(teacher, tiled_x[1024])
+
+    def tiled_loss(p, xx, yy):
+        loss = ((tiled.apply(p, xx) - yy) ** 2).mean()
+        return loss, loss
+
+    tstep = make_sgd_step(tiled_loss, lr=TILED_LR)
+    p_t = {"card": tparams, "cpu": to_cpu(tparams)}
+    tiled_losses = []
+    for where in ("card", "cpu"):
+        p = p_t[where]
+        xx, yy = ((tiled_x[1024], ty) if where == "card"
+                  else (tiled_x[1024].cpu(), ty.cpu()))
+        if where == "card":
+            reset_launches()
+            t0 = time.perf_counter()
+        for _ in range(TILED_STEPS):
+            p, (loss, _) = tstep(p, xx, yy)
+            if where == "card":
+                tiled_losses.append(float(loss))
+        if where == "card":
+            torch.cuda.synchronize()
+            tiled_step_ms = (time.perf_counter() - t0) * 1e3 / TILED_STEPS
+            launches["tiled_train"] = dict(givens_mesh.LAUNCHES)
+        p_t[where] = p
+    check(launches["tiled_train"] == {
+        **{k: 0 for k in givens_mesh.LAUNCHES},
+        "deepgrid_fwd_res": TILED_STEPS, "deepgrid_bwd": TILED_STEPS},
+        f"tiled training must launch B7 and B8 once per step: "
+        f"{launches['tiled_train']}")
+    check(all(np.isfinite(tiled_losses)), f"tiled losses {tiled_losses}")
+    d_tiled_train = max_tree_diff(p_t["card"], p_t["cpu"])
+    check(d_tiled_train <= 1e-4, f"tiled SGD card vs CPU after {TILED_STEPS} "
+          f"steps: {d_tiled_train}")
+    print(f"[12] TiledAnalogLinear(64, 64, 16, table1, abs): forward at B=256 "
+          f"and 1024 one B6 launch each, max err vs the reference backend "
+          f"{d_tiled:.2e}; {TILED_STEPS} SGD steps (lr {TILED_LR}, B=1024, "
+          f"{tiled_step_ms:.2f} ms per step, each ending in a loss read-back) "
+          f"losses {[round(v, 6) for v in tiled_losses]}, card vs CPU params "
+          f"max |diff| {d_tiled_train:.2e} (bound 1e-4); launches "
+          f"{launches['tiled_apply']}, {launches['tiled_train']}", flush=True)
+    report["tiled"] = {"max_abs_vs_reference": d_tiled,
+                       "losses": tiled_losses, "sgd_step_ms": tiled_step_ms,
+                       "card_vs_cpu_steps": d_tiled_train}
+
+    # -- phase 13: the 4-layer 64x64 cascade ----------------------------------
+    w_cascade = torch.from_numpy(np.random.default_rng(args.seed).normal(
+        size=(DEEP_BATCH, 64)).astype(np.float32))
+    x_cascade = rand_x(rng, DEEP_BATCH, 64)
+
+    def cascade_grads(device):
+        """Output and the gradients in every tile param and x of a weighted
+        sum of the cascade's output, on ``device``."""
+        leaves = []
+
+        def leaf(t):
+            leaves.append(t.detach().to(device).requires_grad_(True))
+            return leaves[-1]
+
+        layers = tree_map(leaf, cascade_layers)
+        xx = x_cascade.detach().to(device).requires_grad_(True)
+        y = ops.deep_apply(layers, xx, n=16, plans=cascade_plans)
+        (y * w_cascade.to(device)).sum().backward()
+        return y.detach().cpu(), [t.grad.cpu() for t in leaves + [xx]]
+
+    reset_launches()
+    t0 = time.perf_counter()
+    y_card, g_card = cascade_grads(dev)
+    torch.cuda.synchronize()
+    cascade_ms = (time.perf_counter() - t0) * 1e3
+    launches["cascade"] = dict(givens_mesh.LAUNCHES)
+    check(launches["cascade"] == {**{k: 0 for k in givens_mesh.LAUNCHES},
+                                  "deepgrid_fwd_res": 1, "deepgrid_bwd": 1},
+          f"the cascade's fwd+bwd must be one B7 and one B8 launch: "
+          f"{launches['cascade']}")
+    y_cpu, g_cpu = cascade_grads("cpu")
+    d_cascade = max_rel_check("cascade card vs CPU", y_card, y_cpu, 16) \
+        / float(y_cpu.abs().max())
+    d_cascade_g = max(max_rel_check("cascade grad card vs CPU", a, b, 16)
+                      / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(g_card, g_cpu))
+    check(bool(torch.isfinite(y_card).all()) and y_card.shape == (DEEP_BATCH, 64),
+          "cascade output")
+    print(f"[13] ops.deep_apply, 4 layers of 4x4 tiles of 16 (64x64, Reck V, "
+          f"C = 29), fwd+bwd at B={DEEP_BATCH} on the card in {cascade_ms:.1f} "
+          f"ms (first call, pack included); card vs CPU output "
+          f"{d_cascade:.2e}, gradients (every tile param, x) "
+          f"{d_cascade_g:.2e} of each one's largest magnitude; "
+          f"launches {launches['cascade']}", flush=True)
+    report["cascade"] = {"card_vs_cpu_rel": d_cascade,
+                         "card_vs_cpu_grads_rel": d_cascade_g,
+                         "first_fwd_bwd_ms": cascade_ms}
+
+    # -- phase 14: serving the deep models -------------------------------------
+    seq = AnalogSequence(n=8, depth=4, hardware=PROTOTYPE, quantize="table1")
+    seq_params = seq.init(torch.Generator().manual_seed(args.seed + 5))
+    served = {}
+    reset_launches()
+    for name, model, params, d_in in (("tiled", tiled, tparams, 64),
+                                      ("sequence", seq, seq_params, 8)):
+        feats = np.random.default_rng(d_in).normal(size=(256, d_in)).astype(
+            np.float32)
+        engine = ServingEngine(as_servable(model, params), slots=64)
+        reqs = [Request(i, features=f) for i, f in enumerate(feats)]
+        for r in reqs:
+            check(engine.submit(r), "submit refused")
+        check(engine.tick() == 64, "first tick")
+        packs = dict(ops.PACK_EVENTS)
+        engine.run()
+        check(ops.PACK_EVENTS == packs, f"{name}: steady-state ticks packed: "
+              f"{packs} -> {ops.PACK_EVENTS}")
+        with torch.no_grad():
+            direct = model.apply(params, torch.from_numpy(feats).to(dev))
+        direct = direct.cpu().numpy()
+        worst = max(float(np.abs(r.result - direct[r.rid]).max())
+                    for r in reqs)
+        check(all(r.done and not r.failed for r in reqs)
+              and engine.stats["served"] == 256, f"{name}: not all served")
+        check(worst <= 1e-5 * max(1.0, float(np.abs(direct).max())),
+              f"{name}: served results differ from a direct apply by {worst}")
+        served[name] = {"stats": engine.stats, "max_diff_vs_direct": worst}
+    launches["serving_deep"] = dict(givens_mesh.LAUNCHES)
+    check(launches["serving_deep"]["deepgrid_fwd"] >= 2 * 4 + 2,
+          f"deep serving did not launch B6 per tick: {launches['serving_deep']}")
+    print(f"[14] engine over TiledAnalogLinear(64, 64) and AnalogSequence(8, 4): "
+          f"256 requests each == direct apply (max diff "
+          f"{max(v['max_diff_vs_direct'] for v in served.values()):.1e}), "
+          f"PACK_EVENTS flat after the first tick; launches "
+          f"{launches['serving_deep']}", flush=True)
+    report["serving_deep"] = served
+
+    # -- phase 15: times of the deep-grid kernels --------------------------------
+    def real_cells(coef, par):
+        """Cells the data holds: every slot but the parity-1 wrap slot and
+        the identity cells that pad short meshes."""
+        eye = torch.tensor([1, 0, 0, 0, 0, 0, 1, 0], dtype=coef.dtype,
+                           device=coef.device)[:, None]
+        real = ~(coef == eye).all(-2)
+        real[..., -1] &= par == 0
+        return int(real.sum())
+
+    def deep_bound(name, inputs, b, detect_last=True):
+        cv, pv, cu, pu, gains = inputs
+        depth, to, ti, c, _, p = cv.shape
+        n, tiles = 2 * p, to * ti
+        cells = real_cells(cv, pv) + real_cells(cu, pu)
+        in_bytes = 4 * (cv.numel() + cu.numel() + pv.numel() + pu.numel()
+                        + gains.numel())
+        out_w = 4 if detect_last else 8
+        stages = 2 * depth * b * tiles * n * 8
+        if name == "deepgrid_bwd":
+            # read x, both boundaries, the cotangent and the inputs; write dx
+            # and the three gradients
+            nbytes = (b * ti * n * 16 + stages + b * to * n * out_w
+                      + 2 * in_bytes)
+            flops = b * (FLOPS_PER_PAIR_BWD * cells
+                         + FLOPS_PER_TILE_CHANNEL_DEEP_BWD * depth * tiles * n
+                         + FLOPS_PER_ROW_CHANNEL_DEEP_BWD * depth * to * n) \
+                + FLOPS_PER_CELL_INV * cells
+        else:
+            nbytes = b * ti * n * 8 + b * to * n * out_w + in_bytes
+            if name == "deepgrid_fwd_res":
+                nbytes += stages
+            flops = b * (FLOPS_PER_PAIR * cells
+                         + FLOPS_PER_TILE_CHANNEL_DEEP * depth * tiles * n
+                         + FLOPS_PER_ROW_CHANNEL_DEEP * depth * to * n)
+        return (*bound(nbytes, flops), nbytes, flops)
+
+    def layer_matrices(packed):
+        """Each layer's realized complex matrix, transposed (x @ M^T), from
+        the kernel's complex readout of that layer alone on the identity."""
+        deep, tensors = packed
+        eye = torch.eye(deep.ti * deep.n, dtype=torch.complex64, device=dev)
+        with torch.no_grad():
+            return [ops.deep_apply(None, eye, n=deep.n, readout="complex",
+                                   packed=(deep.layer(l), tuple(
+                                       t[l:l + 1] for t in tensors)))
+                    for l in range(deep.n_layers)]
+
+    def yardstick(mats, detect_last=True):
+        """One torch.matmul per layer on the precomputed layer matrix, then
+        .abs(): the layer boundaries' detection, and the readout's with the
+        magnitude readout."""
+        def run(x):
+            h = x
+            for m in mats[:-1]:
+                h = torch.matmul(h, m).abs().to(torch.complex64)
+            h = torch.matmul(h, mats[-1])
+            return h.abs() if detect_last else h
+        return run
+
+    deep_shapes = {
+        "cascade_64x64_l4": (cascade_packed, cascade_in, True),
+        "mnist_depth4": (mnist_packed, mnist_in, True),
+        "tiled_64x64": (ops.pack_tile_grid(tiled._tile_args(tparams), n=16),
+                        None, False)}
+    rows_deep = []
+    for shape_name, (packed, inputs, detect_last) in deep_shapes.items():
+        inputs = inputs or deep_inputs(packed)
+        mats = layer_matrices(packed)
+        lib_fwd = yardstick(mats, detect_last)
+        x_chk = rand_x(rng, 64, inputs[0].shape[2] * 2 * inputs[0].shape[-1])
+        max_rel_check(f"{shape_name} yardstick is the same function",
+                      lib_fwd(x_chk), givens_mesh.launch_deepgrid(
+                          *inputs, x_chk, detect_last=detect_last), 64)
+        batches = {"cascade_64x64_l4": {"deepgrid_fwd": (DEEP_BATCH,),
+                                        "deepgrid_fwd_res": (DEEP_BATCH,),
+                                        "deepgrid_bwd": (DEEP_BATCH,)},
+                   "mnist_depth4": {"deepgrid_fwd": (1000,),
+                                    "deepgrid_fwd_res": (SGD_BATCH,),
+                                    "deepgrid_bwd": (SGD_BATCH,)},
+                   "tiled_64x64": {"deepgrid_fwd": (256, 1024),
+                                   "deepgrid_fwd_res": (1024,),
+                                   "deepgrid_bwd": (1024,)}}[shape_name]
+        for name, bs in batches.items():
+            for b in bs:
+                width_in = inputs[0].shape[2] * 2 * inputs[0].shape[-1]
+                width_out = inputs[0].shape[1] * 2 * inputs[0].shape[-1]
+                x = rand_x(rng, b, width_in)
+                kw = {"detect_last": detect_last}
+                if name == "deepgrid_bwd":
+                    _, sv, su = givens_mesh.launch_deepgrid(
+                        *inputs, x, save_stages=True, **kw)
+                    g = (torch.rand(b, width_out, device=dev) if detect_last
+                         else rand_x(rng, b, width_out))
+                    gc = rand_x(rng, b, width_out)
+                    call = lambda: givens_mesh.launch_deepgrid_backward(  # noqa: E731
+                        *inputs, x, sv, su, g, **kw)
+                    plain = lambda: givens_mesh.deepgrid_backward_plain(  # noqa: E731
+                        *inputs, x, sv, su, g, **kw)
+                    mats_h = [m.conj().T.contiguous() for m in reversed(mats)]
+
+                    def lib(gc=gc, mats_h=mats_h):
+                        h = gc
+                        for m in mats_h:
+                            h = torch.matmul(h, m)
+                        return h
+                else:
+                    save = name == "deepgrid_fwd_res"
+                    call = lambda: givens_mesh.launch_deepgrid(  # noqa: E731
+                        *inputs, x, save_stages=save, **kw)
+                    plain = lambda: givens_mesh.deepgrid_forward_plain(  # noqa: E731
+                        *inputs, x, **kw)
+                    lib = lambda: lib_fwd(x)  # noqa: E731
+                k_ms = cuda_ms(torch, call, 100)
+                kd_ms = device_ms(torch, call, 50)
+                p_ms = cuda_ms(torch, plain, 3, warmup=1)
+                l_ms = cuda_ms(torch, lib, 100)
+                ld_ms = device_ms(torch, lib, 50)
+                bound_ms, bound_by, nbytes, flops = deep_bound(name, inputs, b,
+                                                               detect_last)
+                rows_deep.append({"kernel": name, "shape": shape_name, "B": b,
+                                  "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+                                  "plain_ms": p_ms, "matmul_ms": l_ms,
+                                  "matmul_device_ms": ld_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "bytes": nbytes, "flops": flops,
+                                  "columns": inputs[0].shape[3]})
+                what = ("the dx chain alone" if name == "deepgrid_bwd"
+                        else "the layer matrices")
+                print(f"[15] {card} | {name} {shape_name} B={b} (C="
+                      f"{inputs[0].shape[3]}): kernel {k_ms:.5f} ms per call, "
+                      f"{kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
+                      f"({bound_by}, {flops / 1e9:.4f} GFLOP, "
+                      f"{nbytes / 1e6:.3f} MB); plain {p_ms:.3f} ms per call; "
+                      f"matmul over {what} {l_ms:.5f} ms per call, "
+                      f"{ld_ms:.5f} ms on the device", flush=True)
+    report["timings_deep"] = rows_deep
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 10: the kernels line and the device line ------------------------
+    # -- phase 16: the kernels line and the device line ------------------------
     main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
-                 "processor_apply", "processor_program", "train_fused")
+                 "processor_apply", "processor_program", "train_fused",
+                 "mnist_deep", "train_mnist_deep", "tiled_apply", "tiled_train",
+                 "cascade", "serving_deep")
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{
@@ -1153,6 +1742,29 @@ def main(argv=None) -> int:
             # torch.matmul of the realized matrix: the linear half alone for
             # B3/B4 (no |.|), the dx half alone for B5 (no coefficient or
             # gain gradients)
+            "library_ms": row["matmul_device_ms"],
+        })
+    # B6, B7 and B8 at the 64x64 cascade (4 layers of 4x4 tiles of 16, Reck V,
+    # B = 1024): the shape of the JAX benchmark's gated deepgrid row
+    deep_rows = {"deepgrid_fwd": ("deepgrid_fwd.cu", 893, 0),
+                 "deepgrid_fwd_res": ("deepgrid_fwd.cu", 914, 0),
+                 "deepgrid_bwd": ("deepgrid_bwd.cu", 934, 1)}
+    for name, (source, line, err) in deep_rows.items():
+        row = next(r for r in rows_deep if r["kernel"] == name
+                   and r["shape"] == "cascade_64x64_l4" and r["B"] == DEEP_BATCH)
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/givens_mesh.py:{line}",
+            "launches": sum(launches[k][name] for k in main_path),
+            "max_abs_err": main_err_deep[err],
+            "ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # one torch.matmul per layer on the precomputed 64x64 layer
+            # matrices (then .abs()) for B6/B7; the dx chain alone for B8
             "library_ms": row["matmul_device_ms"],
         })
     for k in kernels:

@@ -27,7 +27,12 @@ from repro_torch.core.hardware import (
     apply_mesh_hw,
     detect_magnitude,
 )
-from repro_torch.core.analog_linear import AnalogLinear, AnalogUnitary
+from repro_torch.core.analog_linear import (
+    AnalogLinear,
+    AnalogSequence,
+    AnalogUnitary,
+    TiledAnalogLinear,
+)
 from repro_torch.core.decompose import (
     fit_program,
     random_unitary,
@@ -46,7 +51,8 @@ __all__ = [
     "clements_plan", "init_mesh_params", "mesh_matrix", "pack_cells_to_columns",
     "ste_quantize", "table_i_codebook", "uniform_codebook",
     "IDEAL", "HardwareModel", "apply_mesh_hw", "detect_magnitude",
-    "AnalogLinear", "AnalogUnitary", "fit_program", "random_unitary",
+    "AnalogLinear", "AnalogSequence", "AnalogUnitary", "TiledAnalogLinear",
+    "fit_program", "random_unitary",
     "reck_program", "reconstruction_error", "SynthesizedMatrix",
     "synthesis_error", "synthesize",
 ]

@@ -6,8 +6,13 @@
   V-mesh -> attenuation -> U-mesh with a digital scale gamma (Eq. 31 and
   Fig. 11's pre/post scaling); trained, or programmed from a target matrix
   (:meth:`AnalogLinear.init_from_matrix`).
+* :class:`AnalogSequence` — an L-deep stack of square analog linear layers
+  with |.| detection between them (the paper's Sec.-V multi-layer
+  microwave ANN).
+* :class:`TiledAnalogLinear` — a large (out x in) matmul as a grid of
+  tile-sized AnalogLinear cores whose row outputs combine coherently.
 
-Both support Table-I discrete-phase quantization (straight-through
+All support Table-I discrete-phase quantization (straight-through
 gradients) and the hardware-imperfection model.
 
 ``backend="kernel"`` (the default) runs the meshes through the kernel path:
@@ -15,6 +20,10 @@ gradients) and the hardware-imperfection model.
 ``AnalogLinear(output="abs")``, the fused layer
 :func:`repro_torch.kernels.ops.rfnn_linear` (kernels B3/B4/B5): the CUDA
 kernels on CUDA tensors, their plain versions on CPU tensors.
+``AnalogSequence`` and ``TiledAnalogLinear`` run the whole network or grid
+through the deep-grid kernels B6/B7/B8 (:func:`repro_torch.kernels.ops.
+rfnn_network`, :func:`~repro_torch.kernels.ops.tiled_apply`), one launch
+per direction.
 ``backend="reference"`` runs the column scan of :mod:`repro_torch.core.mesh`.
 Both consume the same generator draws, so they are draw-for-draw
 comparable under noise.  (The JAX package defaults to its reference
@@ -250,3 +259,194 @@ class AnalogLinear:
 
     def n_cells(self) -> int:
         return self.u_plan.n_cells + self.v_plan.n_cells
+
+
+def _stack_trees(trees: list, lead: tuple[int, ...]):
+    """Stack equal-structured param dicts into ``lead + shape`` leaves."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees], lead) for k in trees[0]}
+    return torch.stack(trees).reshape(lead + trees[0].shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogSequence:
+    """An L-deep stack of square n x n analog linear layers (the paper's
+    multi-layer microwave ANN, Sec. V): per layer V-mesh -> attenuation ->
+    U-mesh -> digital scale -> |detect|, the detected magnitude feeding the
+    next layer.
+
+    With ``backend="kernel"`` the whole network runs through the deep-grid
+    kernels (``ops.rfnn_network``), one launch per direction; its packed
+    coefficients are cached per parameter identity, so steady-state
+    inference packs nothing.  The reference backend composes the per-layer
+    :class:`AnalogLinear` modules.  Inter-layer detection is the ideal
+    ``|.|``; the detector chain's noise and floor apply once, at the
+    readout (``output="abs"`` with a hardware model).
+    """
+
+    n: int
+    depth: int
+    quantize: str | None = None
+    hardware: hw_lib.HardwareModel | None = None
+    output: OutputMode = "abs"
+    backend: Backend = "kernel"
+
+    def __post_init__(self):
+        _check_backend(self.backend)
+        if self.depth < 1:
+            raise ValueError(f"depth must be >= 1, got {self.depth}")
+        object.__setattr__(self, "_layer", AnalogLinear(
+            in_dim=self.n, out_dim=self.n, quantize=self.quantize,
+            hardware=self.hardware, output="complex", backend=self.backend))
+
+    @property
+    def layer(self) -> AnalogLinear:
+        return self._layer  # type: ignore[attr-defined]
+
+    def init(self, generator: torch.Generator, *, device=None) -> dict:
+        """Random params of every layer, drawn in layer order from a CPU
+        ``generator`` (each as :meth:`AnalogLinear.init`), on ``device``
+        (CUDA when None; raises when CUDA is absent)."""
+        return {"layers": tuple(self.layer.init(generator, device=device)
+                                for _ in range(self.depth))}
+
+    def apply(self, params: dict, x, *,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """Run ``x[..., n]`` through the stack on the params' device.
+
+        With a ``generator`` and a hardware model, the draws are, layer by
+        layer, V's phase noise then U's, then the readout's detector noise,
+        on both backends.
+        """
+        layers = params["layers"]
+        device = layers[0]["atten_logit"].device
+        xc = as_complex(torch.as_tensor(x, device=device))
+        hw = self.hardware
+        gen = generator if hw is not None else None
+        if self.backend == "kernel":
+            args = kernel_ops.memoize_by_leaf_ids(
+                ("analog_sequence_args", self), (layers, gen),
+                lambda: self._layer_args(layers, gen))
+            y = kernel_ops.rfnn_network(args, xc, n=self.n, hardware=hw)
+            return _readout(y, self.output, hw, gen)
+        h = xc
+        for p in layers:
+            h = self.layer.apply(p, h, generator=gen).abs()
+        return _readout(h, self.output, hw, gen)
+
+    def _layer_args(self, layers, generator) -> tuple:
+        args = []
+        for p in layers:
+            la = {"v": self.layer._quant(p["v"]),
+                  "u": self.layer._quant(p["u"]),
+                  "atten": torch.sigmoid(p["atten_logit"]),
+                  "scale": torch.nn.functional.softplus(p["log_scale"])}
+            if generator is not None:
+                la["generator"] = generator
+            args.append(la)
+        return tuple(args)
+
+    def n_cells(self) -> int:
+        return self.depth * self.layer.n_cells()
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledAnalogLinear:
+    """A large (out x in) matmul as a (To x Ti) grid of tile_size^2 analog
+    SVD cores; each row's tile outputs combine coherently (a power combiner
+    after matched lines) and the readout applies after the combination.
+
+    With ``backend="kernel"`` the whole grid runs through the deep-grid
+    kernels (``ops.tiled_apply``), one launch per direction; packed
+    coefficients are cached per parameter identity.  The reference backend
+    composes the To x Ti per-tile :class:`AnalogLinear` applies.  Params
+    are the tiles' params stacked to ``[To, Ti, ...]`` leaves.
+    """
+
+    in_dim: int
+    out_dim: int
+    tile_size: int = 16
+    quantize: str | None = None
+    hardware: hw_lib.HardwareModel | None = None
+    output: OutputMode = "real"
+    backend: Backend = "kernel"
+
+    def __post_init__(self):
+        _check_backend(self.backend)
+        t = self.tile_size
+        if t % 2:
+            raise ValueError("tile_size must be even")
+        if self.in_dim % t or self.out_dim % t:
+            raise ValueError(f"dims ({self.out_dim},{self.in_dim}) must be "
+                             f"multiples of tile {t}")
+        object.__setattr__(self, "_tile", AnalogLinear(
+            in_dim=t, out_dim=t, quantize=self.quantize, hardware=None,
+            output="complex", backend=self.backend))
+
+    @property
+    def tile(self) -> AnalogLinear:
+        return self._tile  # type: ignore[attr-defined]
+
+    def grid(self) -> tuple[int, int]:
+        return (self.out_dim // self.tile_size, self.in_dim // self.tile_size)
+
+    def init(self, generator: torch.Generator, *, device=None) -> dict:
+        """Random params drawn tile by tile from a CPU ``generator``, row by
+        row (tile (0, 0), (0, 1), ..., then (1, 0), ...), each as
+        :meth:`AnalogLinear.init`, stacked to ``[To, Ti, ...]`` on
+        ``device`` (CUDA when None; raises when CUDA is absent)."""
+        to, ti = self.grid()
+        return _stack_trees([self.tile.init(generator, device=device)
+                             for _ in range(to * ti)], (to, ti))
+
+    def apply(self, params: dict, x, *,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """Run ``x[..., in_dim]`` through the grid on the params' device;
+        returns ``[..., out_dim]``.  The tiles are noiseless; with a hardware
+        model and ``output="abs"`` the detector's noise is drawn from
+        ``generator``."""
+        to, ti = self.grid()
+        t = self.tile_size
+        xc = as_complex(torch.as_tensor(x, device=params["atten_logit"].device))
+        if self.backend == "kernel":
+            tiles = kernel_ops.memoize_by_leaf_ids(("tiled_analog_args", self), params,
+                                        lambda: self._tile_args(params))
+            # every tile shares the module's plan pair
+            pair = (self.tile.v_plan, self.tile.u_plan)
+            y = kernel_ops.tiled_apply(tiles, xc, n=t,
+                                       plans=((pair,) * ti,) * to)
+        else:
+            xt = xc.reshape(xc.shape[:-1] + (ti, t))
+            rows = []
+            for o in range(to):
+                row = 0
+                for i in range(ti):
+                    p = _tile_params(params, o, i)
+                    row = row + self.tile.apply(p, xt[..., i, :])
+                rows.append(row)  # the coherent combine over the row's tiles
+            y = torch.stack(rows, -2).reshape(xc.shape[:-1] + (self.out_dim,))
+        if self.hardware is not None and self.output == "abs":
+            return hw_lib.detect_magnitude(y, self.hardware, generator)
+        return _readout(y, self.output, None, None)
+
+    def _tile_args(self, params: dict) -> tuple:
+        """Per-tile kernel argument dicts from the stacked params: quantized
+        phases, sigmoid attenuation and softplus scale, derived once for the
+        whole grid (each is elementwise) and sliced per tile."""
+        to, ti = self.grid()
+        v, u = self.tile._quant(params["v"]), self.tile._quant(params["u"])
+        atten = torch.sigmoid(params["atten_logit"])
+        scale = torch.nn.functional.softplus(params["log_scale"])
+        return tuple(tuple({"v": {k: a[o, i] for k, a in v.items()},
+                            "u": {k: a[o, i] for k, a in u.items()},
+                            "atten": atten[o, i], "scale": scale[o, i]}
+                           for i in range(ti)) for o in range(to))
+
+    def n_cells(self) -> int:
+        to, ti = self.grid()
+        return to * ti * self.tile.n_cells()
+
+
+def _tile_params(params: dict, o: int, i: int) -> dict:
+    return {k: (_tile_params(v, o, i) if isinstance(v, dict) else v[o, i])
+            for k, v in params.items()}

@@ -3,13 +3,16 @@
 givens_mesh  — the mesh sweep: CUDA kernels ``csrc/mesh_fwd.cu`` (forward,
                B1) and ``csrc/mesh_bwd.cu`` (backward, B2); the fused analog
                linear layer: ``csrc/rfnn_fwd.cu`` (B3 inference, B4 training
-               forward) and ``csrc/rfnn_bwd.cu`` (B5); all built at first use
-               by ``cuda_build`` and sharing ``csrc/mesh_sweep.cuh``; and
-               their plain versions
+               forward) and ``csrc/rfnn_bwd.cu`` (B5); the deep tile grid:
+               ``csrc/deepgrid_fwd.cu`` (B6, B7) and ``csrc/deepgrid_bwd.cu``
+               (B8); all built at first use by ``cuda_build`` and sharing
+               ``csrc/mesh_sweep.cuh``; and their plain versions
 schedule     — parity-column schedules lowering any adjacent-pair MeshPlan
-               onto the kernel, and the ``[C', 8, P]`` coefficient packing
+               onto the kernels, the ``[C', 8, P]`` coefficient packing and
+               the deep grid's stacked schedules
 ops          — public wrappers (``mesh_apply``, ``mesh_apply_cells``,
-               ``rfnn_linear``)
-ref          — the plain PyTorch twins of the column sweep, its reverse and
-               the fused layer
+               ``rfnn_linear``, ``deep_apply``, ``rfnn_network``,
+               ``tiled_apply``) and the deep grid's pack cache
+ref          — the plain PyTorch twins of the column sweep, its reverse,
+               the fused layer and the deep grid
 """

@@ -1,11 +1,13 @@
 // Device code shared by the mesh kernels: the forward column sweep, the
 // reversed sweep of the VJP (per-cell inverse, adjoint and coefficient
-// gradient terms), the row sums of a tile's gradient terms and the
-// block-order reduce of per-block gradient slices.
+// gradient terms), the row sums of a tile's gradient terms, their stacked
+// siblings for a grid of tiles sweeping together, and the block-order
+// reduce of per-block gradient slices.
 //
-// Included by mesh_fwd.cu (B1), mesh_bwd.cu (B2), rfnn_fwd.cu (B3, B4) and
-// rfnn_bwd.cu (B5).  cuda_build.py hashes every header under csrc/ into each
-// library's file name, so an edit here rebuilds all four libraries.
+// Included by mesh_fwd.cu (B1), mesh_bwd.cu (B2), rfnn_fwd.cu (B3, B4),
+// rfnn_bwd.cu (B5), deepgrid_fwd.cu (B6, B7) and deepgrid_bwd.cu (B8).
+// cuda_build.py hashes every header under csrc/ into each library's file
+// name, so an edit here rebuilds all six libraries.
 //
 // Layouts (see mesh_fwd.cu): a block owns a tile of `rows` batch rows of n
 // complex channels, float2[rows][n] in shared memory.  Coefficients are
@@ -58,6 +60,24 @@ inline int tile_count(int batch, int rows) {
   return static_cast<int>((static_cast<long long>(batch) + rows - 1) / rows);
 }
 
+// (a, b) <- t (a, b) for the cell in pair slot s of a column's [8, P]
+// coefficients `cc`.
+__device__ __forceinline__ void rotate_cell(const float* __restrict__ cc,
+                                            int p, int s, float2& a,
+                                            float2& b) {
+  const float t00r = __ldg(cc + 0 * p + s), t00i = __ldg(cc + 1 * p + s);
+  const float t01r = __ldg(cc + 2 * p + s), t01i = __ldg(cc + 3 * p + s);
+  const float t10r = __ldg(cc + 4 * p + s), t10i = __ldg(cc + 5 * p + s);
+  const float t11r = __ldg(cc + 6 * p + s), t11i = __ldg(cc + 7 * p + s);
+  float2 a2, b2;
+  a2.x = t00r * a.x - t00i * a.y + t01r * b.x - t01i * b.y;
+  a2.y = t00r * a.y + t00i * a.x + t01r * b.y + t01i * b.x;
+  b2.x = t10r * a.x - t10i * a.y + t11r * b.x - t11i * b.y;
+  b2.y = t10r * a.y + t10i * a.x + t11r * b.y + t11i * b.x;
+  a = a2;
+  b = b2;
+}
+
 // Apply columns 0 .. n_cols-1 to the tile in place.  The caller has synced
 // after filling the tile; the sweep ends with a barrier.
 __device__ void forward_sweep(float2* tile, const float* __restrict__ coef,
@@ -74,19 +94,11 @@ __device__ void forward_sweep(float2* tile, const float* __restrict__ coef,
       const int s = i - r * slots;
       float2* row = tile + r * n;
       const int top = 2 * s + par;  // top + 1 <= n - 1
-      const float2 a = row[top];
-      const float2 b = row[top + 1];
-      const float t00r = __ldg(cc + 0 * p + s), t00i = __ldg(cc + 1 * p + s);
-      const float t01r = __ldg(cc + 2 * p + s), t01i = __ldg(cc + 3 * p + s);
-      const float t10r = __ldg(cc + 4 * p + s), t10i = __ldg(cc + 5 * p + s);
-      const float t11r = __ldg(cc + 6 * p + s), t11i = __ldg(cc + 7 * p + s);
-      float2 a2, b2;
-      a2.x = t00r * a.x - t00i * a.y + t01r * b.x - t01i * b.y;
-      a2.y = t00r * a.y + t00i * a.x + t01r * b.y + t01i * b.x;
-      b2.x = t10r * a.x - t10i * a.y + t11r * b.x - t11i * b.y;
-      b2.y = t10r * a.y + t10i * a.x + t11r * b.y + t11i * b.x;
-      row[top] = a2;
-      row[top + 1] = b2;
+      float2 a = row[top];
+      float2 b = row[top + 1];
+      rotate_cell(cc, p, s, a, b);
+      row[top] = a;
+      row[top + 1] = b;
     }
     __syncthreads();
   }
@@ -108,15 +120,55 @@ __device__ void sum_rows(const float* terms, int rows, int stride, int entries,
   }
 }
 
+// One cell of a reversed column, in place: from the column's output pair
+// (s_pair[0], s_pair[1]) and the cotangent at it (g_pair[0], g_pair[1]),
+// the cell's analytic inverse adj(t)/det(t) (|det|^2 floored at 1e-12)
+// rebuilds the input pair, the four conjugate products conj(input) (x)
+// cotangent go to tr[k * p + s] for the rows (00, 01, 10, 11) x (re, im),
+// and the adjoint t^H carries the cotangent back.
+__device__ __forceinline__ void reverse_cell(const float* __restrict__ cc,
+                                             int p, int s, float2* s_pair,
+                                             float2* g_pair, float* tr) {
+  const float2 t00 = make_float2(__ldg(cc + 0 * p + s), __ldg(cc + 1 * p + s));
+  const float2 t01 = make_float2(__ldg(cc + 2 * p + s), __ldg(cc + 3 * p + s));
+  const float2 t10 = make_float2(__ldg(cc + 4 * p + s), __ldg(cc + 5 * p + s));
+  const float2 t11 = make_float2(__ldg(cc + 6 * p + s), __ldg(cc + 7 * p + s));
+  // inverse: adj(t) / det(t), 1 / det = conj(det) / max(|det|^2, eps)
+  const float2 det = cadd(cmul(t00, t11), cneg(cmul(t01, t10)));
+  const float d2 = fmaxf(det.x * det.x + det.y * det.y, kDetEps);
+  const float2 inv_det = make_float2(det.x / d2, -det.y / d2);
+  const float2 i00 = cmul(t11, inv_det);
+  const float2 i01 = cneg(cmul(t01, inv_det));
+  const float2 i10 = cneg(cmul(t10, inv_det));
+  const float2 i11 = cmul(t00, inv_det);
+
+  const float2 a = s_pair[0], b = s_pair[1];
+  const float2 ga = g_pair[0], gb = g_pair[1];
+  const float2 a_in = cadd(cmul(i00, a), cmul(i01, b));
+  const float2 b_in = cadd(cmul(i10, a), cmul(i11, b));
+
+  const float2 d00 = cmulc(a_in, ga), d01 = cmulc(b_in, ga);
+  const float2 d10 = cmulc(a_in, gb), d11 = cmulc(b_in, gb);
+  tr[0 * p + s] = d00.x;
+  tr[1 * p + s] = d00.y;
+  tr[2 * p + s] = d01.x;
+  tr[3 * p + s] = d01.y;
+  tr[4 * p + s] = d10.x;
+  tr[5 * p + s] = d10.y;
+  tr[6 * p + s] = d11.x;
+  tr[7 * p + s] = d11.y;
+
+  s_pair[0] = a_in;
+  s_pair[1] = b_in;
+  g_pair[0] = cadd(cmulc(t00, ga), cmulc(t10, gb));  // (t^H g)_a
+  g_pair[1] = cadd(cmulc(t01, ga), cmulc(t11, gb));  // (t^H g)_b
+}
+
 // The reversed sweep of columns n_cols-1 .. 0 (the VJP of forward_sweep).
 // On entry `st` holds the sweep's output state and `gt` the cotangent at it;
 // on exit `st` holds the input state and `gt` the cotangent at the input.
-// Per column: each cell's analytic inverse adj(t)/det(t) (|det|^2 floored at
-// 1e-12) rebuilds the column's input, the four conjugate products give the
-// coefficient gradient terms (rows (00, 01, 10, 11) x (re, im) of
-// conj(input) (x) cotangent), and the adjoint t^H carries the cotangent
-// back.  The terms are summed over rows into part[c, 8, P] (store when
-// `first`, else add).  The wrap slot of a parity-1 column holds no cell: its
+// Per column, reverse_cell on every cell, then the gradient terms are summed
+// over rows into part[c, 8, P] (store when `first`, else add).  The wrap slot of a parity-1 column holds no cell: its
 // gradient is exactly 0.  `terms` holds float[rows][8 P].  The caller has
 // synced after filling st and gt; the sweep ends with a barrier.
 __device__ void reverse_sweep(float2* st, float2* gt, float* terms,
@@ -135,41 +187,8 @@ __device__ void reverse_sweep(float2* st, float2* gt, float* terms,
     for (int i = threadIdx.x; i < work; i += blockDim.x) {
       const int r = i / slots;
       const int s = i - r * slots;
-      const float2 t00 = make_float2(__ldg(cc + 0 * p + s), __ldg(cc + 1 * p + s));
-      const float2 t01 = make_float2(__ldg(cc + 2 * p + s), __ldg(cc + 3 * p + s));
-      const float2 t10 = make_float2(__ldg(cc + 4 * p + s), __ldg(cc + 5 * p + s));
-      const float2 t11 = make_float2(__ldg(cc + 6 * p + s), __ldg(cc + 7 * p + s));
-      // inverse: adj(t) / det(t), 1 / det = conj(det) / max(|det|^2, eps)
-      const float2 det = cadd(cmul(t00, t11), cneg(cmul(t01, t10)));
-      const float d2 = fmaxf(det.x * det.x + det.y * det.y, kDetEps);
-      const float2 inv_det = make_float2(det.x / d2, -det.y / d2);
-      const float2 i00 = cmul(t11, inv_det);
-      const float2 i01 = cneg(cmul(t01, inv_det));
-      const float2 i10 = cneg(cmul(t10, inv_det));
-      const float2 i11 = cmul(t00, inv_det);
-
       const int top = r * n + 2 * s + par;  // the pair (top, top + 1)
-      const float2 a = st[top], b = st[top + 1];
-      const float2 ga = gt[top], gb = gt[top + 1];
-      const float2 a_in = cadd(cmul(i00, a), cmul(i01, b));
-      const float2 b_in = cadd(cmul(i10, a), cmul(i11, b));
-
-      float* tr = terms + r * m;
-      const float2 d00 = cmulc(a_in, ga), d01 = cmulc(b_in, ga);
-      const float2 d10 = cmulc(a_in, gb), d11 = cmulc(b_in, gb);
-      tr[0 * p + s] = d00.x;
-      tr[1 * p + s] = d00.y;
-      tr[2 * p + s] = d01.x;
-      tr[3 * p + s] = d01.y;
-      tr[4 * p + s] = d10.x;
-      tr[5 * p + s] = d10.y;
-      tr[6 * p + s] = d11.x;
-      tr[7 * p + s] = d11.y;
-
-      st[top] = a_in;
-      st[top + 1] = b_in;
-      gt[top] = cadd(cmulc(t00, ga), cmulc(t10, gb));      // (t^H g)_a
-      gt[top + 1] = cadd(cmulc(t01, ga), cmulc(t11, gb));  // (t^H g)_b
+      reverse_cell(cc, p, s, st + top, gt + top, terms + r * m);
     }
     __syncthreads();
     sum_rows(terms, rows, m, m, p, slots, part + static_cast<long long>(c) * m,
@@ -202,12 +221,117 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   }
 }
 
+// ---------------------------------------------------------------------------
+// stacked sweeps: `tiles` meshes of one layer of a tile grid at once
+// ---------------------------------------------------------------------------
+//
+// Row r's tile t is work[(r * tiles + t) * n ...]; tile t's coefficients are
+// coef[t][n_cols][8][P] and its parities parity[t][n_cols], so every tile
+// reads its own pairing and a column where tiles disagree (a Reck tile beside
+// a Clements one) needs no masked path.  Threads map over (row, tile, pair
+// slot); the wrap slot of a parity-1 tile's column holds no cell and is
+// skipped.  One barrier per column for all tiles.
+
+// A deep grid layer's gain `base` (0 g0, 4 g1, 8 g2) of tile t at channel
+// k, from its float32 [tiles][12][P] gains (even re, even im, odd re, odd im
+// per gain).
+__device__ __forceinline__ float2 gain_at(const float* __restrict__ g, int t,
+                                          int base, int k, int p) {
+  const int s = k >> 1, o = k & 1;
+  const float* row = g + (t * 12 + base + 2 * o) * p + s;
+  return make_float2(__ldg(row), __ldg(row + p));
+}
+
+__device__ void grid_forward_sweep(float2* work, const float* __restrict__ coef,
+                                   const int* __restrict__ parity, int n_cols,
+                                   int rows, int tiles, int n) {
+  const int p = n / 2;
+  const int items = rows * tiles * p;
+  for (int c = 0; c < n_cols; ++c) {
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int rt = i / p;  // r * tiles + t
+      const int s = i - rt * p;
+      const int t = rt % tiles;
+      const int par = __ldg(parity + t * n_cols + c);
+      if (par && s == p - 1) continue;
+      float2* row = work + rt * n;
+      const int top = 2 * s + par;
+      float2 a = row[top];
+      float2 b = row[top + 1];
+      rotate_cell(coef + (static_cast<long long>(t) * n_cols + c) * 8 * p, p,
+                  s, a, b);
+      row[top] = a;
+      row[top + 1] = b;
+    }
+    __syncthreads();
+  }
+}
+
+// dst[t * dst_stride + j] (+)= sum over the block's rows, in row order, of
+// terms[(r * tiles + t) * src_stride + j], for t < tiles and j < entries.
+// With `wrap` (a column's parities, tile t's at wrap[t * wrap_stride]), the
+// wrap slot (j % p == p - 1) of a parity-1 tile gets exactly 0.  One thread
+// writes each entry: a store when `first`, else read-add-store.  No barrier.
+__device__ void grid_sum_rows(const float* terms, int rows, int tiles,
+                              int src_stride, int entries,
+                              float* __restrict__ dst, long long dst_stride,
+                              bool first, const int* __restrict__ wrap,
+                              int wrap_stride, int p) {
+  const int total = tiles * entries;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int t = i / entries;
+    const int j = i - t * entries;
+    float sum = 0.f;
+    if (!(wrap != nullptr && __ldg(wrap + t * wrap_stride) && j % p == p - 1)) {
+      for (int r = 0; r < rows; ++r) {
+        sum += terms[(r * tiles + t) * src_stride + j];
+      }
+    }
+    float* d = dst + t * dst_stride + j;
+    *d = first ? sum : *d + sum;
+  }
+}
+
+// The stacked reversed sweep (the VJP of grid_forward_sweep): reverse_cell
+// on every cell of every tile, column by column from the last, each column's
+// terms (float[rows][tiles][8 P]) summed over rows into
+// part[t][n_cols][8][P].  The caller has synced after filling st and gt; the
+// sweep ends with a barrier.
+__device__ void grid_reverse_sweep(float2* st, float2* gt, float* terms,
+                                   const float* __restrict__ coef,
+                                   const int* __restrict__ parity, int n_cols,
+                                   int rows, int tiles, int n,
+                                   float* __restrict__ part, bool first) {
+  const int p = n / 2;
+  const int m = 8 * p;
+  const int items = rows * tiles * p;
+  for (int k = 0; k < n_cols; ++k) {
+    const int c = n_cols - 1 - k;
+    for (int i = threadIdx.x; i < items; i += blockDim.x) {
+      const int rt = i / p;
+      const int s = i - rt * p;
+      const int t = rt % tiles;
+      const int par = __ldg(parity + t * n_cols + c);
+      if (par && s == p - 1) continue;
+      const int top = rt * n + 2 * s + par;
+      reverse_cell(coef + (static_cast<long long>(t) * n_cols + c) * m, p, s,
+                   st + top, gt + top, terms + rt * m);
+    }
+    __syncthreads();
+    grid_sum_rows(terms, rows, tiles, m, m, part + static_cast<long long>(c) * m,
+                  static_cast<long long>(n_cols) * m, first, parity + c,
+                  n_cols, p);
+    __syncthreads();
+  }
+}
+
 // The block count of a gradient sweep: the batch's row tiles, capped at one
-// wave of resident blocks of `kernel` on the current device, so the count
-// (and with it the summation order) depends only on B, n and the card.
-// Returns -(CUDA error) on failure.
+// wave of resident blocks of `kernel` (launched with `threads` threads) on
+// the current device, so the count (and with it the summation order)
+// depends only on B, the shapes and the card.  Returns -(CUDA error) on
+// failure.
 template <typename Kernel>
-int wave_blocks(Kernel kernel, int tiles, size_t smem) {
+int wave_blocks(Kernel kernel, int tiles, size_t smem, int threads = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
@@ -215,7 +339,7 @@ int wave_blocks(Kernel kernel, int tiles, size_t smem) {
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         kThreads, smem);
+                                                         threads, smem);
   }
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int wave = sms * per_sm > 0 ? sms * per_sm : 1;

@@ -1,6 +1,6 @@
 """The mesh kernels on Hopper (forward B1, backward B2), the fused analog
-linear layer's kernels (B3, B4, backward B5) and their plain PyTorch
-versions.
+linear layer's kernels (B3, B4, backward B5), the deep tile grid's kernels
+(B6, B7, backward B8) and their plain PyTorch versions.
 
 ``mesh_forward(coef, parity, x)`` computes ``y = T_{C-1} ... T_0 x`` for a
 mesh of arbitrary complex 2x2 cells:
@@ -48,6 +48,20 @@ B5 (``csrc/rfnn_bwd.cu``, ``rfnn_linear_bwd_kernel``).  On a CPU tensor it
 runs the plain versions in :mod:`ref`.  ``dg`` is the real-plane gradient
 of the gains; autograd carries it back into the attenuation, the scale and
 the folded phase screens.
+
+``deepgrid_forward(coef_v, par_v, coef_u, par_u, gains, x, detect_last=)``
+is the deep tile grid: L layers of a (To x Ti) grid of tiles, each tile
+``g2 * U (g1 * V (g0 * x_i))``, each row summing its Ti tiles, the rows
+re-detected (|.|) into the next layer's input tiles; the last layer's rows
+come out as magnitudes (``detect_last``) or complex, ``[B, To n]``.
+Coefficients are float32 ``[L, To, Ti, C, 8, P]``, parities int32
+``[L, To, Ti, C]``, gains float32 ``[L, To, Ti, 12, P]`` (rows 0-3 g0, 4-7
+g1, 8-11 g2), x complex64 ``[B, Ti n]``.  On a CUDA tensor it runs
+``csrc/deepgrid_fwd.cu``: kernel B6 (``deepgrid_kernel``) when no input
+needs a gradient, else B7 (``deepgrid_fwd_kernel``), which also saves every
+tile's post-V and post-U boundaries, and on the way back B8
+(``csrc/deepgrid_bwd.cu``, ``deepgrid_bwd_kernel``).  On a CPU tensor it
+runs the plain versions in :mod:`ref`.
 """
 
 from __future__ import annotations
@@ -65,7 +79,8 @@ from repro_torch.kernels.ref import (  # noqa: F401  (part of this API)
 #: Launch counters: each is incremented once per launch of its CUDA
 #: kernel, nowhere else.  Proof that a run went through the kernels.
 LAUNCHES = {"mesh_fwd": 0, "mesh_bwd": 0, "rfnn_fwd": 0, "rfnn_fwd_res": 0,
-            "rfnn_bwd": 0}
+            "rfnn_bwd": 0, "deepgrid_fwd": 0, "deepgrid_fwd_res": 0,
+            "deepgrid_bwd": 0}
 
 #: The kernels index rows with int32.
 _MAX_BATCH = 2**31 - 256
@@ -424,3 +439,229 @@ def rfnn_forward(coef_v, par_v, coef_u, par_u, gains, x) -> torch.Tensor:
     if x.device.type == "cuda":
         return launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x)
     return rfnn_forward_plain(coef_v, par_v, coef_u, par_u, gains, x)[0]
+
+
+# ---------------------------------------------------------------------------
+# the deep tile grid: B6 / B7 forward, B8 backward
+# ---------------------------------------------------------------------------
+
+def _check_deep(coef_v, par_v, coef_u, par_u, gains, x) -> None:
+    if coef_v.dim() != 6 or coef_v.dtype != torch.float32 \
+            or coef_v.shape[4] != 8:
+        raise ValueError(f"coef_v must be float32 [L, To, Ti, C, 8, P], got "
+                         f"{coef_v.dtype} {tuple(coef_v.shape)}")
+    n_layers, to, ti, c, _, p = coef_v.shape
+    n = 2 * p
+    if coef_u.shape != coef_v.shape or coef_u.dtype != torch.float32:
+        raise ValueError(f"coef_u must be float32 {tuple(coef_v.shape)}, got "
+                         f"{coef_u.dtype} {tuple(coef_u.shape)}")
+    for name, par in (("par_v", par_v), ("par_u", par_u)):
+        if par.shape != (n_layers, to, ti, c) or par.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 {(n_layers, to, ti, c)}, "
+                             f"got {par.dtype} {tuple(par.shape)}")
+    if gains.shape != (n_layers, to, ti, 12, p) \
+            or gains.dtype != torch.float32:
+        raise ValueError(f"gains must be float32 {(n_layers, to, ti, 12, p)}, "
+                         f"got {gains.dtype} {tuple(gains.shape)}")
+    if n_layers > 1 and to != ti:
+        raise ValueError(f"a {n_layers}-layer grid needs To == Ti, got "
+                         f"{to} x {ti}")
+    if p < 1 or min(n_layers, to, ti, c) < 1:
+        raise ValueError(f"empty grid {tuple(coef_v.shape)}")
+    if x.dim() != 2 or x.dtype != torch.complex64 or x.shape[1] != ti * n:
+        raise ValueError(f"x must be complex64 [B, {ti * n}], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not all(t.device == x.device
+               for t in (coef_v, par_v, coef_u, par_u, gains)):
+        raise ValueError("coefficients, parities, gains and x must share a "
+                         "device")
+
+
+def _check_deep_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su, g,
+                         detect_last) -> None:
+    _check_deep(coef_v, par_v, coef_u, par_u, gains, x)
+    n_layers, to, ti, _, _, p = coef_v.shape
+    shape = (n_layers, x.shape[0], to, ti, 2 * p)
+    for name, t in (("sv", sv), ("su", su)):
+        if t.shape != shape or t.dtype != torch.complex64 \
+                or t.device != x.device:
+            raise ValueError(f"{name} must be complex64 {shape} on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    want = torch.float32 if detect_last else torch.complex64
+    if g.shape != (x.shape[0], to * 2 * p) or g.dtype != want \
+            or g.device != x.device:
+        raise ValueError(f"cotangent must be {want} "
+                         f"{(x.shape[0], to * 2 * p)} on {x.device}, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+
+
+def deepgrid_forward_plain(coef_v, par_v, coef_u, par_u, gains, x, *,
+                           detect_last: bool = True):
+    """The plain PyTorch version of kernels B6/B7: ``(out, sv, su)``, the
+    last layer's rows and every tile's post-V and post-U boundaries."""
+    _check_deep(coef_v, par_v, coef_u, par_u, gains, x)
+    return ref.deep_grid_planes(coef_v, par_v, coef_u, par_u, gains, x,
+                                detect_last=detect_last)
+
+
+def deepgrid_backward_plain(coef_v, par_v, coef_u, par_u, gains, x, sv, su,
+                            g, *, detect_last: bool = True):
+    """The plain PyTorch version of kernel B8: ``(dcv, dcu, dg, dx)``."""
+    _check_deep_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su, g,
+                         detect_last)
+    return ref.deep_grid_planes_bwd(coef_v, par_v, coef_u, par_u, gains, x,
+                                    sv, su, g, detect_last=detect_last)
+
+
+_DEEP_FWD_ARGS = {"deepgrid_fwd_launch": [_P] * 9 + [_I] * 8 + [_P]}
+_DEEP_BWD_ARGS = {"deepgrid_bwd_blocks": [_I] * 7,
+                  "deepgrid_bwd_launch": [_P] * 12 + [_I] * 8 + [_P]}
+
+
+def launch_deepgrid(coef_v, par_v, coef_u, par_u, gains, x, *,
+                    detect_last: bool = True, save_stages: bool = False):
+    """Launch kernel B6 (``out``) or, with ``save_stages``, kernel B7
+    (``(out, sv, su)``) on the current stream (no autograd)."""
+    _check_deep(coef_v, par_v, coef_u, par_u, gains, x)
+    _on_card("deepgrid", x)
+    n_layers, to, ti, c, _, p = coef_v.shape
+    b, n = x.shape[0], 2 * p
+    coef_v, par_v = coef_v.contiguous(), par_v.contiguous()
+    coef_u, par_u = coef_u.contiguous(), par_u.contiguous()
+    gains, x = gains.contiguous(), _dense(x)
+    out = torch.empty((b, to * n), device=x.device, dtype=(
+        torch.float32 if detect_last else torch.complex64))
+    stages = (n_layers, b, to, ti, n)
+    sv = torch.empty(stages, dtype=x.dtype, device=x.device) \
+        if save_stages else None
+    su = torch.empty_like(sv) if save_stages else None
+    if b > 0:  # a grid of 0 blocks is an invalid launch
+        fn = _lib("deepgrid_fwd", _DEEP_FWD_ARGS).deepgrid_fwd_launch
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), out.data_ptr(),
+                     sv.data_ptr() if save_stages else None,
+                     su.data_ptr() if save_stages else None,
+                     coef_v.data_ptr(), par_v.data_ptr(), coef_u.data_ptr(),
+                     par_u.data_ptr(), gains.data_ptr(), b, n, n_layers, to,
+                     ti, c, int(save_stages), int(detect_last), stream)
+        name = "deepgrid_fwd_res" if save_stages else "deepgrid_fwd"
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                               f"(B={b}, n={n}, L={n_layers}, To={to}, "
+                               f"Ti={ti}, C={c})")
+        LAUNCHES[name] += 1
+    return (out, sv, su) if save_stages else out
+
+
+def launch_deepgrid_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su,
+                             g, *, detect_last: bool = True):
+    """Launch kernel B8 on the current stream: ``(dcv, dcu, dg, dx)`` from
+    the input, the saved boundaries and the output's cotangent (no
+    autograd).
+
+    Each block writes its batch-summed gradients into its own slice of a
+    ``[blocks, L To Ti (2 C 8 P + 12 P)]`` scratch and a second kernel sums
+    the slices in block order: the three gradients are the same bits on
+    every call.  They are views of one buffer.
+    """
+    _check_deep_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su, g,
+                         detect_last)
+    _on_card("deepgrid backward", x)
+    n_layers, to, ti, c, _, p = coef_v.shape
+    b, n = x.shape[0], 2 * p
+    coef_v, par_v = coef_v.contiguous(), par_v.contiguous()
+    coef_u, par_u = coef_u.contiguous(), par_u.contiguous()
+    gains, x = gains.contiguous(), _dense(x)
+    sv, su, g = _dense(sv), _dense(su), _dense(g)
+    coef_n = n_layers * to * ti * c * 8 * p
+    gain_n = n_layers * to * ti * 12 * p
+    # written whole by the reduce; zeros only when there is nothing to sum
+    grads = (torch.empty if b > 0 else torch.zeros)(
+        2 * coef_n + gain_n, dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    if b > 0:  # nothing to sum and a 0-block grid is an invalid launch
+        lib = _lib("deepgrid_bwd", _DEEP_BWD_ARGS)
+        dims = (b, n, n_layers, to, ti, c, int(detect_last))
+        with torch.cuda.device(x.device):
+            blocks = lib.deepgrid_bwd_blocks(*dims)
+            if blocks <= 0:
+                raise RuntimeError(f"deepgrid_bwd_blocks failed: CUDA error "
+                                   f"{-blocks} (B={b}, n={n}, L={n_layers}, "
+                                   f"To={to}, Ti={ti}, C={c})")
+            partial = torch.empty((blocks, grads.numel()),
+                                  dtype=torch.float32, device=x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.deepgrid_bwd_launch(
+                x.data_ptr(), sv.data_ptr(), su.data_ptr(), g.data_ptr(),
+                coef_v.data_ptr(), par_v.data_ptr(), coef_u.data_ptr(),
+                par_u.data_ptr(), gains.data_ptr(), partial.data_ptr(),
+                grads.data_ptr(), dx.data_ptr(), *dims, blocks, stream)
+        if err != 0:
+            raise RuntimeError(f"deepgrid_bwd launch failed: CUDA error {err} "
+                               f"(B={b}, n={n}, L={n_layers}, To={to}, "
+                               f"Ti={ti}, C={c}, blocks={blocks})")
+        LAUNCHES["deepgrid_bwd"] += 1
+    dcv, dcu, dg = grads.split([coef_n, coef_n, gain_n])
+    return (dcv.view(coef_v.shape), dcu.view(coef_u.shape),
+            dg.view(gains.shape), dx)
+
+
+class _DeepGridSweep(torch.autograd.Function):
+    """The deep grid under autograd: B7 forward and B8 backward on a CUDA
+    tensor, their plain versions on a CPU tensor.  Saves the input and the
+    stage boundaries; every layer boundary's rows are rebuilt from them."""
+
+    @staticmethod
+    def forward(ctx, coef_v, par_v, coef_u, par_u, gains, x, detect_last):
+        if x.device.type == "cuda":
+            out, sv, su = launch_deepgrid(coef_v, par_v, coef_u, par_u, gains,
+                                          x, detect_last=detect_last,
+                                          save_stages=True)
+        else:
+            out, sv, su = deepgrid_forward_plain(
+                coef_v, par_v, coef_u, par_u, gains, x,
+                detect_last=detect_last)
+        ctx.detect_last = detect_last
+        ctx.save_for_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        coef_v, par_v, coef_u, par_u, gains, x, sv, su = ctx.saved_tensors
+        args = (coef_v, par_v, coef_u, par_u, gains, x, sv, su, g)
+        if x.device.type == "cuda":
+            dcv, dcu, dg, dx = launch_deepgrid_backward(
+                *args, detect_last=ctx.detect_last)
+        elif x.device.type == "cpu":
+            dcv, dcu, dg, dx = deepgrid_backward_plain(
+                *args, detect_last=ctx.detect_last)
+        else:
+            raise ValueError(f"no deepgrid backward for {x.device} tensors")
+        return dcv, None, dcu, None, dg, dx, None
+
+
+def deepgrid_forward(coef_v, par_v, coef_u, par_u, gains, x, *,
+                     detect_last: bool = True) -> torch.Tensor:
+    """The deep grid's last-layer rows, ``[B, To n]``: float32 magnitudes
+    (``detect_last``) or complex64.
+
+    When a gradient is wanted (grad mode on and an input requires grad) it
+    goes through B7 and, on the way back, B8; otherwise through B6, which
+    writes no residuals (serving, evaluation).  CPU tensors take the plain
+    versions; any other device raises.
+    """
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"deepgrid_forward runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (coef_v, coef_u, gains, x)):
+        return _DeepGridSweep.apply(coef_v, par_v, coef_u, par_u, gains, x,
+                                    detect_last)
+    if x.device.type == "cuda":
+        return launch_deepgrid(coef_v, par_v, coef_u, par_u, gains, x,
+                               detect_last=detect_last)
+    return deepgrid_forward_plain(coef_v, par_v, coef_u, par_u, gains, x,
+                                  detect_last=detect_last)[0]

@@ -17,14 +17,24 @@ through the coefficient build and the screens around it.
 screens fold into the gains around the kernel, and autograd carries the
 gains gradient back into the attenuation and the scale.
 
+``deep_apply`` runs a whole deep tiled network, L layers of a (To x Ti)
+grid of tiles, through kernels B6/B7 (forward) and B8 (backward), one
+launch per direction; ``rfnn_network`` (L x 1 x 1) and ``tiled_apply``
+(1 x To x Ti) are its degenerate cases.  ``pack_deep_grid`` builds the
+stacked coefficients and gains through a leaf-identity cache
+(``PACK_EVENTS`` counts the builds), so serving in steady state packs
+nothing.
+
 The JAX package's ``_auto_block``/``_pad_batch`` sized batch blocks for the
-TPU's VMEM; the CUDA kernel masks the ragged last tile itself, so there is
-no ``block_b`` argument here.
+TPU's VMEM; the CUDA kernels mask the ragged last tile themselves, so there
+is no ``block_b`` (nor ``interpret``) argument here.  The ``mesh=``
+scale-out of the deep grid waits for ROADMAP A11 and raises.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.core import hardware as hw_lib
 from repro_torch.core import mesh as mesh_lib
@@ -33,14 +43,23 @@ from repro_torch.kernels import givens_mesh
 from repro_torch.kernels.schedule import (
     MeshSchedule,
     clements_schedule,
+    deep_grid_parity_arrays,
+    deep_grid_schedule,
     pack_cells,
+    pad_columns,
     parity_array,
     schedule_from_plan,
 )
 
 #: Per-entry-point invocation counts of the kernel path (proof that a
-#: configuration went through ``mesh_forward``).
-KERNEL_PATH_CALLS = {"mesh_apply": 0, "mesh_apply_cells": 0, "rfnn_linear": 0}
+#: configuration went through the kernel wrappers).
+KERNEL_PATH_CALLS = {"mesh_apply": 0, "mesh_apply_cells": 0, "rfnn_linear": 0,
+                     "rfnn_network": 0, "tiled_apply": 0, "deep_apply": 0}
+
+#: Coefficient-pack builds actually executed by :func:`pack_deep_grid`
+#: (cache misses and bypasses), keyed by the entry point that asked for the
+#: pack.  Steady-state serving must not tick this.
+PACK_EVENTS = {"rfnn_network": 0, "tiled_apply": 0, "deep_apply": 0}
 
 
 def _mesh_coefficients(sched: MeshSchedule, params: dict,
@@ -157,3 +176,232 @@ def rfnn_linear(v_params: dict, atten, u_params: dict, x: torch.Tensor, *,
         coef_v, parity_array(sched_v, x2.device), coef_u,
         parity_array(sched_u, x2.device), gains, x2.contiguous())
     return out.reshape(batch_shape + (n,))
+
+
+# ---------------------------------------------------------------------------
+# the deep tile grid: L layers x (To x Ti) tiles, one launch per direction
+# ---------------------------------------------------------------------------
+
+def _layer_gains(n: int, la: dict, device) -> torch.Tensor:
+    """One tile's float32 ``[12, P]`` gains: g0 (V's input screen,
+    rows 0-3) above :func:`_gains`' g1 and g2 (rows 4-11)."""
+    g0 = torch.ones(n, dtype=torch.complex64, device=device)
+    if la["v"].get("alpha_in") is not None:
+        g0 = g0 * expj(la["v"]["alpha_in"])
+    rows = [part for h in (g0[0::2], g0[1::2]) for part in (h.real, h.imag)]
+    return torch.cat([torch.stack(rows).to(torch.float32),
+                      _gains(la["atten"], la.get("scale", 1.0), la["v"],
+                             la["u"], n, device)])
+
+
+def _pack_deep_grid_impl(deep, hardware, layers) -> tuple[torch.Tensor, ...]:
+    """Stacked ``[L, To, Ti, C, 8, P]`` coefficients and ``[L, To, Ti, 12,
+    P]`` gains, every mesh identity-padded to the grid's column count.
+    Tiles are built in order (layer, row, tile; V then U): a tile's
+    ``generator`` draws its V noise, then its U noise."""
+    c = deep.n_columns
+    coef_v, coef_u, gains = [], [], []
+    for slayer, tlayer in zip(deep.layers, layers):
+        for srow, trow in zip(slayer, tlayer):
+            for (sv, su), ta in zip(srow, trow):
+                gen = ta.get("generator")
+                coef_v.append(pad_columns(_mesh_coefficients(
+                    sv, ta["v"], hardware, gen), c))
+                coef_u.append(pad_columns(_mesh_coefficients(
+                    su, ta["u"], hardware, gen), c))
+                gains.append(_layer_gains(deep.n, ta, coef_v[-1].device))
+    lead = (deep.n_layers, deep.to, deep.ti)
+    return tuple(torch.stack(t).reshape(lead + t[0].shape)
+                 for t in (coef_v, coef_u, gains))
+
+
+def _leaf_key(leaf):
+    if isinstance(leaf, torch.Tensor):
+        return ("tensor", id(leaf), leaf._version)
+    if leaf is None or isinstance(leaf, (bool, int, float, str)):
+        return ("value", leaf)
+    return ("object", id(leaf))
+
+
+def _cacheable(leaves) -> bool:
+    """Whether a tree's derived values may be cached: never when a leaf is a
+    noise generator (its draws are stateful and must not be replayed), nor
+    when autograd would have to flow through the derivation."""
+    if any(isinstance(leaf, torch.Generator) for leaf in leaves):
+        return False
+    return not (torch.is_grad_enabled() and any(
+        isinstance(leaf, torch.Tensor) and leaf.requires_grad
+        for leaf in leaves))
+
+
+class _LeafIdCache:
+    """Small cache keyed on (static key, identity and version of every
+    leaf); the oldest entry goes first when it is full.
+
+    Holding strong references to the keyed leaves keeps their ids from being
+    recycled, and a tensor's ``_version`` moves with every in-place edit, so
+    a hit is exact: same schedule, same parameter tensors -> the same derived
+    values, with no work.  Trees that are not :func:`_cacheable` bypass it.
+    """
+
+    def __init__(self, maxsize: int = 8):
+        self._maxsize = maxsize
+        self._entries: dict[tuple, tuple] = {}  # key -> (leaves, value)
+
+    def get_or_build(self, static_key, tree, builder):
+        leaves = pytree.tree_leaves(tree)
+        if not _cacheable(leaves):
+            return builder()
+        key = (static_key,) + tuple(_leaf_key(leaf) for leaf in leaves)
+        hit = self._entries.get(key)
+        if hit is not None:
+            return hit[1]
+        value = builder()
+        while len(self._entries) >= self._maxsize:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (leaves, value)
+        return value
+
+
+_DEEPGRID_PACK_CACHE = _LeafIdCache(maxsize=8)
+
+_SHARED_LEAF_CACHES: dict = {}
+
+
+def memoize_by_leaf_ids(static_key, tree, builder):
+    """Leaf-identity memoization for derived-parameter pipelines.
+
+    Callers (``AnalogSequence``, ``TiledAnalogLinear``) keep *derived*
+    tensors (sigmoid'd attenuations, quantized phases) stable across calls
+    with the same underlying parameters, which is what lets the pack cache
+    downstream hit.  Trees carrying a generator, or needing a gradient,
+    bypass; each static key has its own small cache.
+    """
+    cache = _SHARED_LEAF_CACHES.setdefault(static_key, _LeafIdCache())
+    return cache.get_or_build(static_key, tree, builder)
+
+
+def pack_deep_grid(layers, *, n: int, plans=None,
+                   hardware: hw_lib.HardwareModel | None = None,
+                   _event: str = "deep_apply"):
+    """The deep kernels' inputs for L layers of (To x Ti) tiles.
+
+    ``layers``: nested ``[L][To][Ti]`` sequence of per-tile dicts with keys
+    ``v``/``u`` (mesh params, optional ``alpha_in``/``alpha`` screens),
+    ``atten`` ([n] diagonal), optional ``scale`` (the digital gamma) and,
+    with ``hardware``, an optional ``generator`` for phase noise.
+    ``plans``: a matching ``[L][To][Ti]`` nesting of ``(v_plan, u_plan)``
+    pairs (``None`` for Clements).
+
+    Returns ``(deep, (coef_v, coef_u, gains))``: the static
+    :class:`~repro_torch.kernels.schedule.DeepGridSchedule` and the stacked
+    tensors, ready for :func:`deep_apply`'s ``packed=``.  Results go through
+    the leaf-identity pack cache (``PACK_EVENTS`` counts the builds): repeat
+    calls with the same tile tensors pack nothing; a gradient through the
+    packing, or a generator, bypasses it.
+    """
+    layers = tuple(tuple(tuple(row) for row in layer) for layer in layers)
+    deep = deep_grid_schedule(n, len(layers), len(layers[0]),
+                              len(layers[0][0]), plans)
+
+    def build():
+        PACK_EVENTS[_event] += 1
+        return _pack_deep_grid_impl(deep, hardware, layers)
+
+    return deep, _DEEPGRID_PACK_CACHE.get_or_build((deep, hardware), layers,
+                                                   build)
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh= scale-out of the deep grid is not ported yet: see "
+            "ROADMAP A11")
+
+
+def deep_apply(layers, x: torch.Tensor, *, n: int, plans=None,
+               hardware: hw_lib.HardwareModel | None = None, packed=None,
+               readout: str = "magnitude", mesh=None) -> torch.Tensor:
+    """A whole deep tiled network, L layers of a (To x Ti) tile grid, in one
+    kernel launch per direction.
+
+    ``layers``/``plans``/``hardware``: see :func:`pack_deep_grid`.  ``x``
+    is ``[..., Ti n]``; each layer's rows combine their Ti tile outputs
+    (the matched-line power combiner) and the re-detected row magnitudes
+    feed the next layer inside the kernel.  ``readout="magnitude"`` returns
+    the last layer's row magnitudes, float32 ``[..., To n]``;
+    ``"complex"`` the combined complex rows, so digital readouts (real
+    part, detector noise) compose on top.  Differentiable in every tile's
+    params and ``x``: the backward unwinds all layers in one kernel from the
+    saved stage boundaries.  ``packed``: a :func:`pack_deep_grid` result,
+    skipping the pack and its cache.
+    """
+    if readout not in ("magnitude", "complex"):
+        raise ValueError(f"readout must be 'magnitude' or 'complex', "
+                         f"got {readout!r}")
+    _no_mesh(mesh)
+    KERNEL_PATH_CALLS["deep_apply"] += 1
+    if packed is None:
+        packed = pack_deep_grid(layers, n=n, plans=plans, hardware=hardware)
+    deep, (coef_v, coef_u, gains) = packed
+    if x.shape[-1] != deep.ti * deep.n:
+        raise ValueError(
+            f"expected trailing dim {deep.ti * deep.n} (Ti={deep.ti} tiles "
+            f"of n={deep.n}), got {tuple(x.shape)}")
+    batch_shape = x.shape[:-1]
+    x2 = as_complex(x).reshape(-1, deep.ti * deep.n).contiguous()
+    par_v, par_u = deep_grid_parity_arrays(deep, x2.device)
+    y = givens_mesh.deepgrid_forward(coef_v, par_v, coef_u, par_u, gains, x2,
+                                     detect_last=readout == "magnitude")
+    return y.reshape(batch_shape + (deep.to * deep.n,))
+
+
+def pack_network(layers, *, n: int, plans=None,
+                 hardware: hw_lib.HardwareModel | None = None):
+    """:func:`pack_deep_grid` for an L-layer RFNN (the To = Ti = 1 case):
+    ``layers`` a flat per-layer sequence of tile dicts, ``plans`` a flat
+    per-layer sequence of ``(v_plan, u_plan)`` pairs.  Ticks
+    ``PACK_EVENTS["rfnn_network"]``."""
+    return pack_deep_grid(
+        tuple(((la,),) for la in layers), n=n,
+        plans=None if plans is None else tuple(((p,),) for p in plans),
+        hardware=hardware, _event="rfnn_network")
+
+
+def rfnn_network(layers, x: torch.Tensor, *, n: int, plans=None,
+                 hardware: hw_lib.HardwareModel | None = None,
+                 packed=None) -> torch.Tensor:
+    """The fused L-layer RFNN ``|.. |scale_l U_l (D_l (V_l ..))| ..|``:
+    :func:`deep_apply` on the ``L x 1 x 1`` grid with the magnitude
+    readout (see :func:`pack_network` for the arguments)."""
+    KERNEL_PATH_CALLS["rfnn_network"] += 1
+    if packed is None:
+        packed = pack_network(layers, n=n, plans=plans, hardware=hardware)
+    return deep_apply(None, x, n=n, packed=packed, readout="magnitude")
+
+
+def pack_tile_grid(tiles, *, n: int, plans=None,
+                   hardware: hw_lib.HardwareModel | None = None):
+    """:func:`pack_deep_grid` for one (To x Ti) grid (the L = 1 case):
+    ``tiles`` a nested ``[To][Ti]`` sequence of tile dicts, ``plans`` a
+    matching nesting of ``(v_plan, u_plan)`` pairs.  Ticks
+    ``PACK_EVENTS["tiled_apply"]``."""
+    return pack_deep_grid(
+        (tuple(tuple(row) for row in tiles),), n=n,
+        plans=None if plans is None else (tuple(tuple(r) for r in plans),),
+        hardware=hardware, _event="tiled_apply")
+
+
+def tiled_apply(tiles, x: torch.Tensor, *, n: int, plans=None,
+                hardware: hw_lib.HardwareModel | None = None, packed=None,
+                mesh=None) -> torch.Tensor:
+    """A (To x Ti) tile-grid matmul, ``sum_i gamma U (D (V x_i))`` per row:
+    :func:`deep_apply` on the ``1 x To x Ti`` grid with the complex readout
+    (see :func:`pack_tile_grid`).  ``x`` is ``[..., Ti n]``, the result the
+    complex ``[..., To n]``; the readout (|.|, real part, detector noise)
+    composes on top."""
+    _no_mesh(mesh)
+    KERNEL_PATH_CALLS["tiled_apply"] += 1
+    if packed is None:
+        packed = pack_tile_grid(tiles, n=n, plans=plans, hardware=hardware)
+    return deep_apply(None, x, n=n, packed=packed, readout="complex")

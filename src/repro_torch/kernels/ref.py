@@ -1,5 +1,6 @@
 """Plain-PyTorch twin of the mesh kernels: the mesh sweep (forward B1,
-backward B2) and the fused analog linear layer (B3, B4 and backward B5).
+backward B2), the fused analog linear layer (B3, B4 and backward B5) and
+the deep tile grid (B6, B7 and backward B8).
 
 Re-expresses the mesh semantics in the de-interleaved (even/odd channel)
 layout the column sweep is written in, so the CUDA kernels can be held
@@ -55,11 +56,12 @@ def _parities(parity, coef: torch.Tensor) -> list[int]:
 
 def _column(cc, pc, er, ei, orr, oi):
     """One column: parity 0 rotates (even_i, odd_i); parity 1 rotates
-    (odd_i, even_{i+1}) with the last slot passing through."""
+    (odd_i, even_{i+1}) with the last slot passing through.  ``cc`` is an
+    ``[8, ..., P]`` coefficient slice broadcasting against the planes."""
     if pc == 0:
         return _rotate_pair(cc, er, ei, orr, oi)
     a2r, a2i, b2r, b2i = _rotate_pair(
-        cc[:, :-1], orr[..., :-1], oi[..., :-1], er[..., 1:], ei[..., 1:])
+        cc[..., :-1], orr[..., :-1], oi[..., :-1], er[..., 1:], ei[..., 1:])
     return (torch.cat([er[..., :1], b2r], -1), torch.cat([ei[..., :1], b2i], -1),
             torch.cat([a2r, orr[..., -1:]], -1), torch.cat([a2i, oi[..., -1:]], -1))
 
@@ -126,6 +128,30 @@ def _pair_grad_rows(ar, ai, br, bi, gar, gai, gbr, gbi) -> torch.Tensor:
                         *_conj_dot(ar, ai, gbr, gbi), *_conj_dot(br, bi, gbr, gbi)])
 
 
+def _sweep_bwd(col_inv, col_adj, par, s, g):
+    """The reversed column walk shared by B2, B5 and B8's plain versions.
+
+    ``col_inv(c)``/``col_adj(c)``: column ``c``'s inverse and adjoint
+    ``[8, ..., P]`` slices; ``s``/``g``: the output state and cotangent
+    planes ``[B, ..., P]``.  Returns the per-column gradient rows (a list
+    of ``[8, ..., P]``, batch-summed) and the cotangent at the input.
+    """
+    rows = [None] * len(par)
+    for c in reversed(range(len(par))):
+        s = _column(col_inv(c), par[c], *s)
+        er, ei, orr, oi = s
+        ger, gei, gor, goi = g
+        if par[c] == 0:
+            rows[c] = _pair_grad_rows(er, ei, orr, oi, ger, gei, gor, goi)
+        else:
+            r = _pair_grad_rows(orr[..., :-1], oi[..., :-1], er[..., 1:],
+                                ei[..., 1:], gor[..., :-1], goi[..., :-1],
+                                ger[..., 1:], gei[..., 1:])
+            rows[c] = torch.cat([r, r.new_zeros(r.shape[:-1] + (1,))], -1)
+        g = _column(col_adj(c), par[c], *g)
+    return rows, g
+
+
 def mesh_apply_planes_bwd(coef: torch.Tensor, parity, y_planes, g_planes):
     """The VJP of :func:`mesh_apply_planes` from its output, as kernel B2
     computes it.
@@ -141,19 +167,8 @@ def mesh_apply_planes_bwd(coef: torch.Tensor, parity, y_planes, g_planes):
     """
     par = _parities(parity, coef)
     inv, adj = inverse_coefficients(coef), adjoint_coefficients(coef)
-    s, g = tuple(y_planes), tuple(g_planes)
-    rows = [None] * len(par)
-    for c in reversed(range(len(par))):
-        s = _column(inv[c], par[c], *s)
-        er, ei, orr, oi = s
-        ger, gei, gor, goi = g
-        if par[c] == 0:
-            rows[c] = _pair_grad_rows(er, ei, orr, oi, ger, gei, gor, goi)
-        else:
-            r = _pair_grad_rows(orr[:, :-1], oi[:, :-1], er[:, 1:], ei[:, 1:],
-                                gor[:, :-1], goi[:, :-1], ger[:, 1:], gei[:, 1:])
-            rows[c] = torch.cat([r, r.new_zeros(8, 1)], 1)
-        g = _column(adj[c], par[c], *g)
+    rows, g = _sweep_bwd(inv.__getitem__, adj.__getitem__, par,
+                         tuple(y_planes), tuple(g_planes))
     return torch.stack(rows).to(coef.dtype), g
 
 
@@ -187,6 +202,25 @@ def _gain_grad_rows(planes, g_planes) -> torch.Tensor:
                         *_conj_dot(*planes[2:], *g_planes[2:])])
 
 
+def _detect(z):
+    """|.| on complex planes: the real planes (|even|, 0, |odd|, 0)."""
+    zer, zei, zor, zoi = z
+    me = torch.sqrt(zer * zer + zei * zei)
+    mo = torch.sqrt(zor * zor + zoi * zoi)
+    return me, torch.zeros_like(me), mo, torch.zeros_like(mo)
+
+
+def _detect_bwd(z, g_even, g_odd):
+    """The |.| backward: ``g z / |z|`` from the magnitudes' real cotangent,
+    exactly 0 where ``|z| = 0`` (a zero row, a parked tile: no NaN)."""
+    zer, zei, zor, zoi = z
+    me = torch.sqrt(zer * zer + zei * zei)
+    mo = torch.sqrt(zor * zor + zoi * zoi)
+    we = torch.where(me > 0, g_even / torch.where(me > 0, me, 1.0), 0.0)
+    wo = torch.where(mo > 0, g_odd / torch.where(mo > 0, mo, 1.0), 0.0)
+    return we * zer, we * zei, wo * zor, wo * zoi
+
+
 def rfnn_linear_planes(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
                        par_u, gains: torch.Tensor, x: torch.Tensor):
     """The fused layer ``|g2 * U (g1 * V x)|`` as kernels B3/B4 compute it.
@@ -199,9 +233,7 @@ def rfnn_linear_planes(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
     """
     v = mesh_apply_planes(coef_v, par_v, *split_channels(x))
     u = mesh_apply_planes(coef_u, par_u, *_gain(v, _gain_planes(gains, 0)))
-    zer, zei, zor, zoi = _gain(u, _gain_planes(gains, 4))
-    oe = torch.sqrt(zer * zer + zei * zei)
-    oo = torch.sqrt(zor * zor + zoi * zoi)
+    oe, _, oo, _ = _detect(_gain(u, _gain_planes(gains, 4)))
     out = torch.stack([oe, oo], -1).reshape(oe.shape[:-1] + (2 * oe.shape[-1],))
     return out, merge_channels(*v), merge_channels(*u)
 
@@ -220,13 +252,8 @@ def rfnn_linear_planes_bwd(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
     """
     g1, g2 = _gain_planes(gains, 0), _gain_planes(gains, 4)
     v_planes, u_planes = split_channels(v), split_channels(u)
-    zer, zei, zor, zoi = _gain(u_planes, g2)
-    g_even, g_odd = g[..., 0::2].float(), g[..., 1::2].float()
-    me = torch.sqrt(zer * zer + zei * zei)
-    mo = torch.sqrt(zor * zor + zoi * zoi)
-    we = torch.where(me > 0, g_even / torch.where(me > 0, me, 1.0), 0.0)
-    wo = torch.where(mo > 0, g_odd / torch.where(mo > 0, mo, 1.0), 0.0)
-    gz_planes = (we * zer, we * zei, wo * zor, wo * zoi)
+    gz_planes = _detect_bwd(_gain(u_planes, g2), g[..., 0::2].float(),
+                            g[..., 1::2].float())
     dg2 = _gain_grad_rows(u_planes, gz_planes)
     dcu, gh = mesh_apply_planes_bwd(coef_u, par_u, u_planes,
                                     _gain_adjoint(gz_planes, g2))
@@ -259,3 +286,187 @@ def rfnn_linear_ref(v_params: dict, atten: torch.Tensor, u_params: dict,
 
     h = mesh(v_params, x.to(torch.complex64)) * atten.to(torch.complex64)
     return (scale * mesh(u_params, h)).abs()
+
+
+# ---------------------------------------------------------------------------
+# the deep tile grid (the plain versions of kernels B6/B7 and B8)
+# ---------------------------------------------------------------------------
+#
+# Per tile the semantics of the JAX package's deep kernels
+# (repro/kernels/givens_mesh.py: deepgrid_kernel and deepgrid_bwd_kernel):
+# g0 -> V -> g1 -> U -> g2, each row summing its Ti tile outputs, the
+# rows re-detected (|.|, imaginary part 0) into the next layer's input
+# tiles.  Tiles whose parity sequences agree sweep together, as one
+# ``[B, G, P]`` stack through the single-mesh ``_column``.
+
+def _tile_groups(parity_rows: list) -> list[tuple[list[int], list[int]]]:
+    """Group tiles by their parity sequence: ``[(tiles, parities), ...]``
+    from per-tile rows of ``C`` parities."""
+    groups: dict[tuple, list[int]] = {}
+    for t, row in enumerate(parity_rows):
+        groups.setdefault(tuple(row), []).append(t)
+    return [(tiles, list(par)) for par, tiles in groups.items()]
+
+
+def _by_groups(groups, fn, *planes, tile_dim: int = 1):
+    """Run ``fn(tile_index, *sub_planes) -> (sub_dcoef_or_None, out_planes)``
+    per group of tiles and reassemble the tiles in order."""
+    if len(groups) == 1:
+        return fn(None, *planes)
+    dev = planes[0].device
+    outs, order = [], []
+    for tiles, par in groups:
+        idx = torch.tensor(tiles, device=dev)
+        outs.append(fn((idx, par), *(q.index_select(tile_dim, idx)
+                                     for q in planes)))
+        order += tiles
+    inv = torch.tensor(order, device=dev).argsort()
+    first = (None if outs[0][0] is None else
+             torch.cat([o[0] for o in outs]).index_select(0, inv))
+    return first, tuple(torch.cat([o[1][k] for o in outs], tile_dim)
+                        .index_select(tile_dim, inv) for k in range(4))
+
+
+def _grid_sweep(coef: torch.Tensor, groups, planes):
+    """The stacked forward sweep: ``coef [T, C, 8, P]``, planes
+    ``[B, T, P]``."""
+    def run(sel, *sub):
+        cc, par = (coef, groups[0][1]) if sel is None else (
+            coef.index_select(0, sel[0]), sel[1])
+        cols = cc.movedim(-2, 0)                      # [8, G, C, P]
+        for c, pc in enumerate(par):
+            sub = _column(cols[:, :, c], pc, *sub)
+        return None, sub
+
+    return _by_groups(groups, run, *planes)[1]
+
+
+def _grid_sweep_bwd(coef: torch.Tensor, groups, y_planes, g_planes):
+    """The stacked reversed sweep: ``(dcoef [T, C, 8, P], dx planes)``."""
+    def run(sel, *sub):
+        cc, par = (coef, groups[0][1]) if sel is None else (
+            coef.index_select(0, sel[0]), sel[1])
+        inv = inverse_coefficients(cc).movedim(-2, 0)   # [8, G, C, P]
+        adj = adjoint_coefficients(cc).movedim(-2, 0)
+        rows, g = _sweep_bwd(lambda c: inv[:, :, c], lambda c: adj[:, :, c],
+                             par, sub[:4], sub[4:])
+        return torch.stack(rows, 2).movedim(0, -2), g   # [G, C, 8, P]
+
+    return _by_groups(groups, run, *y_planes, *g_planes)
+
+
+def _to_tiles(planes, to: int, ti: int, across: bool):
+    """[B, Ti, P] input planes (``across=False``) or [B, To, P] row planes
+    (``across=True``) -> the stacked [B, To * Ti, P] tile planes."""
+    b, _, p = planes[0].shape
+    if across:
+        return tuple(q[:, :, None].expand(b, to, ti, p).reshape(b, to * ti, p)
+                     for q in planes)
+    return tuple(q[:, None].expand(b, to, ti, p).reshape(b, to * ti, p)
+                 for q in planes)
+
+
+def _row_sums(z, to: int, ti: int):
+    """The matched-line combine: each row sums its Ti tile outputs."""
+    b, _, p = z[0].shape
+    return tuple(q.reshape(b, to, ti, p).sum(2) for q in z)
+
+
+def _deep_setup(coef_v, par_v, par_u, gains):
+    n_layers, to, ti, c, _, p = coef_v.shape
+    t = to * ti
+    pv = par_v.reshape(n_layers, t, c).tolist()
+    pu = par_u.reshape(n_layers, t, c).tolist()
+    return (n_layers, to, ti, c, p,
+            [_tile_groups(r) for r in pv], [_tile_groups(r) for r in pu],
+            [gains[l].reshape(t, 12, p).movedim(-2, 0)
+             for l in range(n_layers)])
+
+
+def deep_grid_planes(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
+                     par_u, gains: torch.Tensor, x: torch.Tensor, *,
+                     detect_last: bool):
+    """The deep grid as kernels B6/B7 compute it.
+
+    coef_v, coef_u: [L, To, Ti, C, 8, P]; parities [L, To, Ti, C]; gains
+    [L, To, Ti, 12, P] (rows 0-3 g0, 4-7 g1, 8-11 g2; each even re, even
+    im, odd re, odd im); x: complex [B, Ti * n].  Returns ``(out, sv,
+    su)``: the last layer's rows, float32 magnitudes (``detect_last``) or
+    complex64, ``[B, To * n]`` in channel order; and every tile's post-V
+    and post-U stage boundaries, complex64 [L, B, To, Ti, n], both taken
+    before their gain.
+    """
+    n_layers, to, ti, c, p, gv, gu, gl = _deep_setup(coef_v, par_v, par_u,
+                                                     gains)
+    n, t, b = 2 * p, to * ti, x.shape[0]
+    state = split_channels(x.reshape(b, ti, n))
+    svs, sus = [], []
+    for l in range(n_layers):
+        s0 = _gain(_to_tiles(state, to, ti, False), _gain_planes(gl[l], 0))
+        v = _grid_sweep(coef_v[l].reshape(t, c, 8, p), gv[l], s0)
+        u = _grid_sweep(coef_u[l].reshape(t, c, 8, p), gu[l],
+                        _gain(v, _gain_planes(gl[l], 4)))
+        svs.append(merge_channels(*v))
+        sus.append(merge_channels(*u))
+        z_row = _row_sums(_gain(u, _gain_planes(gl[l], 8)), to, ti)
+        state = _detect(z_row)
+    if detect_last:
+        out = torch.stack([state[0], state[2]], -1).reshape(b, to * n)
+    else:
+        out = merge_channels(*z_row).reshape(b, to * n)
+    shape = (n_layers, b, to, ti, n)
+    return out, torch.stack(svs).reshape(shape), torch.stack(sus).reshape(shape)
+
+
+def deep_grid_planes_bwd(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
+                         par_u, gains: torch.Tensor, x: torch.Tensor,
+                         sv: torch.Tensor, su: torch.Tensor, g: torch.Tensor,
+                         *, detect_last: bool):
+    """The VJP of :func:`deep_grid_planes`, as kernel B8 computes it.
+
+    Layers in reverse, from the saved boundaries ``sv``, ``su`` and the
+    input ``x``: the readout's |.| backward (``detect_last``; ``g`` float32
+    [B, To * n]) or the complex cotangent ``g``; per layer every tile's g2
+    gradient, U's reversed sweep, the g1 gradient, V's reversed sweep and
+    the g0 gradient, then the combine's transpose (each input tile sums its
+    cotangent over the To rows).  A layer boundary rebuilds its input rows
+    from the previous layer's saved post-U and g2 (no sweep) and carries
+    only the real cotangent back through their |.|.  Returns ``(dcv, dcu
+    [L, To, Ti, C, 8, P], dg [L, To, Ti, 12, P], dx)`` with ``dx``
+    complex64 [B, Ti * n] (dL/dRe + i dL/dIm).
+    """
+    n_layers, to, ti, c, p, gv, gu, gl = _deep_setup(coef_v, par_v, par_u,
+                                                     gains)
+    n, t, b = 2 * p, to * ti, x.shape[0]
+    u_pl = [split_channels(su[l].reshape(b, t, n)) for l in range(n_layers)]
+    z_rows = [_row_sums(_gain(u_pl[l], _gain_planes(gl[l], 8)), to, ti)
+              for l in range(n_layers)]
+    if detect_last:
+        gr = g.reshape(b, to, n).float()
+        gz = _detect_bwd(z_rows[-1], gr[..., 0::2], gr[..., 1::2])
+    else:
+        gz = split_channels(g.reshape(b, to, n))
+    dcv, dcu, dg = [None] * n_layers, [None] * n_layers, [None] * n_layers
+    for l in reversed(range(n_layers)):
+        g0, g1, g2 = (_gain_planes(gl[l], k) for k in (0, 4, 8))
+        gz_t = _to_tiles(gz, to, ti, True)
+        v, u = split_channels(sv[l].reshape(b, t, n)), u_pl[l]
+        dg2 = _gain_grad_rows(u, gz_t)
+        dcu[l], gh = _grid_sweep_bwd(coef_u[l].reshape(t, c, 8, p), gu[l], u,
+                                     _gain_adjoint(gz_t, g2))
+        dg1 = _gain_grad_rows(v, gh)
+        dcv[l], gs0 = _grid_sweep_bwd(coef_v[l].reshape(t, c, 8, p), gv[l],
+                                      v, _gain_adjoint(gh, g1))
+        x_in = (split_channels(x.reshape(b, ti, n)) if l == 0
+                else _detect(z_rows[l - 1]))
+        dg0 = _gain_grad_rows(_to_tiles(x_in, to, ti, False), gs0)
+        dg[l] = torch.cat([dg0, dg1, dg2]).movedim(0, -2)   # [T, 12, P]
+        gx = _gain_adjoint(gs0, g0)
+        d_in = tuple(q.reshape(b, to, ti, p).sum(1) for q in gx)
+        if l > 0:
+            gz = _detect_bwd(z_rows[l - 1], d_in[0], d_in[2])
+    shape = (n_layers, to, ti)
+    return (torch.stack(dcv).reshape(shape + (c, 8, p)).to(coef_v.dtype),
+            torch.stack(dcu).reshape(shape + (c, 8, p)).to(coef_u.dtype),
+            torch.stack(dg).reshape(shape + (12, p)).to(gains.dtype),
+            merge_channels(*d_in).reshape(b, ti * n))

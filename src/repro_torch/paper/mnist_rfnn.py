@@ -10,8 +10,10 @@ Trained with minibatch SGD (batch 10, lr 0.005) exactly as the paper; the
 mesh phases train through the straight-through estimator over the Table-I
 codebook, or by the paper's two-stage Algorithm I (:func:`train_mnist`).
 ``analog=False`` swaps the mesh for an unconstrained 8x8 dense matrix — the
-paper's "digital" baseline of Fig. 15.  The port of the JAX package's
-``paper/mnist_rfnn.py`` for the single mesh (``analog_depth=1``).
+paper's "digital" baseline of Fig. 15.  ``analog_depth > 1`` stacks the
+analog section into the Sec.-V multi-layer network (:class:`AnalogSequence`,
+on the deep-grid kernels).  The port of the JAX package's
+``paper/mnist_rfnn.py`` without ``digital_to_analog_transfer``.
 
 Offline note: the real MNIST files are unavailable, so the procedural
 digits dataset (:mod:`repro_torch.data.digits`) stands in.
@@ -20,6 +22,7 @@ digits dataset (:mod:`repro_torch.data.digits`) stands in.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import dspsa as dspsa_lib
 from repro_torch.core import quantize as q_lib
-from repro_torch.core.analog_linear import AnalogUnitary
+from repro_torch.core.analog_linear import AnalogSequence, AnalogUnitary
 from repro_torch.core.hardware import HardwareModel
 from repro_torch.device import resolve_device
 from repro_torch.paper.prototype import PROTOTYPE
@@ -41,21 +44,26 @@ class MnistRFNN:
     quantize: str | None = "table1"
     d_hidden: int = 8
     n_classes: int = 10
-    #: depth of the analog section; only the paper's single mesh (1) is
-    #: ported so far.
+    #: depth of the analog section.  1 is the paper's Fig. 14 network, a
+    #: single 8x8 mesh between the digital layers; > 1 stacks full analog
+    #: linear layers (V-mesh -> D -> U-mesh -> |detect|) into the Sec.-V
+    #: multi-layer microwave ANN, run by the deep-grid kernels.
     analog_depth: int = 1
-    #: "kernel" runs the mesh through the CUDA kernel (its plain version on
-    #: CPU tensors); "reference" through the column scan.
+    #: "kernel" runs the analog section through the CUDA kernels (their plain
+    #: versions on CPU tensors); "reference" through the column scan.
     backend: str = "kernel"
 
     def __post_init__(self):
-        if self.analog_depth != 1:
-            raise NotImplementedError(
-                "analog_depth > 1 runs on the deep-grid kernels (B6-B8), "
-                "which are not ported yet: see ROADMAP A7")
-        object.__setattr__(self, "mesh", AnalogUnitary(
-            n=self.d_hidden, quantize=self.quantize, hardware=self.hardware,
-            output="abs", backend=self.backend))
+        if self.analog_depth > 1:
+            mesh = AnalogSequence(n=self.d_hidden, depth=self.analog_depth,
+                                  quantize=self.quantize,
+                                  hardware=self.hardware, output="abs",
+                                  backend=self.backend)
+        else:
+            mesh = AnalogUnitary(n=self.d_hidden, quantize=self.quantize,
+                                 hardware=self.hardware, output="abs",
+                                 backend=self.backend)
+        object.__setattr__(self, "mesh", mesh)
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Random params from a CPU ``generator``, on ``device`` (CUDA when
@@ -74,6 +82,11 @@ class MnistRFNN:
         }
         if self.analog:
             params["mesh"] = self.mesh.init(generator, device=dev)
+        elif self.analog_depth > 1:
+            # the digital twin of the multi-layer analog section: L free
+            # d x d matrices with |.| detection between them
+            params["w2"] = normal(self.analog_depth, self.d_hidden,
+                                  self.d_hidden) * 0.3
         else:
             params["w2"] = normal(self.d_hidden, self.d_hidden) * 0.3
         return params
@@ -85,6 +98,10 @@ class MnistRFNN:
         h1 = F.leaky_relu(x @ params["w1"] + params["b1"], 0.01)
         if self.analog:
             h2 = self.mesh.apply(params["mesh"], h1, generator=generator)
+        elif params["w2"].dim() == 3:
+            h2 = h1
+            for w2 in params["w2"]:
+                h2 = (h2 @ w2).abs()  # per-layer |.| detection
         else:
             h2 = (h1 @ params["w2"]).abs()  # same activation, free matrix
         return h2 @ params["w3"] + params["b3"]  # logits (softmax in loss)
@@ -114,9 +131,18 @@ def train_mnist(x_tr, y_tr, x_te, y_te, *, analog=True, hardware=PROTOTYPE,
                      discrete mesh, alternating with DSPSA bursts on the
                      device codes.
 
+    ``analog_depth > 1`` stacks the analog section into the Sec.-V
+    multi-layer network (see :class:`MnistRFNN`); the DSPSA refinement of
+    Algorithm I addresses the single mesh's phase codes, so deep stacks
+    train with the straight-through schedule instead (with a warning).
     Runs on ``device`` (CUDA when None; raises when CUDA is absent).
-    ``analog_depth > 1`` raises until the deep-grid kernels are ported.
     """
+    if analog and analog_depth > 1 and schedule == "algorithm1":
+        warnings.warn(
+            "analog_depth > 1 does not support schedule='algorithm1' (the "
+            "DSPSA refinement addresses single-mesh phase codes); falling "
+            "back to the straight-through schedule", stacklevel=2)
+        schedule = "ste"
     if analog and quantize and schedule == "algorithm1":
         # stage 1: continuous phases, hardware-in-the-loop
         stage1 = train_mnist(x_tr, y_tr, x_te, y_te, analog=True,

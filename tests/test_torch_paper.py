@@ -104,8 +104,13 @@ def test_mnist_init_shapes_and_depth_guard():
         "theta": (8, 4), "phi": (8, 4), "alpha": (8,)}
     assert "w2" in mnist_rfnn.MnistRFNN(analog=False).init(
         torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        mnist_rfnn.MnistRFNN(analog_depth=2)
+    # analog_depth > 1: the Sec.-V stack on the deep-grid kernels
+    deep = mnist_rfnn.MnistRFNN(analog_depth=2)
+    assert isinstance(deep.mesh, analog_linear.AnalogSequence)
+    layers = deep.init(torch.Generator(), device="cpu")["mesh"]["layers"]
+    assert len(layers) == 2 and layers[1]["u"]["theta"].shape == (8, 4)
+    assert mnist_rfnn.MnistRFNN(analog=False, analog_depth=2).init(
+        torch.Generator(), device="cpu")["w2"].shape == (2, 8, 8)
 
 
 def test_noisy_backends_agree_draw_for_draw():

@@ -205,3 +205,44 @@ def test_unported_engine_modes_raise(deployed):
     assert isinstance(bound, ServableProgram) and bound.n_in == 8
     with pytest.raises(ValueError):
         bound.recover(((0, 0),))
+
+
+@pytest.mark.parametrize("kind", ["tiled", "sequence"])
+def test_engine_serves_deep_models_with_zero_steady_state_packs(kind):
+    """A bound ``TiledAnalogLinear`` (the 1 x To x Ti deep grid) and an
+    ``AnalogSequence`` (L x 1 x 1) served: each result equals the JAX
+    engine's for the same request, and after the first tick packed the
+    coefficients no tick packs again."""
+    from repro.core import analog_linear as j_al
+    from repro_torch.core import analog_linear as t_al
+
+    if kind == "tiled":
+        jmodel = j_al.TiledAnalogLinear(in_dim=16, out_dim=8, tile_size=4,
+                                        output="abs")
+        tmodel = t_al.TiledAnalogLinear(in_dim=16, out_dim=8, tile_size=4,
+                                        output="abs")
+        event, d_in = "tiled_apply", 16
+    else:
+        jmodel = j_al.AnalogSequence(n=8, depth=3)
+        tmodel = t_al.AnalogSequence(n=8, depth=3)
+        event, d_in = "rfnn_network", 8
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(6)))
+    feats = np.random.default_rng(6).normal(size=(9, d_in)).astype(np.float32)
+    jeng = JServingEngine(jmodel, jax.tree.map(jnp.asarray, tree), slots=3)
+    teng = ServingEngine(as_servable(tmodel, params_from_numpy(tree, "cpu")),
+                         slots=3, device="cpu")
+    assert teng.stats["served"] == 0
+    jreqs = [JRequest(i, features=f) for i, f in enumerate(feats)]
+    treqs = [Request(i, features=f) for i, f in enumerate(feats)]
+    for rj, rt in zip(jreqs, treqs):
+        jeng.submit(rj)
+        teng.submit(rt)
+    jeng.run()
+    assert teng.tick() == 3                    # the first tick packs once
+    packs = ops.PACK_EVENTS[event]
+    teng.run()
+    assert ops.PACK_EVENTS[event] == packs     # steady state: no packing
+    for rj, rt in zip(jreqs, treqs):
+        assert rt.done and not rt.failed
+        np.testing.assert_allclose(rt.result, np.asarray(rj.result),
+                                   rtol=0, atol=1e-5)
