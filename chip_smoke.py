@@ -8,10 +8,11 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, ``PATH`` or
 imports nothing of JAX.  Phases (each raises on failure, so the script
 exits non-zero):
 
-1. card name and power limit; build the six CUDA libraries from ``csrc/``
+1. card name and power limit; build the seven CUDA libraries from ``csrc/``
    (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``,
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
-   ``mesh_sweep.cuh``), one ``nvcc`` each, started together;
+   ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
+   started together;
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -76,12 +77,45 @@ exits non-zero):
     depth-4 MNIST network, the tiled layer), as phase 9, with a
     ``torch.matmul`` yardstick on each layer's precomputed complex matrix
     (then ``.abs()``);
-16. the ``kernels`` line (eight entries) and, last, the ``ok``/``device``
+16. (a) the flash attention kernel B9 against its plain version for hd in
+    {8, 64, 128, 256}, S in {32, 96 (block 32), 1024}, causal and not,
+    float32 within 2e-5 and bfloat16 within 3e-2 and each element within
+    one bf16 step plus 2e-5 (unit-normal inputs); changing the last key and value leaves every earlier row bit-identical;
+    B*H*S = 0 launches nothing;
+17. (b) TinyLlama-1.1B at full width (``attn_impl="pallas"``, bf16
+    activations, random weights drawn on the card from ``--seed``) through
+    ``launch.serve.serve``: batch 8, prompt 1024, 32 greedy tokens, twice
+    (the first warms up); prefill ms, decode ms per token (p50/p99),
+    tokens/s, parameter bytes and B9 launches (22 per prefill); teacher-
+    forced decode logits against ``forward``'s (one B9 forward of 1024
+    tokens, a B9 prefill of 990, no multiple of the 32-token attn_chunk,
+    32 decode steps) within 2e-2 of the logits' scale at 4 weight and token
+    seeds, and within 1e-3 in float32; the kernel path's prefill logits against the ``"xla"`` path's on
+    the same params, float32 within 1e-3 of scale, and bf16 printed; device
+    events and busy time of a prefill and of a decode step under
+    ``torch.profiler``;
+18. (c) the reduced TinyLlama in float32, card against CPU: a 61-token
+    prefill and 8 decode steps within 1e-5 of the logits' scale;
+19. (d) the engine's LM slot family on the full-width model: slots=8, 16
+    requests of 16-token prompts, ``max_new=16``, SLO stats (decode only:
+    no B9 launch on this path);
+20. (e) the paper's analog MLP inside the LM (``linear_impl="rfnn"``, the
+    kernel backend, d_model 64, d_ff 128): prefill and decode launch B9 and
+    B6 and match the reference backend on the card within 1e-5;
+21. (f) B9's times at (B 8, H 32, S 1024, hd 64) and (B 1, H 32, S 8192,
+    hd 64), bf16, causal: per call and on the device, the bound (flops at
+    the bf16 tensor-core peak against the bytes of q, k, v and o), the plain
+    version where its dense scores fit (there also B9 held to it in bf16
+    per element and in float32 within 2e-5), and
+    ``scaled_dot_product_attention(is_causal=True)`` as the library yardstick
+    (timed only; the port never calls it);
+22. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
     line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
-to 14) and read just after; launches made in phases 2, 9, 10 and 15 do not
-count.  Timings are also written to ``chiprun_out/chip_smoke.json``.
+to 14, 17 to 20) and read just after; launches made in phases 2, 9, 10, 15,
+16 and 21 do not count.  Timings are also written to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -100,6 +134,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, float32 outside tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 FLOPS_PER_PAIR = 28            # two outputs x (2 complex mul + 1 complex add)
 # backward, per row, pair and column: the inverse 2x2 product (28), four
 # conjugate products and their batch sums (32), the adjoint 2x2 product (28)
@@ -110,7 +145,7 @@ FLOPS_PER_CELL_INV = 43        # det, |det|^2, 1/det and adj(t)/det, per cell
 FLOPS_PER_CHANNEL_FUSED = 16
 FLOPS_PER_CHANNEL_FUSED_BWD = 41
 LIBRARIES = ("mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd", "deepgrid_fwd",
-             "deepgrid_bwd")
+             "deepgrid_bwd", "flash_attn_fwd")
 SGD_BATCH = 10                 # the paper's minibatch
 PROC_BATCH = 4096              # inputs through the programmed processor
 FUSED_BATCH = 1000             # the fused layer's training batch
@@ -130,6 +165,16 @@ DEEP_BATCH = 1024              # the 64x64 cascade's batch
 DEEP_LR = 0.02                 # the JAX package's advice for deep stacks
 TILED_LR = 0.3                 # its toy |W x| task's rate for the tile grid
 TILED_STEPS = 5
+# the LM serve path: TinyLlama-1.1B at full width
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
+LM_TEACHER_PREFIX = 990        # no multiple of attn_chunk 32: B9 tiles it
+LM_TF_SEEDS = 4                # weight and token seeds of the teacher forcing
+FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2  # tests/test_flash_kernel.py's
+# tests/test_rfnn_lm.py's CFG, the LM with the paper's analog MLP
+RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
+               n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
+               attn_chunk=16, dtype="float32", linear_impl="rfnn",
+               rfnn_tile=16)
 
 # decision_map(net, {w: [0.9, -1.1], b: 0.2}, 3, 5, n=5) of the JAX package,
 # pinned in tests/test_golden.py: the ideal device and the PROTOTYPE device.
@@ -241,6 +286,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch import compile as compile_mod
+    from repro_torch import configs as lm_configs
     from repro_torch.core import decompose, svd_synthesis
     from repro_torch.core import mesh as mesh_lib
     from repro_torch.core.analog_linear import (AnalogLinear, AnalogSequence,
@@ -250,6 +296,9 @@ def main(argv=None) -> int:
     from repro_torch.data.digits import load_digits
     from repro_torch.data.toys import make_toy_dataset
     from repro_torch.kernels import cuda_build, givens_mesh, ops, ref, schedule
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, ModelConfig
     from repro_torch.paper.mnist_rfnn import MnistRFNN, _train_loop, train_mnist
     from repro_torch.paper.prototype import PROTOTYPE
     from repro_torch.paper.rfnn2x2 import RFNN2x2, decision_map, train_rfnn2x2
@@ -280,8 +329,12 @@ def main(argv=None) -> int:
     report["build_s"] = build_s
 
     def reset_launches():
-        for k in givens_mesh.LAUNCHES:
-            givens_mesh.LAUNCHES[k] = 0
+        for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def all_launches():
+        return {**givens_mesh.LAUNCHES, **flash.LAUNCHES}
 
     def tree_map(fn, tree):
         if isinstance(tree, dict):
@@ -1677,15 +1730,404 @@ def main(argv=None) -> int:
                       f"{ld_ms:.5f} ms on the device", flush=True)
     report["timings_deep"] = rows_deep
 
+    # -- phase 16 (a): the flash attention kernel against its plain version --
+    def lm_rel(got, want):
+        """max |got - want| over want's largest magnitude (float32)."""
+        got, want = got.float(), want.float()
+        return float((got - want).abs().max() / want.abs().max().clamp_min(
+            1e-30))
+
+    def bf16_close(got, want):
+        """Each element within one bfloat16 step of ``want`` plus the float32
+        bound: both sides round float32 results that agree to that bound."""
+        got, want = got.float(), want.float()
+        return bool(((got - want).abs()
+                     <= want.abs() * 2.0**-7 + FLASH_F32_TOL).all())
+
+    def unit_normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            dev, dtype)
+
+    flash_worst = {}
+    for hd in (8, 64, 128, 256):
+        for s, blk in ((32, 128), (96, 32), (1024, 128)):
+            base = [unit_normal(2, 4, s, hd) for _ in range(3)]
+            for dtype, tol in ((torch.float32, FLASH_F32_TOL),
+                               (torch.bfloat16, FLASH_BF16_TOL)):
+                q, k, v = (t.to(dtype) for t in base)
+                for causal in (True, False):
+                    out = flash.flash_attention(q, k, v, causal=causal, bq=blk,
+                                                bk=blk)
+                    torch.cuda.synchronize()
+                    want = flash.flash_attention_plain(q, k, v, causal=causal)
+                    err = float((out.float() - want.float()).abs().max())
+                    check(out.dtype == dtype and err <= tol
+                          and (dtype == torch.float32 or bf16_close(out, want)),
+                          f"B9 hd={hd} S={s} {dtype} causal={causal}: {err}")
+                    key = str(dtype).split(".")[-1]
+                    flash_worst[key] = max(flash_worst.get(key, 0.0), err)
+    q, k, v = (unit_normal(1, 2, 200, 64) for _ in range(3))
+    out1 = flash.flash_attention(q, k, v, causal=True, bq=8, bk=8)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, -1] = 99.0
+    v2[:, :, -1] = -99.0
+    out2 = flash.flash_attention(q, k2, v2, causal=True, bq=8, bk=8)
+    check(torch.equal(out1[:, :, :-1], out2[:, :, :-1]),
+          "B9: a later key changed an earlier row")
+    n_before = flash.LAUNCHES["flash_attn_fwd"]
+    empty = torch.zeros(0, 32, 1024, 64, device=dev, dtype=torch.bfloat16)
+    check(flash.flash_attention(empty, empty, empty).shape == empty.shape
+          and flash.LAUNCHES["flash_attn_fwd"] == n_before,
+          "B9 launched on an empty batch")
+    print(f"[16] B9 equals its plain version in all 96 cases (hd 8/64/128/256, "
+          f"S 32/96/1024, causal and not): worst float32 "
+          f"{flash_worst['float32']:.3e} (bound {FLASH_F32_TOL}), bfloat16 "
+          f"{flash_worst['bfloat16']:.3e} (bound {FLASH_BF16_TOL}, and each "
+          "element within one bf16 step plus the float32 bound); causal "
+          "rows bit-identical under a changed last key; B*H*S = 0 launches "
+          "nothing", flush=True)
+    report["flash_check"] = flash_worst
+
+    # -- phase 17 (b): TinyLlama-1.1B at full width through serve() ----------
+    lm_cfg = dataclasses.replace(lm_configs.get_config("tinyllama-1.1b"),
+                                 attn_impl="pallas")
+    n_layers = lm_cfg.n_layers
+    reset_launches()
+    t0 = time.perf_counter()
+    serve(lm_cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=2, seed=args.seed,
+          device=dev)
+    init_and_warm_s = time.perf_counter() - t0
+    served_lm = serve(lm_cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                      gen=LM_GEN, seed=args.seed, device=dev)
+    launches["lm_serve"] = all_launches()
+    check(launches["lm_serve"]["flash_attn_fwd"] == 2 * n_layers,
+          f"serve: {launches['lm_serve']['flash_attn_fwd']} B9 launches for "
+          f"two prefills of {n_layers} layers")
+    toks = served_lm["tokens"]
+    check(toks.shape == (LM_BATCH, LM_GEN + 1)
+          and int(toks.min()) >= 0 and int(toks.max()) < lm_cfg.vocab_size,
+          "serve: tokens out of range")
+    lm_model = Model(lm_cfg)
+
+    def lm_init(seed):
+        """serve()'s weights for ``seed``, drawn on the card."""
+        return lm_model.init(torch.Generator(device=dev).manual_seed(seed),
+                             device=dev)
+
+    lm_params = lm_init(args.seed)
+    leaves = []
+
+    def collect(t):
+        leaves.append(t)
+        return t
+
+    tree_map(collect, lm_params)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    check(all(t.device.type == dev.type for t in leaves),
+          "TinyLlama params are not on the card")
+    dec_ms = np.asarray(served_lm["decode_s"]) * 1e3
+    lm_row = {"prefill_ms": served_lm["prefill_s"] * 1e3,
+              "decode_p50_ms": float(np.median(dec_ms)),
+              "decode_p99_ms": float(np.percentile(dec_ms, 99)),
+              "decode_tokens_per_s": LM_BATCH * LM_GEN / float(dec_ms.sum() / 1e3),
+              "prefill_tokens_per_s": LM_BATCH * LM_PROMPT
+              / served_lm["prefill_s"],
+              "param_bytes": param_bytes, "params": sum(
+                  t.numel() for t in leaves),
+              "b9_launches_per_prefill": n_layers,
+              "init_and_warmup_s": init_and_warm_s}
+    print(f"[17] {card} | TinyLlama-1.1B (22 layers, d 2048, 32 heads, 4 KV "
+          f"heads, hd 64, d_ff 5632, vocab 32000; bf16 activations, "
+          f"{lm_row['params'] / 1e9:.3f}e9 params = {param_bytes / 1e9:.3f} GB "
+          f"float32 on the card): prefill {LM_BATCH}x{LM_PROMPT} "
+          f"{lm_row['prefill_ms']:.2f} ms "
+          f"({lm_row['prefill_tokens_per_s']:.0f} tokens/s); decode "
+          f"{LM_GEN} steps p50 {lm_row['decode_p50_ms']:.3f} ms, p99 "
+          f"{lm_row['decode_p99_ms']:.3f} ms per token step "
+          f"({lm_row['decode_tokens_per_s']:.1f} tokens/s at batch "
+          f"{LM_BATCH}); B9 {n_layers} launches per prefill (init and "
+          f"warm-up {init_and_warm_s:.2f} s)", flush=True)
+
+    def teacher_forced(params, seed, model=lm_model):
+        """A ragged prefill, then decode steps fed the true tokens, each
+        step's logits against the full forward's: their relative errors."""
+        gen_tf = torch.Generator(device=dev).manual_seed(seed + 3)
+        tk = torch.randint(0, lm_cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=gen_tf, device=dev)
+        with torch.no_grad():
+            full, _ = model.forward(params, {"tokens": tk})
+            logits, cache = model.prefill(
+                params, {"tokens": tk[:, :LM_TEACHER_PREFIX]},
+                max_len=LM_PROMPT + 1)
+            errs = [lm_rel(logits, full[:, LM_TEACHER_PREFIX - 1])]
+            for t in range(LM_TEACHER_PREFIX, LM_TEACHER_PREFIX + LM_GEN):
+                logits, cache = model.decode_step(params, tk[:, t], cache, t)
+                errs.append(lm_rel(logits, full[:, t]))
+        torch.cuda.synchronize()
+        return tk, errs
+
+    reset_launches()
+    tf_toks, tf_errs = teacher_forced(lm_params, args.seed)
+    launches["lm_teacher"] = all_launches()
+    check(launches["lm_teacher"]["flash_attn_fwd"] == 2 * n_layers,
+          f"teacher forcing: {launches['lm_teacher']['flash_attn_fwd']} B9 "
+          f"launches for the {LM_PROMPT}-token forward and the "
+          f"{LM_TEACHER_PREFIX}-token prefill of {n_layers} layers")
+    # the bound across weight and token seeds (these launches are not counted)
+    tf_by_seed = {args.seed: max(tf_errs)}
+    for seed in range(args.seed + 1, args.seed + LM_TF_SEEDS):
+        other = lm_init(seed)
+        tf_by_seed[seed] = max(teacher_forced(other, seed)[1])
+        del other
+    check(max(tf_by_seed.values()) <= 2e-2, f"teacher-forced decode against "
+          f"forward: {tf_by_seed} of the logits' scale by seed")
+    # the same in float32: decode itself agrees with forward, so what bf16
+    # shows above is its rounding
+    tf_f32 = max(teacher_forced(lm_params, args.seed, Model(
+        dataclasses.replace(lm_cfg, dtype="float32")))[1])
+    check(tf_f32 <= 1e-3, f"teacher-forced decode against forward, float32: "
+          f"{tf_f32} of the logits' scale")
+    reset_launches()
+    with torch.no_grad():
+        pre = {"tokens": tf_toks}
+        paths = {}
+        for dtype in ("float32", "bfloat16"):
+            for impl in ("pallas", "xla"):
+                m = Model(dataclasses.replace(lm_cfg, dtype=dtype,
+                                              attn_impl=impl))
+                paths[dtype, impl] = m.prefill(lm_params, pre,
+                                               max_len=LM_PROMPT)[0].float()
+    launches["lm_paths"] = all_launches()
+    check(launches["lm_paths"]["flash_attn_fwd"] == 2 * n_layers,
+          "the kernel path's prefills did not launch B9 once per layer")
+    f32_gap = lm_rel(paths["float32", "pallas"], paths["float32", "xla"])
+    bf16_gap = lm_rel(paths["bfloat16", "pallas"], paths["bfloat16", "xla"])
+    check(f32_gap <= 1e-3, f"kernel path against xla path, float32: {f32_gap}")
+    del paths
+    by_seed = ", ".join(f"{k}: {e:.3e}" for k, e in tf_by_seed.items())
+    print(f"[17] teacher-forced decode ({LM_TEACHER_PREFIX}-token prefill, "
+          f"{LM_GEN} steps) against forward: worst by seed {by_seed} of the "
+          f"logits' scale (bound 2e-2); float32 {tf_f32:.3e} (bound 1e-3); "
+          f"prefill logits, kernel path against "
+          f"the xla path on the same params: float32 {f32_gap:.3e} of scale "
+          f"(bound 1e-3), bf16 {bf16_gap:.3e}", flush=True)
+    lm_row.update(teacher_forced_rel=max(tf_errs),
+                  teacher_forced_rel_by_seed=tf_by_seed,
+                  teacher_forced_rel_f32=tf_f32,
+                  kernel_vs_xla_f32=f32_gap,
+                  kernel_vs_xla_bf16=bf16_gap)
+
+    # where a prefill's and a decode step's time go (torch.profiler; these
+    # launches fall outside every counted window)
+    with torch.no_grad():
+        _, prof_cache = lm_model.prefill(lm_params, {"tokens": tf_toks},
+                                         max_len=LM_PROMPT + 8)
+
+    def run_prefill(steps):
+        with torch.no_grad():
+            for _ in range(steps):
+                lm_model.prefill(lm_params, {"tokens": tf_toks},
+                                 max_len=LM_PROMPT + 8)
+
+    def run_decode(steps):
+        with torch.no_grad():
+            for i in range(steps):
+                lm_model.decode_step(lm_params, tf_toks[:, i], prof_cache,
+                                     LM_PROMPT + i)
+
+    for name, run, steps, wall_ms in (
+            ("prefill", run_prefill, 2, lm_row["prefill_ms"]),
+            ("decode", run_decode, 8, lm_row["decode_p50_ms"])):
+        events, busy_us, ours_us = profile_steps(
+            torch, run, steps, ["flash_attn_fwd", "nvjet", "gemm", "copy"])
+        lm_row[f"{name}_profile"] = {
+            "device_events": events, "device_busy_us": busy_us,
+            "wall_ms": wall_ms, "busy_share": busy_us / 1e3 / wall_ms,
+            "by_name_us": ours_us}
+        print(f"[17] {name} under torch.profiler: {events:.0f} device events "
+              f"and {busy_us:.1f} us of device work per call, against "
+              f"{wall_ms:.3f} ms of wall time without the profiler (device "
+              f"busy {100 * busy_us / 1e3 / wall_ms:.1f}%); of it B9 "
+              f"{ours_us['flash_attn_fwd']:.1f} us, kernels named *nvjet* "
+              f"(cuBLASLt matmuls) {ours_us['nvjet']:.1f} us, *gemm* "
+              f"{ours_us['gemm']:.1f} us, *copy* (casts, contiguous copies) "
+              f"{ours_us['copy']:.1f} us", flush=True)
+    del prof_cache
+    report["lm_serve"] = lm_row
+
+    # -- phase 18 (c): the reduced TinyLlama, card against CPU ---------------
+    red_cfg = dataclasses.replace(lm_configs.get_reduced("tinyllama-1.1b"),
+                                  dtype="float32", attn_impl="pallas")
+    red = Model(red_cfg)
+    red_cpu = red.init(torch.Generator().manual_seed(args.seed), device="cpu")
+    red_dev = tree_map(lambda t: t.to(dev), red_cpu)
+    red_toks = torch.from_numpy(rng.integers(0, red_cfg.vocab_size, (4, 72)))
+    reset_launches()
+    red_errs = []
+    with torch.no_grad():
+        outs = {}
+        for where, params in (("cpu", red_cpu), ("card", red_dev)):
+            tk = red_toks.to(dev if where == "card" else "cpu")
+            logits, cache = red.prefill(params, {"tokens": tk[:, :61]},
+                                        max_len=72)  # 61: a ragged prefill
+            seq = [logits.cpu()]
+            for t in range(61, 69):
+                logits, cache = red.decode_step(params, tk[:, t], cache, t)
+                seq.append(logits.cpu())
+            outs[where] = seq
+        red_errs = [lm_rel(g, w) for g, w in zip(outs["card"], outs["cpu"])]
+    launches["lm_card_cpu"] = all_launches()
+    check(launches["lm_card_cpu"]["flash_attn_fwd"] == red_cfg.n_layers,
+          "reduced prefill on the card did not launch B9 once per layer")
+    check(max(red_errs) <= 1e-5, f"reduced TinyLlama card against CPU: "
+          f"{max(red_errs)}")
+    print(f"[18] reduced TinyLlama float32, card against CPU: 61-token "
+          f"prefill (B9 on the card, its plain version on the CPU) "
+          f"{red_errs[0]:.3e}, 8 decode steps worst {max(red_errs[1:]):.3e} "
+          "of the logits' scale (bound 1e-5)", flush=True)
+    report["lm_card_vs_cpu"] = red_errs
+
+    # -- phase 19 (d): the engine's LM slot family at full width -------------
+    lm_engine = ServingEngine(lm_model, lm_params, slots=8, max_len=64,
+                              device=dev)
+    lm_reqs = [Request(i, prompt=rng.integers(0, lm_cfg.vocab_size, 16),
+                       max_new=16) for i in range(16)]
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in lm_reqs:
+        lm_engine.submit(r)
+    lm_engine.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    launches["lm_engine"] = all_launches()
+    check(all(r.done and not r.failed and len(r.result) == 16
+              and int(r.result.min()) >= 0 for r in lm_reqs),
+          "LM engine: a request failed or came back short")
+    check(launches["lm_engine"]["flash_attn_fwd"] == 0,
+          "LM engine: decode-only path launched B9")
+    lm_stats = lm_engine.stats
+    print(f"[19] {card} | LM engine, TinyLlama-1.1B, slots 8: 16 requests x "
+          f"16 prompt tokens, max_new 16 in {engine_s:.2f} s; "
+          f"served {lm_stats['served']}, ticks {lm_stats['ticks']}, tick p50 "
+          f"{lm_stats['p50_tick_us'] / 1e3:.3f} ms, p99 "
+          f"{lm_stats['p99_tick_us'] / 1e3:.3f} "
+          f"ms, qps {lm_stats['qps']:.2f} (decode only: no B9 on this path)",
+          flush=True)
+    report["lm_engine"] = {**lm_stats, "seconds": engine_s}
+    del lm_engine, lm_params, lm_model
+    torch.cuda.empty_cache()
+
+    # -- phase 20 (e): the LM with the paper's analog MLP ---------------------
+    rf_cfg = ModelConfig(**RFNN_LM, attn_impl="pallas", rfnn_backend="pallas")
+    rf_params = Model(rf_cfg).init(
+        torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    rf_toks = torch.from_numpy(rng.integers(0, 97, (2, 20))).to(dev)
+    rf_out = {}
+    for backend in ("pallas", "reference"):
+        m = Model(dataclasses.replace(rf_cfg, rfnn_backend=backend))
+        reset_launches()
+        with torch.no_grad():
+            logits, cache = m.prefill(rf_params, {"tokens": rf_toks[:, :16]},
+                                      max_len=20)
+            seq = [logits]
+            for t in range(16, 20):
+                logits, cache = m.decode_step(rf_params, rf_toks[:, t], cache,
+                                              t)
+                seq.append(logits)
+        torch.cuda.synchronize()
+        rf_out[backend] = seq
+        if backend == "pallas":
+            launches["lm_rfnn"] = all_launches()
+    rf_errs = [lm_rel(g, w) for g, w in zip(rf_out["pallas"],
+                                            rf_out["reference"])]
+    rf_l = launches["lm_rfnn"]
+    # one B9 per layer for the prefill; one B6 per projection (3 a layer)
+    # for the prefill and each of the 4 decode steps
+    check(rf_l["flash_attn_fwd"] == RFNN_LM["n_layers"]
+          and rf_l["deepgrid_fwd"] == 3 * RFNN_LM["n_layers"] * 5,
+          f"rfnn LM launches: {rf_l}")
+    check(max(rf_errs) <= 1e-5, f"rfnn LM kernel against reference backend: "
+          f"{max(rf_errs)}")
+    print(f"[20] rfnn LM (d 64, d_ff 128, 4x8 and 8x4 tiles of 16): prefill "
+          f"and 4 decode steps launch B9 {rf_l['flash_attn_fwd']} and B6 "
+          f"{rf_l['deepgrid_fwd']} times; kernel backend against reference "
+          f"backend worst {max(rf_errs):.3e} of scale (bound 1e-5)", flush=True)
+    report["lm_rfnn"] = {"rel_err": rf_errs, "launches": rf_l}
+
+    # -- phase 21 (f): B9's times ---------------------------------------------
+    rows_flash = []
+    for shape_name, (b, h, s, hd) in (("tinyllama_prefill", (8, 32, 1024, 64)),
+                                      ("long_8k", (1, 32, 8192, 64))):
+        q, k, v = (torch.randn(b, h, s, hd, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        call = lambda: flash.launch(q, k, v, causal=True)  # noqa: E731
+        plain = lambda: flash.flash_attention_plain(q, k, v, causal=True)  # noqa: E731
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True)
+        got = call()
+        torch.cuda.synchronize()
+        lib_err = float((got.float() - lib().float()).abs().max())
+        # the plain version's scores, softmax and mask, float32
+        dense_fits = 4 * b * h * s * s * 4 < 0.8 * torch.cuda.mem_get_info()[0]
+        plain_err = f32_err = p_ms = None
+        if dense_fits:
+            want = plain()
+            plain_err = float((got.float() - want.float()).abs().max())
+            check(plain_err <= FLASH_BF16_TOL and bf16_close(got, want),
+                  f"B9 {shape_name}: {plain_err}")
+            del want
+            # the same shape in float32, held to the float32 bound
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            f32_err = float((flash.launch(q32, k32, v32, causal=True)
+                             - flash.flash_attention_plain(
+                                 q32, k32, v32, causal=True)).abs().max())
+            check(f32_err <= FLASH_F32_TOL,
+                  f"B9 {shape_name} float32: {f32_err}")
+            del q32, k32, v32
+            torch.cuda.empty_cache()
+            p_ms = cuda_ms(torch, plain, 3, warmup=1)
+        k_ms = cuda_ms(torch, call, 20)
+        kd_ms = device_ms(torch, call, 20)
+        l_ms = cuda_ms(torch, lib, 20)
+        ld_ms = device_ms(torch, lib, 20)
+        flops = 4 * b * h * s * s * hd * 0.5
+        nbytes = 4 * b * h * s * hd * 2
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row = {"kernel": "flash_attn_fwd", "shape": shape_name, "B": b, "H": h,
+               "S": s, "hd": hd, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+               "plain_ms": p_ms, "sdpa_ms": l_ms, "sdpa_device_ms": ld_ms,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops > t_bytes else "bytes",
+               "flops": flops, "bytes": nbytes, "max_abs_err": plain_err,
+               "max_abs_err_f32": f32_err,
+               "sdpa_max_abs_err": lib_err}
+        rows_flash.append(row)
+        plain_txt = (f"plain {p_ms:.3f} ms per call" if p_ms is not None
+                     else "plain not run (dense scores do not fit)")
+        print(f"[21] {card} | flash_attn_fwd {shape_name} (B {b}, H {h}, S {s}, "
+              f"hd {hd}, bf16, causal): kernel {k_ms:.5f} ms per call, "
+              f"{kd_ms:.5f} ms on the device; bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}, {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB); {plain_txt}; "
+              f"scaled_dot_product_attention {l_ms:.5f} ms per call, "
+              f"{ld_ms:.5f} ms on the device; |kernel - plain| {plain_err} "
+              f"(bf16), {f32_err} (float32, bound {FLASH_F32_TOL}), "
+              f"|kernel - sdpa| {lib_err:.3e}", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    report["timings_flash"] = rows_flash
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 16: the kernels line and the device line ------------------------
+    # -- phase 22: the kernels line and the device line ------------------------
     main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
                  "processor_apply", "processor_program", "train_fused",
                  "mnist_deep", "train_mnist_deep", "tiled_apply", "tiled_train",
-                 "cascade", "serving_deep")
+                 "cascade", "serving_deep", "lm_serve", "lm_teacher",
+                 "lm_paths", "lm_card_cpu", "lm_engine", "lm_rfnn")
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{
@@ -1693,7 +2135,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mesh_fwd.cu",
         "replaces": "src/repro/kernels/givens_mesh.py:109",
-        "launches": sum(launches[k]["mesh_fwd"] for k in main_path),
+        "launches": sum(launches[k].get("mesh_fwd", 0) for k in main_path),
         "max_abs_err": main_err,
         "ms": fwd["kernel_device_ms"],
         "plain_ms": fwd["plain_ms"],
@@ -1705,7 +2147,7 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mesh_bwd.cu",
         "replaces": "src/repro/kernels/givens_mesh.py:321",
-        "launches": sum(launches[k]["mesh_bwd"] for k in main_path),
+        "launches": sum(launches[k].get("mesh_bwd", 0) for k in main_path),
         "max_abs_err": main_err_bwd,
         "ms": bwd["kernel_device_ms"],
         "plain_ms": bwd["plain_ms"],
@@ -1733,7 +2175,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": sum(launches[k][name] for k in main_path),
+            "launches": sum(launches[k].get(name, 0) for k in main_path),
             "max_abs_err": report["main_path_max_abs_err_fused"][name],
             "ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
@@ -1757,7 +2199,7 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/givens_mesh.py:{line}",
-            "launches": sum(launches[k][name] for k in main_path),
+            "launches": sum(launches[k].get(name, 0) for k in main_path),
             "max_abs_err": main_err_deep[err],
             "ms": row["kernel_device_ms"],
             "plain_ms": row["plain_ms"],
@@ -1767,6 +2209,23 @@ def main(argv=None) -> int:
             # matrices (then .abs()) for B6/B7; the dx chain alone for B8
             "library_ms": row["matmul_device_ms"],
         })
+    # B9 at TinyLlama's prefill (B 8, H 32, S 1024, hd 64, bf16, causal)
+    row = next(r for r in rows_flash if r["shape"] == "tinyllama_prefill")
+    kernels.append({
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:35",
+        "launches": sum(launches[k].get("flash_attn_fwd", 0)
+                        for k in main_path),
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["kernel_device_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        # scaled_dot_product_attention(is_causal=True), timed only
+        "library_ms": row["sdpa_device_ms"],
+    })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print(json.dumps({"kernels": kernels}))

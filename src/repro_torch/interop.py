@@ -7,8 +7,9 @@ containers and shapes, float32 and complex64 kept as they are.
 ``params_to_numpy`` is the reverse.  ``MnistRFNN`` params (``w1, b1, w3,
 b3, mesh{theta, phi, alpha}``), the 2x2 RFNN's (``w, b``),
 ``AnalogSequence``'s (``{"layers": (dict, ...)}``) and
-``TiledAnalogLinear``'s stacked ``[To, Ti, ...]`` leaves round-trip
-exactly.
+``TiledAnalogLinear``'s stacked ``[To, Ti, ...]`` leaves and the LM's
+``Model.init`` trees (float32 leaves stacked over the super-blocks, nested
+dicts) round-trip exactly.
 """
 
 from __future__ import annotations

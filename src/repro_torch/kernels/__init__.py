@@ -10,9 +10,12 @@ givens_mesh  — the mesh sweep: CUDA kernels ``csrc/mesh_fwd.cu`` (forward,
 schedule     — parity-column schedules lowering any adjacent-pair MeshPlan
                onto the kernels, the ``[C', 8, P]`` coefficient packing and
                the deep grid's stacked schedules
+flash_attention — kernel B9, flash attention: CUDA kernel
+               ``csrc/flash_attn_fwd.cu`` (online softmax, causal block skip,
+               float32 or bfloat16) and its dense plain version
 ops          — public wrappers (``mesh_apply``, ``mesh_apply_cells``,
                ``rfnn_linear``, ``deep_apply``, ``rfnn_network``,
                ``tiled_apply``) and the deep grid's pack cache
 ref          — the plain PyTorch twins of the column sweep, its reverse,
-               the fused layer and the deep grid
+               the fused layer, the deep grid and flash attention
 """

@@ -1,6 +1,7 @@
 """Plain-PyTorch twin of the mesh kernels: the mesh sweep (forward B1,
 backward B2), the fused analog linear layer (B3, B4 and backward B5) and
-the deep tile grid (B6, B7 and backward B8).
+the deep tile grid (B6, B7 and backward B8); and the dense-softmax twin of
+the flash attention kernel (B9), :func:`flash_attention_ref`.
 
 Re-expresses the mesh semantics in the de-interleaved (even/odd channel)
 layout the column sweep is written in, so the CUDA kernels can be held
@@ -15,6 +16,8 @@ schedules from ``pack_cells_to_columns`` run through it unchanged.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -470,3 +473,22 @@ def deep_grid_planes_bwd(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
             torch.stack(dcu).reshape(shape + (c, 8, p)).to(coef_u.dtype),
             torch.stack(dg).reshape(shape + (12, p)).to(gains.dtype),
             merge_channels(*d_in).reshape(b, ti * n))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Dense-softmax twin of the flash attention kernel (B9).
+
+    q: [B, H, Sq, hd], k, v: [B, H, Skv, hd] -> [B, H, Sq, hd] in q's dtype,
+    float32 math; causal masks key > query with -1e30, as the kernel.
+    """
+    hd = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = (torch.arange(sk, device=s.device)[None, :]
+                > torch.arange(sq, device=s.device)[:, None])
+        s = s.masked_fill(mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,184 @@
+"""Shared transformer layers: norms, embeddings, RoPE, MLP variants.
+
+The JAX package's ``models/layers.py`` on torch.  Parameters are plain
+dicts of tensors with the JAX package's keys and shapes; the cast points
+are the JAX package's: RMSNorm and RoPE compute in float32 and cast back,
+matmuls run in the activation dtype against weights cast to it per call.
+The sharding specs (``spec_*``) wait for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+
+def truncated_normal(generator: torch.Generator, shape,
+                     scale: float) -> torch.Tensor:
+    """``scale`` times a standard normal truncated to [-2, 2] (not
+    renormalized, as ``jax.random.truncated_normal``), drawn from
+    ``generator`` on its device."""
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, device=None, *, stack: tuple = ()) -> dict:
+    return {"scale": torch.ones(stack + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    scale = 1.0 / math.sqrt(cfg.d_model)
+    shape = (cfg.vocab_size, cfg.d_model)
+    p = {"table": truncated_normal(generator, shape, scale)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = truncated_normal(generator, shape, scale)
+    return p
+
+
+def embed_tokens(params: dict, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    x = params["table"][tokens]
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x.to(cfg.activation_dtype())
+
+
+def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    table = params["table"] if cfg.tie_embeddings else params["unembed"]
+    logits = torch.matmul(x, table.to(x.dtype).t())
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    if cfg.vocab_real and cfg.vocab_real < cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_size, device=x.device) >= cfg.vocab_real
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(cfg: ModelConfig, positions: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., head_dim/2] for integer positions."""
+    half = cfg.head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; cos/sin: [..., seq, head_dim/2].
+    Computed in float32, cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU) — digital matmuls or the paper's analog processor
+# ---------------------------------------------------------------------------
+
+def _analog_layers(cfg: ModelConfig, d: int, f: int) -> dict:
+    """The MLP's three projections as tiled RF analog processors.
+
+    The JAX package's ``rfnn_backend="pallas"`` is the port's
+    ``backend="kernel"``: each projection's whole (To x Ti) tile grid is one
+    launch of the deep-grid kernel B6 on the card (``ops.tiled_apply``).
+    """
+    from repro_torch.core.analog_linear import TiledAnalogLinear
+
+    backend = {"pallas": "kernel", "reference": "reference"}[cfg.rfnn_backend]
+
+    def mk(i, o):
+        return TiledAnalogLinear(in_dim=i, out_dim=o, tile_size=cfg.rfnn_tile,
+                                 quantize=cfg.rfnn_quantize, output="real",
+                                 backend=backend)
+
+    return {"wi": mk(d, f), "wg": mk(d, f), "wo": mk(f, d)}
+
+
+def _gated(cfg: ModelConfig) -> bool:
+    return cfg.mlp_variant in ("swiglu", "geglu")
+
+
+def _act(cfg: ModelConfig):
+    if cfg.mlp_variant == "swiglu":
+        return F.silu
+    return lambda t: F.gelu(t, approximate="tanh")  # jax.nn.gelu's default
+
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig, *,
+             stack: tuple = ()) -> dict:
+    """MLP params, each leaf with the leading ``stack`` axes (the LM's
+    stacked super-blocks).  The analog projections draw their phases from a
+    CPU generator seeded from ``generator``."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.linear_impl == "rfnn":
+        from repro_torch.core.analog_linear import _stack_trees
+
+        layers = _analog_layers(cfg, d, f)
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator,
+                                 device=generator.device))
+        host = torch.Generator().manual_seed(seed)
+        names = ["wi", "wo"] + (["wg"] if _gated(cfg) else [])
+        count = math.prod(stack)
+        return {name: _stack_trees(
+            [layers[name].init(host, device=generator.device)
+             for _ in range(count)], stack) for name in names}
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"wi": truncated_normal(generator, stack + (d, f), s_in),
+         "wo": truncated_normal(generator, stack + (f, d), s_out)}
+    if _gated(cfg):
+        p["wg"] = truncated_normal(generator, stack + (d, f), s_in)
+    return p
+
+
+def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.linear_impl == "rfnn":
+        layers = _analog_layers(cfg, cfg.d_model, cfg.d_ff)
+        xf = x.float()
+        h = layers["wi"].apply(params["wi"], xf)
+        if _gated(cfg):
+            h = h * _act(cfg)(layers["wg"].apply(params["wg"], xf))
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return layers["wo"].apply(params["wo"], h).to(dt)
+    h = torch.matmul(x, params["wi"].to(dt))
+    if _gated(cfg):
+        g = torch.matmul(x, params["wg"].to(dt))
+        h = h * _act(cfg)(g)
+    else:  # plain gelu (whisper)
+        h = F.gelu(h, approximate="tanh")
+    return torch.matmul(h, params["wo"].to(dt))

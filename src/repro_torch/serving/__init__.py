@@ -1,4 +1,4 @@
-"""repro_torch.serving — the analog serving engine on torch.
+"""repro_torch.serving — the serving engine on torch (analog programs and LMs).
 
 :class:`ServingEngine` (fixed-slot ticks + async dispatch), :class:`Request`,
 the :class:`ServableProgram` protocol and :func:`as_servable`.

@@ -1,6 +1,6 @@
-"""The analog serving engine on torch.
+"""The serving engine on torch: the analog and the LM slot families.
 
-The JAX package's ``serving/engine.py`` for the analog slot family:
+The JAX package's ``serving/engine.py``:
 
   * an (optional) background **dispatch thread** pulls from a bounded
     request queue and drives the device, so callers just ``submit()`` and
@@ -9,16 +9,20 @@ The JAX package's ``serving/engine.py`` for the analog slot family:
     ``"block"`` (submit waits for space) or ``"reject"`` (submit fails
     fast and the request completes as failed);
   * a fixed-slot **tick loop**: every tick admits queued requests into
-    free slots and runs ONE fixed-shape device call (the mesh kernel for
-    an ``AnalogUnitary`` with ``params=``), then frees the slots;
+    free slots and runs ONE fixed-shape device call — the kernel path's
+    apply for an analog program (e.g. an ``AnalogUnitary`` with
+    ``params=``), one decode step for an LM — then frees finished slots;
   * per-request **SLO accounting** (:class:`repro_torch.runtime.slo.SLOTracker`):
     deadlines, served/expired/rejected/recovered counters, p50/p99 tick
     latency, sustained QPS;
-  * the **failure-injector hook**: a fired ``tile_down`` swaps in a
-    recovered program between ticks and in-flight requests keep draining.
+  * the **failure-injector hook** (analog path): a fired ``tile_down``
+    swaps in a recovered program between ticks and in-flight requests keep
+    draining.
 
-Not ported yet: LM models served through ``decode_step`` (ROADMAP A10) and
-the ``mesh=`` data-parallel tick panel (ROADMAP A11); both raise.
+A model exposing ``decode_step`` (:class:`repro_torch.models.Model`) is
+served through the LM slot family; both families share the admission
+queue, tick loop and SLO tracker.  Not ported yet: the ``mesh=``
+data-parallel tick panel (ROADMAP A11), which raises.
 
 Tick ordering is load-bearing for deadline/recovery semantics and is kept
 identical to the JAX engine: failures are polled and deadlines expired
@@ -33,7 +37,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -46,13 +50,13 @@ __all__ = ["Request", "ServingEngine"]
 
 
 class Request:
-    """One unit of serving work: an analog feature vector.
+    """One unit of serving work — analog feature vector OR LM prompt.
 
-    ``payload`` is the request body, a ``[d]`` float feature vector for
-    an analog program; ``features=`` is a readable alias for the same
-    slot (exactly one of the two may be given).  The JAX engine's LM
-    knobs (``prompt=``, ``max_new``, ``eos_id``, ``output``) come with the
-    LM path (ROADMAP A10).
+    ``payload`` is the request body: a ``[d]`` float feature vector for
+    an analog program, a ``[prompt_len]`` int token array for the LM.
+    The ``features=`` / ``prompt=`` keywords are readable aliases for the
+    same slot (exactly one of the three may be given).  ``max_new`` and
+    ``eos_id`` bound an LM request's generation.
 
     ``deadline_ticks``: optional per-request tick budget — a request
     still *queued* that many engine ticks after submission completes as
@@ -61,21 +65,27 @@ class Request:
     The result is a future: ``wait()`` blocks until the engine completes
     the request (from the dispatch thread or a synchronous ``run()``),
     ``done`` is non-blocking.  On success ``result`` holds the output
-    panel row; on expiry or rejection ``failed`` is True and ``result``
-    stays None.
+    panel row (analog) or the generated token array (LM); on expiry or
+    rejection ``failed`` is True and ``result`` stays None.
     """
 
     def __init__(self, rid: int, payload: Any = None, *,
-                 features: Any = None, deadline_ticks: int | None = None):
-        given = [v for v in (payload, features) if v is not None]
+                 features: Any = None, prompt: Any = None,
+                 deadline_ticks: int | None = None,
+                 max_new: int = 32, eos_id: int | None = None):
+        given = [v for v in (payload, features, prompt) if v is not None]
         if len(given) != 1:
-            raise ValueError("Request takes exactly one of payload=/features= "
-                             f"(got {len(given)})")
+            raise ValueError(
+                "Request takes exactly one of payload=/features=/prompt= "
+                f"(got {len(given)})")
         self.rid = rid
         self.payload = given[0]
         self.deadline_ticks = deadline_ticks
+        self.max_new = max_new
+        self.eos_id = eos_id
         # filled by the engine:
         self.result: Any = None
+        self.output: list[int] = []          # LM path: tokens as they decode
         self.failed = False
         self.submitted_tick = 0
         self.submitted_at: float | None = None
@@ -84,6 +94,10 @@ class Request:
 
     @property
     def features(self) -> Any:
+        return self.payload
+
+    @property
+    def prompt(self) -> Any:
         return self.payload
 
     @property
@@ -107,7 +121,7 @@ class Request:
 
 
 # ---------------------------------------------------------------------------
-# the analog slot family: the per-tick device step
+# slot families: the per-tick device step for each request kind
 # ---------------------------------------------------------------------------
 
 class _AnalogSlots:
@@ -156,6 +170,99 @@ class _AnalogSlots:
         return active
 
 
+class _LMSlot:
+    __slots__ = ("req", "pos", "pending")
+
+    def __init__(self):
+        self.req: Request | None = None
+        self.pos = 0                # next cache position for this slot
+        self.pending = 0            # last token, fed on the next tick
+
+
+class _DecodeSlots:
+    """Fixed-slot continuous batching over the LM decode step.
+
+    Slot state lives host-side; the device state is the shared KV cache on
+    ``device``.  Admission prefills the prompt slot-serially (decode_step
+    is the uniform per-token primitive), the tick decodes one token for all
+    active slots at the shared max position, and finished requests (eos,
+    max tokens, cache full) free their slot immediately.
+    """
+
+    def __init__(self, model, params, n_slots: int, max_len: int,
+                 device: torch.device, sample: Callable | None = None):
+        if max_len is None:
+            raise ValueError("LM serving needs max_len= (KV cache length)")
+        self.model = model
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.device = device
+        self.sample = sample
+        self.slots = [_LMSlot() for _ in range(n_slots)]
+        self.cache = model.init_cache(n_slots, max_len, device=device)
+        self._decode = model.bind_decode(params)
+
+    def rebind(self, servable) -> None:
+        raise ValueError("mid-stream program recovery is an analog-path "
+                         "feature; the LM decode path has no tile grid")
+
+    def free_slots(self) -> int:
+        return sum(1 for s in self.slots if s.req is None)
+
+    def n_active(self) -> int:
+        return sum(1 for s in self.slots if s.req is not None)
+
+    def admit(self, req: Request) -> None:
+        i = next(j for j, s in enumerate(self.slots) if s.req is None)
+        slot = self.slots[i]
+        slot.req, slot.pos = req, 0
+        prompt = np.asarray(req.payload, np.int32)
+        for tok in prompt[:-1]:
+            self._step_one(i, int(tok))
+        # the last prompt token is fed on the next engine tick
+        slot.pending = int(prompt[-1])
+
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(toks).to(self.device)
+
+    def _step_one(self, i: int, token: int) -> None:
+        """Advance a single slot by one position (prefill path)."""
+        slot = self.slots[i]
+        toks = np.zeros((self.n_slots,), np.int32)
+        toks[i] = token
+        _, self.cache = self._decode(self._tokens(toks), self.cache, slot.pos)
+        slot.pos += 1
+
+    def step(self) -> list[Request]:
+        active = [i for i, s in enumerate(self.slots) if s.req is not None]
+        toks = np.zeros((self.n_slots,), np.int32)
+        for i in active:
+            slot = self.slots[i]
+            toks[i] = slot.pending if slot.pos < self.max_len else 0
+        # positions: slots advance in lockstep from the shared max offset
+        # (prefill above is slot-serial, so admitted slots start aligned)
+        pos = max(self.slots[i].pos for i in active)
+        logits, self.cache = self._decode(self._tokens(toks), self.cache, pos)
+        chosen = (torch.argmax(logits, -1) if self.sample is None
+                  else torch.as_tensor(self.sample(logits)))
+        arr = chosen.cpu().numpy()
+        completed = []
+        for i in active:
+            slot = self.slots[i]
+            slot.pos = pos + 1
+            tok = int(arr[i])
+            req = slot.req
+            req.output.append(tok)
+            slot.pending = tok
+            if ((req.eos_id is not None and tok == req.eos_id)
+                    or len(req.output) >= req.max_new
+                    or slot.pos >= self.max_len - 1):
+                req.result = np.asarray(req.output, np.int32)
+                completed.append(req)
+                slot.req = None   # slot freed immediately
+        return completed
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -164,9 +271,12 @@ class ServingEngine:
     """Continuous batching + async dispatch over one compiled program.
 
     ``program`` is anything servable: an analog model with ``params=``
-    (e.g. ``AnalogUnitary``) or anything with ``apply``/``n_in``/``n_out``.
-    Panels are built on ``device`` (CUDA when None; raises when CUDA is
-    absent), which must be where the params live.
+    (e.g. ``AnalogUnitary``), anything with ``apply``/``n_in``/``n_out``,
+    or an LM :class:`repro_torch.models.Model` (detected by its
+    ``decode_step``; needs ``params=`` and ``max_len=``, and ``sample=``
+    maps a tick's logits to tokens, greedy when None).  Panels and the KV
+    cache live on ``device`` (CUDA when None; raises when CUDA is absent),
+    which must be where the params live.
 
     Admission: ``max_queue=None`` leaves the queue unbounded; with a
     bound, ``admission="block"`` makes ``submit`` wait for space (up to
@@ -189,13 +299,12 @@ class ServingEngine:
 
     def __init__(self, program, params=None, *, slots: int,
                  device=None,
+                 max_len: int | None = None,
+                 sample: Callable | None = None,
                  max_queue: int | None = None,
                  admission: str = "block",
                  mesh=None,
                  failure_injector=None, recovery=None):
-        if hasattr(program, "decode_step"):
-            raise NotImplementedError(
-                "LM serving (decode_step) is not ported yet: see ROADMAP A10")
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh= data-parallel tick panel is not ported yet: see "
@@ -212,8 +321,12 @@ class ServingEngine:
         self.slo = SLOTracker()
         self.events: list[dict] = []
         self.device = resolve_device(device)
-        self._impl = _AnalogSlots(as_servable(program, params), slots,
-                                  self.device)
+        if hasattr(program, "decode_step"):
+            self._impl = _DecodeSlots(program, params, slots, max_len,
+                                      self.device, sample=sample)
+        else:
+            self._impl = _AnalogSlots(as_servable(program, params), slots,
+                                      self.device)
         self._pending: deque[Request] = deque()
         self._cond = threading.Condition()
         self._thread: threading.Thread | None = None

@@ -5,7 +5,10 @@ quantize="table1", output="abs")`` with params made by the JAX package)
 answers the same requests through both engines; each result must match
 per request to 1e-5 (float32 sums in another order).  Deadlines, block and
 reject admission, the dispatch thread and the failure-injector hook follow
-the JAX engine's semantics.
+the JAX engine's semantics.  The LM slot family serves the reduced
+TinyLlama in float32 with the JAX package's params: every request's tokens
+equal the JAX engine's wherever the greedy choice is clear (a top-2 logit
+margin above the parity tolerance).
 """
 
 import threading
@@ -197,7 +200,8 @@ def test_unported_engine_modes_raise(deployed):
         def decode_step(self, *a):
             pass
 
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the LM slot family is ported; it refuses to start without a cache length
+    with pytest.raises(ValueError, match="max_len"):
         ServingEngine(LM(), None, slots=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         ServingEngine(tmodel, tparams, slots=2, device="cpu", mesh=object())
@@ -246,3 +250,139 @@ def test_engine_serves_deep_models_with_zero_steady_state_packs(kind):
         assert rt.done and not rt.failed
         np.testing.assert_allclose(rt.result, np.asarray(rj.result),
                                    rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the LM slot family
+# ---------------------------------------------------------------------------
+
+LM_MARGIN = 1e-3   # top-2 logit margin above the 1e-4 parity of the LM tests
+
+
+@pytest.fixture(scope="module")
+def tiny_lm():
+    import dataclasses
+
+    from repro import configs as j_configs
+    from repro.models import Model as JModel
+    from repro_torch import configs as t_configs
+    from repro_torch.models import Model
+
+    jcfg = dataclasses.replace(j_configs.get_reduced("tinyllama-1.1b"),
+                               dtype="float32")
+    tcfg = dataclasses.replace(t_configs.get_reduced("tinyllama-1.1b"),
+                               dtype="float32")
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(7))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, Model(tcfg), tp
+
+
+def _prompts(k, length, vocab=512, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, length).astype(np.int32) for _ in range(k)]
+
+
+def _lm_engine(tiny_lm, margins=None, **kw):
+    _, _, tm, tp = tiny_lm
+    engine = None
+
+    def sample(logits):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        active = [i for i, s in enumerate(engine._impl.slots) if s.req]
+        margins.extend((top2[active, 0] - top2[active, 1]).tolist())
+        return torch.argmax(logits, -1)
+
+    engine = ServingEngine(tm, tp, device="cpu",
+                           sample=None if margins is None else sample, **kw)
+    return engine
+
+
+def test_lm_engine_tokens_match_jax_engine(tiny_lm):
+    jm, jp = tiny_lm[:2]
+    prompts = _prompts(6, 5)
+    jeng = JServingEngine(jm, jp, slots=4, max_len=24)
+    jreqs = [JRequest(i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run()
+    margins: list = []
+    teng = _lm_engine(tiny_lm, margins, slots=4, max_len=24)
+    treqs = [Request(i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+    for r in treqs:
+        teng.submit(r)
+    teng.run()
+    assert min(margins) > LM_MARGIN  # every greedy choice is clear
+    for jr, tr in zip(jreqs, treqs):
+        assert tr.done and not tr.failed and len(tr.result) == 6
+        np.testing.assert_array_equal(tr.result, jr.result)
+        assert tr.output == list(tr.result)
+    assert teng.ticks == jeng.ticks
+    assert teng.stats["served"] == 6
+
+
+def test_lm_engine_admission_eos_and_max_new(tiny_lm):
+    """At most ``slots`` requests decode at once; a request stops at its
+    ``max_new`` or at its ``eos_id`` (the token included), and its slot
+    frees for the next queued request on the following tick."""
+    prompts = _prompts(5, 4, seed=1)
+
+    def requests(eos_id):
+        return [Request(0, prompt=prompts[0], max_new=5, eos_id=eos_id)] + [
+            Request(i, prompt=p, max_new=3)
+            for i, p in enumerate(prompts[1:], 1)]
+
+    probe = _lm_engine(tiny_lm, slots=2, max_len=20)
+    free_run = requests(None)
+    for r in free_run:
+        probe.submit(r)
+    probe.run()
+    eos = int(free_run[0].result[2])  # request 0's third greedy token
+    stop = list(free_run[0].result).index(eos) + 1
+
+    engine = _lm_engine(tiny_lm, slots=2, max_len=20)
+    reqs = requests(eos)
+    for r in reqs:
+        engine.submit(r)
+    active_seen = []
+    while engine.tick() or engine._has_work():
+        active_seen.append(engine._impl.n_active())
+    assert max(active_seen) <= 2
+    np.testing.assert_array_equal(reqs[0].result, free_run[0].result[:stop])
+    assert reqs[0].result[-1] == eos and len(free_run[0].result) == 5
+    assert all(len(r.result) == 3 for r in reqs[1:])
+    assert engine.stats["served"] == 5 and engine.queue_depth == 0
+
+
+def test_lm_engine_deadline_expiry_matches_jax(tiny_lm):
+    """slots=1: queued requests past ``deadline_ticks`` complete as failed
+    at the same ticks as in the JAX engine."""
+    jm, jp = tiny_lm[:2]
+    prompts = _prompts(3, 3, seed=2)
+    jeng = JServingEngine(jm, jp, slots=1, max_len=16)
+    jreqs = [JRequest(i, prompt=p, max_new=2, deadline_ticks=2)
+             for i, p in enumerate(prompts)]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run()
+    teng = _lm_engine(tiny_lm, slots=1, max_len=16)
+    treqs = [Request(i, prompt=p, max_new=2, deadline_ticks=2)
+             for i, p in enumerate(prompts)]
+    for r in treqs:
+        teng.submit(r)
+    teng.run()
+    assert [r.failed for r in treqs] == [r.failed for r in jreqs]
+    assert [r.completed_tick for r in treqs] == \
+        [r.completed_tick for r in jreqs]
+    assert teng.stats["expired"] == jeng.stats["expired"] > 0
+    with pytest.raises(ValueError, match="analog-path"):
+        teng._impl.rebind(None)
+
+
+def test_serve_main_runs_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["--arch", "tinyllama-1.1b", "--reduced", "--batch", "2",
+                 "--prompt-len", "32", "--gen", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "prefill[2x32]" in out and "generated[2x5]" in out
