@@ -12,7 +12,8 @@ exits non-zero):
    (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``,
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
    ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
-   started together;
+   started together, beside one more ``nvcc -Xptxas -v`` of
+   ``flash_attn_fwd.cu`` (no kernel of B9 may spill registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -78,10 +79,13 @@ exits non-zero):
     ``torch.matmul`` yardstick on each layer's precomputed complex matrix
     (then ``.abs()``);
 16. (a) the flash attention kernel B9 against its plain version for hd in
-    {8, 64, 128, 256}, S in {32, 96 (block 32), 1024}, causal and not,
-    float32 within 2e-5 and bfloat16 within 3e-2 and each element within
-    one bf16 step plus 2e-5 (unit-normal inputs); changing the last key and value leaves every earlier row bit-identical;
-    B*H*S = 0 launches nothing;
+    {8, 16, 32, 64, 128, 256}, S in {32, 96 (block 32), 1024}, causal and
+    not, contiguous ``[B, H, S, hd]`` and the transposed views of
+    ``[B, S, H, hd]`` tensors (taken by their strides, the output in q's
+    layout), float32 within 2e-5 and bfloat16 within 3e-2 and each element
+    within one bf16 step plus 2e-5 (unit-normal inputs); changing the last
+    key and value leaves every earlier row bit-identical; B*H*S = 0
+    launches nothing;
 17. (b) TinyLlama-1.1B at full width (``attn_impl="pallas"``, bf16
     activations, random weights drawn on the card from ``--seed``) through
     ``launch.serve.serve``: batch 8, prompt 1024, 32 greedy tokens, twice
@@ -97,18 +101,23 @@ exits non-zero):
 18. (c) the reduced TinyLlama in float32, card against CPU: a 61-token
     prefill and 8 decode steps within 1e-5 of the logits' scale;
 19. (d) the engine's LM slot family on the full-width model: slots=8, 16
-    requests of 16-token prompts, ``max_new=16``, SLO stats (decode only:
-    no B9 launch on this path);
+    requests of 4-23 prompt tokens and ``max_new`` 6-16 (admitted and
+    finished at different ticks), SLO stats; each admission prefills its
+    prompt into its own cache row (B9 once a layer per admission), and four
+    requests' logits are held against a batch-1 prefill and decode of
+    their tokens within 2e-2 of scale, their clear greedy tokens equal;
 20. (e) the paper's analog MLP inside the LM (``linear_impl="rfnn"``, the
     kernel backend, d_model 64, d_ff 128): prefill and decode launch B9 and
     B6 and match the reference backend on the card within 1e-5;
 21. (f) B9's times at (B 8, H 32, S 1024, hd 64) and (B 1, H 32, S 8192,
-    hd 64), bf16, causal: per call and on the device, the bound (flops at
-    the bf16 tensor-core peak against the bytes of q, k, v and o), the plain
+    hd 64), bf16, causal: per call and on the device (beside the earlier
+    CUDA-core version's time, from PERF.md), the bound (flops at the bf16
+    tensor-core peak against the bytes of q, k, v and o), the plain
     version where its dense scores fit (there also B9 held to it in bf16
     per element and in float32 within 2e-5), and
     ``scaled_dot_product_attention(is_causal=True)`` as the library yardstick
-    (timed only; the port never calls it);
+    (timed only; the port never calls it); the HMMA instructions in B9's
+    SASS (``cuobjdump -sass``);
 22. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
     line.
 
@@ -123,6 +132,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -170,6 +180,11 @@ LM_BATCH, LM_PROMPT, LM_GEN = 8, 1024, 32
 LM_TEACHER_PREFIX = 990        # no multiple of attn_chunk 32: B9 tiles it
 LM_TF_SEEDS = 4                # weight and token seeds of the teacher forcing
 FLASH_F32_TOL, FLASH_BF16_TOL = 2e-5, 3e-2  # tests/test_flash_kernel.py's
+ENGINE_SLOTS, ENGINE_REQUESTS = 8, 16
+ENGINE_CHECKED = (0, 5, 10, 15)  # held against a batch-1 prefill and decode
+# B9's device ms in its earlier CUDA-core version (PERF.md §6; NVIDIA H100
+# 80GB HBM3, 700 W), printed beside this run's
+B9_CUDA_CORE_MS = {"tinyllama_prefill": 2.47622, "long_8k": 17.452}
 # tests/test_rfnn_lm.py's CFG, the LM with the paper's analog MLP
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
@@ -320,13 +335,36 @@ def main(argv=None) -> int:
         cuda_build.load(name)
         return time.perf_counter() - t0
 
+    def ptxas_usage(name):
+        """Registers and spill bytes of each kernel of csrc/<name>.cu, from
+        a second nvcc with -Xptxas -v (its library is thrown away)."""
+        out = cuda_build.BUILD_DIR / f"ptxas_{name}.so"
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-o", str(out), str(cuda_build.CSRC / f"{name}.cu")],
+            capture_output=True, text=True, timeout=600, check=True)
+        out.unlink(missing_ok=True)
+        log = proc.stdout + proc.stderr
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+        return {"kernels": len(regs), "max_registers": max(regs),
+                "spill_bytes": sum(spills)}
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        usage = pool.submit(ptxas_usage, "flash_attn_fwd")
         build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
+        b9_usage = usage.result()
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
+    check(b9_usage["spill_bytes"] == 0, f"B9 spills registers: {b9_usage}")
+    print(f"[1] flash_attn_fwd.cu under -Xptxas -v: {b9_usage['kernels']} "
+          f"kernels, at most {b9_usage['max_registers']} registers a thread, "
+          f"{b9_usage['spill_bytes']} spill bytes", flush=True)
     report["build_s"] = build_s
+    report["b9_ptxas"] = b9_usage
 
     def reset_launches():
         for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
@@ -1749,23 +1787,32 @@ def main(argv=None) -> int:
             dev, dtype)
 
     flash_worst = {}
-    for hd in (8, 64, 128, 256):
+    n_flash = 0
+    for hd in (8, 16, 32, 64, 128, 256):
         for s, blk in ((32, 128), (96, 32), (1024, 128)):
             base = [unit_normal(2, 4, s, hd) for _ in range(3)]
             for dtype, tol in ((torch.float32, FLASH_F32_TOL),
                                (torch.bfloat16, FLASH_BF16_TOL)):
-                q, k, v = (t.to(dtype) for t in base)
-                for causal in (True, False):
+                dense = [t.to(dtype) for t in base]
+                # the model's layout: [B, S, H, hd] tensors seen as
+                # [B, H, S, hd] through transpose(1, 2), taken by strides
+                strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                           for t in dense]
+                for (q, k, v), causal in ((dense, True), (dense, False),
+                                          (strided, True), (strided, False)):
                     out = flash.flash_attention(q, k, v, causal=causal, bq=blk,
                                                 bk=blk)
                     torch.cuda.synchronize()
                     want = flash.flash_attention_plain(q, k, v, causal=causal)
                     err = float((out.float() - want.float()).abs().max())
-                    check(out.dtype == dtype and err <= tol
+                    check(out.dtype == dtype and out.stride() == q.stride()
+                          and err <= tol
                           and (dtype == torch.float32 or bf16_close(out, want)),
-                          f"B9 hd={hd} S={s} {dtype} causal={causal}: {err}")
+                          f"B9 hd={hd} S={s} {dtype} causal={causal} "
+                          f"strides={q.stride()}: {err}")
                     key = str(dtype).split(".")[-1]
                     flash_worst[key] = max(flash_worst.get(key, 0.0), err)
+                    n_flash += 1
     q, k, v = (unit_normal(1, 2, 200, 64) for _ in range(3))
     out1 = flash.flash_attention(q, k, v, causal=True, bq=8, bk=8)
     k2, v2 = k.clone(), v.clone()
@@ -1779,8 +1826,9 @@ def main(argv=None) -> int:
     check(flash.flash_attention(empty, empty, empty).shape == empty.shape
           and flash.LAUNCHES["flash_attn_fwd"] == n_before,
           "B9 launched on an empty batch")
-    print(f"[16] B9 equals its plain version in all 96 cases (hd 8/64/128/256, "
-          f"S 32/96/1024, causal and not): worst float32 "
+    print(f"[16] B9 equals its plain version in all {n_flash} cases (hd "
+          f"8/16/32/64/128/256, S 32/96/1024, causal and not, [B, H, S, hd] "
+          f"and transposed [B, S, H, hd] layouts): worst float32 "
           f"{flash_worst['float32']:.3e} (bound {FLASH_F32_TOL}), bfloat16 "
           f"{flash_worst['bfloat16']:.3e} (bound {FLASH_BF16_TOL}, and each "
           "element within one bf16 step plus the float32 bound); causal "
@@ -1939,7 +1987,7 @@ def main(argv=None) -> int:
             ("prefill", run_prefill, 2, lm_row["prefill_ms"]),
             ("decode", run_decode, 8, lm_row["decode_p50_ms"])):
         events, busy_us, ours_us = profile_steps(
-            torch, run, steps, ["flash_attn_fwd", "nvjet", "gemm", "copy"])
+            torch, run, steps, ["flash_fwd", "nvjet", "gemm", "copy"])
         lm_row[f"{name}_profile"] = {
             "device_events": events, "device_busy_us": busy_us,
             "wall_ms": wall_ms, "busy_share": busy_us / 1e3 / wall_ms,
@@ -1948,7 +1996,7 @@ def main(argv=None) -> int:
               f"and {busy_us:.1f} us of device work per call, against "
               f"{wall_ms:.3f} ms of wall time without the profiler (device "
               f"busy {100 * busy_us / 1e3 / wall_ms:.1f}%); of it B9 "
-              f"{ours_us['flash_attn_fwd']:.1f} us, kernels named *nvjet* "
+              f"{ours_us['flash_fwd']:.1f} us, kernels named *nvjet* "
               f"(cuBLASLt matmuls) {ours_us['nvjet']:.1f} us, *gemm* "
               f"{ours_us['gemm']:.1f} us, *copy* (casts, contiguous copies) "
               f"{ours_us['copy']:.1f} us", flush=True)
@@ -1988,10 +2036,28 @@ def main(argv=None) -> int:
     report["lm_card_vs_cpu"] = red_errs
 
     # -- phase 19 (d): the engine's LM slot family at full width -------------
-    lm_engine = ServingEngine(lm_model, lm_params, slots=8, max_len=64,
-                              device=dev)
-    lm_reqs = [Request(i, prompt=rng.integers(0, lm_cfg.vocab_size, 16),
-                       max_new=16) for i in range(16)]
+    # prompts of 4 to 23 tokens and max_new of 6 to 16, so admissions and
+    # completions fall on different ticks and the slots hold requests at
+    # different positions; each admission prefills one prompt (B9 once a
+    # layer) into its slot's cache row
+    eng_lens = [4 + (5 * i) % 20 for i in range(ENGINE_REQUESTS)]
+    eng_new = [6 + (7 * i) % 11 for i in range(ENGINE_REQUESTS)]
+    lm_reqs = [Request(i, prompt=rng.integers(0, lm_cfg.vocab_size, n),
+                       max_new=m) for i, (n, m) in enumerate(zip(eng_lens,
+                                                                  eng_new))]
+    eng_logits: dict = {}
+    lm_engine = None
+
+    def record(logits):
+        """Greedy, keeping the logits each checked request was decoded from."""
+        for i, slot in enumerate(lm_engine._impl.slots):
+            if slot.req is not None and slot.req.rid in ENGINE_CHECKED:
+                eng_logits.setdefault(slot.req.rid, []).append(
+                    logits[i].float().clone())
+        return torch.argmax(logits, -1)
+
+    lm_engine = ServingEngine(lm_model, lm_params, slots=ENGINE_SLOTS,
+                              max_len=64, device=dev, sample=record)
     reset_launches()
     t0 = time.perf_counter()
     for r in lm_reqs:
@@ -2000,20 +2066,52 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t0
     launches["lm_engine"] = all_launches()
-    check(all(r.done and not r.failed and len(r.result) == 16
-              and int(r.result.min()) >= 0 for r in lm_reqs),
+    check(all(r.done and not r.failed and len(r.result) == m
+              and int(r.result.min()) >= 0 for r, m in zip(lm_reqs, eng_new)),
           "LM engine: a request failed or came back short")
-    check(launches["lm_engine"]["flash_attn_fwd"] == 0,
-          "LM engine: decode-only path launched B9")
+    check(launches["lm_engine"]["flash_attn_fwd"]
+          == n_layers * ENGINE_REQUESTS,
+          f"LM engine: {launches['lm_engine']['flash_attn_fwd']} B9 launches "
+          f"for {ENGINE_REQUESTS} admissions of {n_layers} layers")
+    # each checked request against a batch-1 prefill of its prompt and
+    # decode steps fed the engine's tokens: the same logits within the bf16
+    # teacher forcing's bound, and the same token wherever the reference's
+    # top-2 margin is clear of that bound
+    eng_rel, eng_tokens = [], 0
+    with torch.no_grad():
+        for rid in ENGINE_CHECKED:
+            r = lm_reqs[rid]
+            prompt = torch.as_tensor(r.prompt, device=dev)[None]
+            logits, cache = lm_model.prefill(lm_params, {"tokens": prompt},
+                                             max_len=64)
+            for t, tok in enumerate(r.result):
+                want = logits[0].float()
+                eng_rel.append(lm_rel(eng_logits[rid][t], want))
+                top2 = torch.topk(want, 2).values
+                if float(top2[0] - top2[1]) > 4e-2 * float(want.abs().max()):
+                    check(int(torch.argmax(want)) == int(tok),
+                          f"LM engine request {rid} token {t}: {int(tok)}, "
+                          f"batch-1 decode {int(torch.argmax(want))}")
+                    eng_tokens += 1
+                logits, cache = lm_model.decode_step(
+                    lm_params, torch.as_tensor([int(tok)], device=dev), cache,
+                    prompt.shape[1] + t)
+    check(max(eng_rel) <= 2e-2, f"LM engine against batch-1 decode: "
+          f"{max(eng_rel)} of the logits' scale")
     lm_stats = lm_engine.stats
-    print(f"[19] {card} | LM engine, TinyLlama-1.1B, slots 8: 16 requests x "
-          f"16 prompt tokens, max_new 16 in {engine_s:.2f} s; "
-          f"served {lm_stats['served']}, ticks {lm_stats['ticks']}, tick p50 "
-          f"{lm_stats['p50_tick_us'] / 1e3:.3f} ms, p99 "
-          f"{lm_stats['p99_tick_us'] / 1e3:.3f} "
-          f"ms, qps {lm_stats['qps']:.2f} (decode only: no B9 on this path)",
-          flush=True)
-    report["lm_engine"] = {**lm_stats, "seconds": engine_s}
+    print(f"[19] {card} | LM engine, TinyLlama-1.1B, slots {ENGINE_SLOTS}: "
+          f"{ENGINE_REQUESTS} requests of 4-23 prompt tokens, max_new 6-16, "
+          f"in {engine_s:.2f} s; served {lm_stats['served']}, ticks "
+          f"{lm_stats['ticks']}, tick p50 {lm_stats['p50_tick_us'] / 1e3:.3f} "
+          f"ms, p99 {lm_stats['p99_tick_us'] / 1e3:.3f} ms, qps "
+          f"{lm_stats['qps']:.2f}; B9 {launches['lm_engine']['flash_attn_fwd']}"
+          f" launches (one a layer per admission); requests "
+          f"{list(ENGINE_CHECKED)} against a batch-1 prefill and decode: worst "
+          f"{max(eng_rel):.3e} of the logits' scale over {len(eng_rel)} steps "
+          f"(bound 2e-2), {eng_tokens} clear greedy tokens equal", flush=True)
+    report["lm_engine"] = {**lm_stats, "seconds": engine_s,
+                           "batch1_rel": max(eng_rel),
+                           "batch1_tokens_checked": eng_tokens}
     del lm_engine, lm_params, lm_model
     torch.cuda.empty_cache()
 
@@ -2096,6 +2194,7 @@ def main(argv=None) -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         row = {"kernel": "flash_attn_fwd", "shape": shape_name, "B": b, "H": h,
                "S": s, "hd": hd, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+               "cuda_core_device_ms_pr15": B9_CUDA_CORE_MS[shape_name],
                "plain_ms": p_ms, "sdpa_ms": l_ms, "sdpa_device_ms": ld_ms,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops > t_bytes else "bytes",
@@ -2107,7 +2206,10 @@ def main(argv=None) -> int:
                      else "plain not run (dense scores do not fit)")
         print(f"[21] {card} | flash_attn_fwd {shape_name} (B {b}, H {h}, S {s}, "
               f"hd {hd}, bf16, causal): kernel {k_ms:.5f} ms per call, "
-              f"{kd_ms:.5f} ms on the device; bound {row['bound_ms']:.6f} ms "
+              f"{kd_ms:.5f} ms on the device ({flops / kd_ms / 1e9:.1f} "
+              f"TFLOP/s; the earlier CUDA-core version "
+              f"{B9_CUDA_CORE_MS[shape_name]} ms, PERF.md); bound "
+              f"{row['bound_ms']:.6f} ms "
               f"({row['bound_by']}, {flops / 1e9:.2f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB); {plain_txt}; "
               f"scaled_dot_product_attention {l_ms:.5f} ms per call, "
@@ -2116,6 +2218,20 @@ def main(argv=None) -> int:
               f"|kernel - sdpa| {lib_err:.3e}", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    # the bf16 path runs on the tensor cores: HMMA instructions in the SASS
+    cuobjdump = Path(cuda_build.nvcc_path()).with_name("cuobjdump")
+    if cuobjdump.exists():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(
+            cuda_build.library_path("flash_attn_fwd"))], capture_output=True,
+            text=True, timeout=300, check=True).stdout
+        ops = [w for w in sass.split() if w.startswith("HMMA")]
+        hmma = len(ops)
+        check(hmma > 0, "B9's library holds no HMMA instruction")
+        print(f"[21] {hmma} HMMA instructions in B9's SASS ({sorted(set(ops))}"
+              ": mma.sync on the tensor cores)", flush=True)
+        report["b9_hmma_instructions"] = hmma
+    else:
+        print(f"[21] {cuobjdump} not found: HMMA count not taken", flush=True)
     report["timings_flash"] = rows_flash
 
     out = ROOT / "chiprun_out"

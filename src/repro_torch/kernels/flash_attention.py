@@ -6,7 +6,10 @@
 with float32 math and the output in the input's dtype.  It keeps the JAX
 package's signature and its ``ValueError`` when a length does not divide its
 block; ``bq``/``bk`` were the TPU kernel's tiling and only shape that check
-here (the CUDA kernel tiles 64 query rows by 64 or 32 keys itself).
+here (the CUDA kernel tiles 64 query rows by 64 or 32 keys itself).  The
+kernel takes q, k, v by their strides with the last dim contiguous, so the
+model's ``[B, S, H, hd]`` tensors pass as ``transpose(1, 2)`` views without
+a copy, and its output takes q's layout.
 
 On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn_fwd.cu``
 (built for ``sm_90a`` at first use, see :mod:`cuda_build`), which replaces the
@@ -32,11 +35,11 @@ from repro_torch.kernels import cuda_build, ref
 LAUNCHES = {"flash_attn_fwd": 0}
 
 MAX_HEAD_DIM = 256
-_BLOCK_Q = 64                  # the kernel's query rows per block (kBlockQ)
-_MAX_SEQ_Q = 65535 * _BLOCK_Q  # the grid's y extent
+_BLOCK_Q = 64                  # the kernel's query rows per block
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_STRIDES = ctypes.c_longlong * 12
 
 
 def _check(q, k, v) -> None:
@@ -57,6 +60,20 @@ def _check(q, k, v) -> None:
         raise ValueError(f"head dim must be in [1, {MAX_HEAD_DIM}], got {hd}")
 
 
+def kernel_strides(q, k, v, o) -> list[int]:
+    """The batch, head and sequence strides (elements) of q, k, v and o, in
+    the kernel's order.  Raises unless each one's last dim is contiguous:
+    the kernel takes any other layout, e.g. the ``[B, S, H, hd]`` tensors
+    of the model seen as ``[B, H, S, hd]`` through ``transpose(1, 2)``."""
+    out = []
+    for name, t in zip("qkvo", (q, k, v, o)):
+        if t.shape[3] > 1 and t.stride(3) != 1:
+            raise ValueError(f"the last dim of {name} must be contiguous "
+                             f"(stride 1), got strides {tuple(t.stride())}")
+        out.extend(t.stride()[:3])
+    return out
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True) -> torch.Tensor:
     """The plain PyTorch version of the kernel (dense scores)."""
@@ -66,23 +83,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True) -> torch.Tensor:
-    """Launch kernel B9 on the current stream; q, k, v contiguous CUDA
-    tensors (raises otherwise)."""
+    """Launch kernel B9 on the current stream; q, k, v CUDA tensors with
+    their last dim contiguous (raises otherwise), any other strides.  The
+    output takes q's layout (``torch.empty_like``)."""
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"the flash attention kernel runs on CUDA tensors, "
                          f"got {q.device}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k and v must be contiguous [B, H, S, hd]")
     b, h, sq, hd = q.shape
     skv = k.shape[2]
     o = torch.empty_like(q)
+    strides = kernel_strides(q, k, v, o)
     if b * h * sq == 0:  # nothing to compute; a 0-block grid is invalid
         return o
     if skv == 0:
         raise ValueError("attention over zero keys is undefined")
-    if sq > _MAX_SEQ_Q or b * h >= 2**31:
-        raise ValueError(f"B*H = {b * h} or Sq = {sq} exceeds the kernel's "
+    if -(-sq // _BLOCK_Q) * b * h >= 2**31:
+        raise ValueError(f"B*H = {b * h} and Sq = {sq} exceed the kernel's "
                          "grid")
     lib = cuda_build.load("flash_attn_fwd")
     fn = lib.flash_attn_fwd_launch
@@ -92,11 +109,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b * h, sq, skv, hd, int(causal),
+                 _STRIDES(*strides), b, h, sq, skv, hd, int(causal),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err} "
-                           f"(B*H={b * h}, Sq={sq}, Skv={skv}, hd={hd})")
+                           f"(B={b}, H={h}, Sq={sq}, Skv={skv}, hd={hd})")
     LAUNCHES["flash_attn_fwd"] += 1
     return o
 
@@ -117,8 +134,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"seq lens ({sq},{skv}) must divide blocks "
                          f"({bq_},{bk_})")
     if q.device.type == "cuda":
-        return launch(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=causal)
+        return launch(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "

@@ -8,6 +8,9 @@ The JAX package's ``models/api.py`` on torch, for the decoder-LM stack:
     logits, cache = model.prefill(params, batch)
     logits, cache = model.decode_step(params, token, cache, pos)
 
+``pos`` is an int (every row at that position) or an int tensor [B] (each
+row at its own position, as the serving engine's slots are).
+
 ``batch`` keys: tokens [B,S] int; labels [B,S] int (-1 = masked, already
 shifted by the data pipeline); vis_embed [B,n_vis,D] (vlm).  Params live on
 the generator's device (CUDA unless the caller gives a CPU generator with
@@ -84,7 +87,8 @@ class Model:
 
     def bind_decode(self, params):
         """The serving engine's decode closure:
-        ``step(tokens, cache, pos) -> (logits, cache)``, without autograd.
+        ``step(tokens, cache, pos) -> (logits, cache)``, without autograd;
+        ``pos`` an int or an int tensor [B] of per-row positions.
 
         ``torch.no_grad`` rather than ``inference_mode``: the analog
         projections' pack cache keys on tensor versions, which inference

@@ -224,12 +224,18 @@ def prefill_into_cache(cache: dict, k: torch.Tensor,
     return cache
 
 
-def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
     """``dynamic_update_slice(cache, new, (0, pos, 0, 0))`` in place: the
     start is clamped into [0, max_len - 1], so a write past the end lands in
-    the last slot."""
-    p = min(max(pos, 0), cache.shape[1] - 1)
-    cache[:, p] = new[:, 0].to(cache.dtype)
+    the last slot.  ``pos`` is an int (every row at one position) or an int
+    tensor [B] (row b at ``pos[b]``, each clamped the same way)."""
+    if isinstance(pos, int):
+        p = min(max(pos, 0), cache.shape[1] - 1)
+        cache[:, p] = new[:, 0].to(cache.dtype)
+        return
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, pos.long().clamp(0, cache.shape[1] - 1)] = new[:, 0].to(
+        cache.dtype)
 
 
 def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -237,17 +243,29 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                      update_cache: bool = True) -> tuple[torch.Tensor, dict]:
     """One-token attention against the cache.
 
-    x: [B, 1, D]; pos: the current position (int or 0-d tensor).  With
-    ``update_cache`` the new k, v are written into ``cache`` in place (its
-    tensors are modified; the same dict is returned).  ``update_cache=False``
-    reads without writing (cross-attention).
+    x: [B, 1, D]; pos: the current position, an int or 0-d tensor (every row
+    at it) or an int tensor [B] (row b at ``pos[b]``: its own RoPE angle,
+    cache write and mask ``arange(S) <= pos[b]``).  With ``update_cache``
+    the new k, v are written into ``cache`` in place (its tensors are
+    modified; the same dict is returned).  ``update_cache=False`` reads
+    without writing (cross-attention).
     """
     b = x.shape[0]
-    pos = int(pos)
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    if per_row:
+        if pos.shape != (b,):
+            raise ValueError(f"per-row positions must be [{b}], got "
+                             f"{tuple(pos.shape)}")
+        pos = pos.to(device=x.device, dtype=torch.int32)
+    else:
+        pos = int(pos)
     g = cfg.n_heads // cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
     if rope:
-        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        if per_row:
+            posv = pos[:, None]                                # [B, 1]
+        else:
+            posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         cos, sin = rope_frequencies(cfg, posv)
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
@@ -261,7 +279,8 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     qg = q.reshape(b, cfg.n_kv_heads, g, cfg.head_dim)         # [B,KV,G,hd]
     scores = torch.matmul(qg, k.to(qg.dtype).permute(0, 2, 3, 1))  # [B,KV,G,S]
     scores = scores.float() / math.sqrt(cfg.head_dim)
-    valid = torch.arange(s_len, device=x.device) <= pos
+    valid = torch.arange(s_len, device=x.device) <= (
+        pos[:, None, None, None] if per_row else pos)
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(qg.dtype)
     out = torch.matmul(probs, v.to(qg.dtype).permute(0, 2, 1, 3))  # [B,KV,G,hd]

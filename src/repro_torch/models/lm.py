@@ -104,7 +104,8 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, pos) -> tuple[torch.Tensor, dict]:
-    """One decode step.  token: [B] int; pos: int or 0-d tensor.
+    """One decode step.  token: [B] int; pos: int or 0-d tensor (every row
+    at that position) or an int tensor [B] (row b at ``pos[b]``).
     -> (logits [B, V], cache), the cache updated in place."""
     n_super, kinds = superblock_layout(cfg)
     x = L.embed_tokens(params["embed"], cfg, token[:, None])

@@ -182,11 +182,15 @@ class _LMSlot:
 class _DecodeSlots:
     """Fixed-slot continuous batching over the LM decode step.
 
-    Slot state lives host-side; the device state is the shared KV cache on
-    ``device``.  Admission prefills the prompt slot-serially (decode_step
-    is the uniform per-token primitive), the tick decodes one token for all
-    active slots at the shared max position, and finished requests (eos,
-    max tokens, cache full) free their slot immediately.
+    Slot state (request, next position, pending token) lives host-side; the
+    device state is the shared KV cache on ``device``, one row per slot.
+    Admission prefills a prompt's first ``len - 1`` tokens with one batch-1
+    ``Model.prefill`` and copies its cache into the slot's row only; the
+    last prompt token is fed on the next tick.  A tick decodes one token for
+    every slot, each at its own position (free slots feed token 0 into their
+    own row), and finished requests (eos, max tokens, cache full) free their
+    slot immediately.  A request's tokens are therefore those of a batch-1
+    prefill and greedy decode of its prompt, whatever shares the slots.
     """
 
     def __init__(self, model, params, n_slots: int, max_len: int,
@@ -194,6 +198,7 @@ class _DecodeSlots:
         if max_len is None:
             raise ValueError("LM serving needs max_len= (KV cache length)")
         self.model = model
+        self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
         self.device = device
@@ -215,41 +220,42 @@ class _DecodeSlots:
     def admit(self, req: Request) -> None:
         i = next(j for j, s in enumerate(self.slots) if s.req is None)
         slot = self.slots[i]
-        slot.req, slot.pos = req, 0
         prompt = np.asarray(req.payload, np.int32)
-        for tok in prompt[:-1]:
-            self._step_one(i, int(tok))
+        head = prompt[:-1]
+        # decode masks the positions past a slot's own, so what an earlier
+        # request left in the row adds nothing
+        if len(head):
+            with torch.no_grad():
+                _, row = self.model.prefill(
+                    self.params, {"tokens": self._tokens(head[None])},
+                    max_len=self.max_len)
+            for name, layer in self.cache.items():  # [n_super, slots, S, ..]
+                for kv, t in layer.items():
+                    t[:, i] = row[name][kv][:, 0]
+        slot.req, slot.pos = req, len(head)
         # the last prompt token is fed on the next engine tick
         slot.pending = int(prompt[-1])
 
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(toks).to(self.device)
 
-    def _step_one(self, i: int, token: int) -> None:
-        """Advance a single slot by one position (prefill path)."""
-        slot = self.slots[i]
-        toks = np.zeros((self.n_slots,), np.int32)
-        toks[i] = token
-        _, self.cache = self._decode(self._tokens(toks), self.cache, slot.pos)
-        slot.pos += 1
-
     def step(self) -> list[Request]:
         active = [i for i, s in enumerate(self.slots) if s.req is not None]
         toks = np.zeros((self.n_slots,), np.int32)
+        pos = np.zeros((self.n_slots,), np.int32)
         for i in active:
             slot = self.slots[i]
             toks[i] = slot.pending if slot.pos < self.max_len else 0
-        # positions: slots advance in lockstep from the shared max offset
-        # (prefill above is slot-serial, so admitted slots start aligned)
-        pos = max(self.slots[i].pos for i in active)
-        logits, self.cache = self._decode(self._tokens(toks), self.cache, pos)
+            pos[i] = slot.pos
+        logits, self.cache = self._decode(self._tokens(toks), self.cache,
+                                          self._tokens(pos))
         chosen = (torch.argmax(logits, -1) if self.sample is None
                   else torch.as_tensor(self.sample(logits)))
         arr = chosen.cpu().numpy()
         completed = []
         for i in active:
             slot = self.slots[i]
-            slot.pos = pos + 1
+            slot.pos += 1
             tok = int(arr[i])
             req = slot.req
             req.output.append(tok)

@@ -5,10 +5,11 @@ Inputs are made with numpy from a seed and fed to both packages.  JAX runs
 ``flash_attention_ref``; the port runs the plain version of its CUDA kernel
 (a CPU tensor never reaches the kernel).  Tolerances are
 ``tests/test_flash_kernel.py``'s: 2e-5 in float32 on unit-normal inputs
-(float32 sums in another order), 3e-2 in bfloat16.  The ``gpu`` tests hold
-the CUDA kernel to its plain version on the card and skip without one; they
-need no JAX (where it is absent, run them with ``pytest --noconftest -m
-gpu``).
+(float32 sums in another order), 3e-2 in bfloat16.  The wrapper's stride
+and layout checks run here too.  The ``gpu`` tests hold the CUDA kernel to
+its plain version on the card (bfloat16 also each element within one bf16
+step plus 2e-5) and skip without one; they need no JAX (where it is
+absent, run them with ``pytest --noconftest -m gpu``).
 """
 
 import importlib.util
@@ -117,6 +118,36 @@ def test_flash_checks_inputs():
     assert t_flash.flash_attention(empty, empty, empty).shape == (0, 2, 0, 16)
 
 
+def test_kernel_strides_take_transposed_views():
+    """The kernel takes [B, S, H, hd] tensors seen as [B, H, S, hd] through
+    ``transpose(1, 2)`` by their strides, the output in q's layout, and
+    refuses a last dim that is not contiguous."""
+    b, s, h, hd = 2, 40, 3, 16
+    q, k, v = (t.transpose(1, 2) for t in
+               _torch(_qkv(7, b, s, h, hd)))  # [B, H, S, hd] views
+    o = torch.empty_like(q)  # what the kernel's wrapper allocates
+    assert o.stride() == q.stride() and o.transpose(1, 2).is_contiguous()
+    bshd = [s * h * hd, hd, h * hd]
+    assert t_flash.kernel_strides(q, k, v, o) == bshd * 4
+    assert t_flash.kernel_strides(*[t.contiguous() for t in (q, k, v, o)]) \
+        == [h * s * hd, s * hd, hd] * 4
+    with pytest.raises(ValueError, match="last dim of k must be contiguous"):
+        t_flash.kernel_strides(q, k.transpose(2, 3).contiguous()
+                               .transpose(2, 3), v, o)
+    hd1 = torch.zeros(b, h, 1, s).transpose(2, 3)  # hd 1: any last stride
+    assert len(t_flash.kernel_strides(hd1, hd1, hd1, hd1)) == 12
+
+
+def test_flash_strided_inputs_equal_contiguous():
+    q, k, v = (t.transpose(1, 2) for t in _torch(_qkv(8, 2, 48, 4, 32)))
+    for causal in (True, False):
+        got = t_flash.flash_attention(q, k, v, causal=causal, bq=16, bk=16)
+        want = t_flash.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=causal, bq=16,
+                                       bk=16)
+        assert torch.equal(got, want)
+
+
 def test_plain_version_is_the_dense_twin():
     q, k, v = _torch(_qkv(5, 2, 3, 48, 24, skv=48))
     for causal in (True, False):
@@ -138,27 +169,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _bf16_close(got, want):
+    """Each element within one bfloat16 step of ``want`` plus the float32
+    bound: both sides round float32 results that agree to that bound."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= want.abs() * 2.0**-7 + F32_TOL).all())
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [8, 64, 128, 256])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128, 256])
 def test_flash_kernel_matches_plain_on_card(cuda_device, hd):
     """B9 against its plain version on the same card inputs: S in {32, 96
-    (block 32), 1024}, causal and not, float32 at 2e-5 and bfloat16 at
-    3e-2; one launch per call."""
+    (block 32), 1024}, causal and not, contiguous [B, H, S, hd] and the
+    transposed views of [B, S, H, hd] tensors, float32 at 2e-5 and bfloat16
+    at 3e-2 and one bf16 step per element; one launch per call."""
     for s, blk in ((32, 128), (96, 32), (1024, 128)):
         arrays = _qkv(s + hd, 2, 3, s, hd)
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
-            q, k, v = _torch(arrays, dtype, cuda_device)
-            for causal in (True, False):
+            dense = _torch(arrays, dtype, cuda_device)
+            strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in dense]
+            for (q, k, v), causal in ((dense, True), (dense, False),
+                                      (strided, True), (strided, False)):
                 before = t_flash.LAUNCHES["flash_attn_fwd"]
                 got = t_flash.flash_attention(q, k, v, causal=causal, bq=blk,
                                               bk=blk)
                 torch.cuda.synchronize()
                 assert t_flash.LAUNCHES["flash_attn_fwd"] == before + 1
                 want = t_flash.flash_attention_plain(q, k, v, causal=causal)
-                assert got.dtype == dtype
+                assert got.dtype == dtype and got.stride() == q.stride()
                 err = float((got.float() - want.float()).abs().max())
                 assert err <= tol, (s, dtype, causal, err)
+                assert dtype == torch.float32 or _bf16_close(got, want)
 
 
 @pytest.mark.gpu
@@ -174,6 +217,9 @@ def test_flash_kernel_causality_and_empty_on_card(cuda_device):
     empty = torch.zeros(0, 2, 64, 64, device=cuda_device)
     assert t_flash.launch(empty, empty, empty).shape == (0, 2, 64, 64)
     assert t_flash.LAUNCHES["flash_attn_fwd"] == before
+    # a strided layout is taken as it is; a strided last dim is refused
+    tq, tk, tv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert torch.equal(t_flash.launch(tq, tk, tv, causal=True), out1)
     with pytest.raises(ValueError, match="contiguous"):
-        t_flash.launch(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2))
+        t_flash.launch(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)

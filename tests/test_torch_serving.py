@@ -6,9 +6,13 @@ answers the same requests through both engines; each result must match
 per request to 1e-5 (float32 sums in another order).  Deadlines, block and
 reject admission, the dispatch thread and the failure-injector hook follow
 the JAX engine's semantics.  The LM slot family serves the reduced
-TinyLlama in float32 with the JAX package's params: every request's tokens
-equal the JAX engine's wherever the greedy choice is clear (a top-2 logit
-margin above the parity tolerance).
+TinyLlama in float32 with the JAX package's params, wherever the greedy
+choice is clear (a top-2 logit margin above the parity tolerance): every
+request's tokens equal a batch-1 ``prefill`` and greedy ``decode_step`` of
+its prompt, in the port and in the JAX package, whatever shares the slots;
+at ``slots=1`` they also equal the JAX engine's (which shares one position
+across its slots, so only there is it right).  ``decode_step`` with a
+position per row equals the JAX package's row by row at batch 1.
 """
 
 import threading
@@ -298,27 +302,150 @@ def _lm_engine(tiny_lm, margins=None, **kw):
     return engine
 
 
-def test_lm_engine_tokens_match_jax_engine(tiny_lm):
+_J_DECODE: dict = {}
+
+
+def _port_greedy(tiny_lm, prompt, n, max_len):
+    """``n`` tokens of a batch-1 prefill of ``prompt`` and greedy decode."""
+    tm, tp = tiny_lm[2:]
+    out = []
+    with torch.no_grad():
+        logits, cache = tm.prefill(
+            tp, {"tokens": torch.from_numpy(prompt[None])}, max_len=max_len)
+        while True:
+            out.append(int(torch.argmax(logits[0])))
+            if len(out) == n:
+                return out
+            logits, cache = tm.decode_step(
+                tp, torch.tensor(out[-1:], dtype=torch.int32), cache,
+                len(prompt) + len(out) - 1)
+
+
+def _jax_greedy(tiny_lm, prompt, n, max_len):
+    """The same through the JAX package's ``Model.prefill``/``decode_step``."""
+    jm, jp = tiny_lm[:2]
+    if max_len not in _J_DECODE:
+        _J_DECODE[max_len] = (
+            jax.jit(lambda p, b: jm.prefill(p, b, max_len=max_len)),
+            jax.jit(lambda p, tk, c, pos: jm.decode_step(p, tk, c, pos)))
+    prefill, decode = _J_DECODE[max_len]
+    logits, cache = prefill(jp, {"tokens": jnp.asarray(prompt[None])})
+    out = []
+    while True:
+        out.append(int(jnp.argmax(logits[0])))
+        if len(out) == n:
+            return out
+        logits, cache = decode(jp, jnp.asarray(out[-1:], jnp.int32), cache,
+                               jnp.asarray(len(prompt) + len(out) - 1,
+                                           jnp.int32))
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_lm_engine_tokens_match_jax_engine(tiny_lm, slots):
+    """Six requests through both engines: the same ticks and served count.
+    At ``slots=1`` the tokens equal the JAX engine's; at ``slots=4`` the JAX
+    engine decodes every slot at one shared position (ROADMAP C-ref6), so
+    there the tokens are held to each prompt's batch-1 prefill and greedy
+    decode, in both packages."""
     jm, jp = tiny_lm[:2]
     prompts = _prompts(6, 5)
-    jeng = JServingEngine(jm, jp, slots=4, max_len=24)
+    jeng = JServingEngine(jm, jp, slots=slots, max_len=24)
     jreqs = [JRequest(i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
     for r in jreqs:
         jeng.submit(r)
     jeng.run()
     margins: list = []
-    teng = _lm_engine(tiny_lm, margins, slots=4, max_len=24)
+    teng = _lm_engine(tiny_lm, margins, slots=slots, max_len=24)
     treqs = [Request(i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
     for r in treqs:
         teng.submit(r)
     teng.run()
     assert min(margins) > LM_MARGIN  # every greedy choice is clear
-    for jr, tr in zip(jreqs, treqs):
+    for jr, tr, p in zip(jreqs, treqs, prompts):
         assert tr.done and not tr.failed and len(tr.result) == 6
-        np.testing.assert_array_equal(tr.result, jr.result)
         assert tr.output == list(tr.result)
+        if slots == 1:
+            np.testing.assert_array_equal(tr.result, jr.result)
+        else:
+            want = _port_greedy(tiny_lm, p, 6, 24)
+            np.testing.assert_array_equal(tr.result, want)
+            assert _jax_greedy(tiny_lm, p, 6, 24) == want
     assert teng.ticks == jeng.ticks
     assert teng.stats["served"] == 6
+
+
+@pytest.mark.parametrize("slots", [2, 4])
+def test_lm_engine_staggered_requests_match_batch1_decode(tiny_lm, slots):
+    """ROADMAP C-ref6: requests of different prompt lengths (one of a single
+    token) and ``max_new``, submitted at different ticks, overlap in the slots;
+    each one's tokens equal a batch-1 prefill and greedy decode of its
+    prompt, in the port and in the JAX package."""
+    rng = np.random.default_rng(10 + slots)
+    lens, max_new = [5, 3, 8, 1, 6, 4], [6, 2, 4, 5, 3, 7]
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in lens]
+    reqs = [Request(i, prompt=p, max_new=m)
+            for i, (p, m) in enumerate(zip(prompts, max_new))]
+    submit_at = {0: [0, 1], 2: [2], 3: [3, 4], 5: [5]}  # tick -> requests
+    margins: list = []
+    engine = _lm_engine(tiny_lm, margins, slots=slots, max_len=24)
+    busy = []
+    for tick in range(100):
+        for i in submit_at.get(tick, []):
+            engine.submit(reqs[i])
+        engine.tick()
+        busy.append(engine._impl.n_active())
+        if tick > max(submit_at) and not engine._has_work():
+            break
+    assert max(busy) == slots  # the requests did share the slots
+    assert min(margins) > LM_MARGIN
+    for r, p, m in zip(reqs, prompts, max_new):
+        assert r.done and not r.failed
+        want = _port_greedy(tiny_lm, p, m, 24)
+        np.testing.assert_array_equal(r.result, want)
+        assert _jax_greedy(tiny_lm, p, m, 24) == want
+    assert engine.stats["served"] == len(reqs)
+
+
+def test_decode_step_per_row_positions_match_jax_rows(tiny_lm):
+    """``decode_step`` with a position per row (one past the cache's end,
+    clamped) against the JAX package's ``decode_step`` on each row alone;
+    an int position and a tensor of that position agree exactly."""
+    jm, jp, tm, tp = tiny_lm
+    rng = np.random.default_rng(5)
+    max_len, pos = 16, np.array([3, 0, 9, 15, 18], np.int32)
+    tokens = rng.integers(0, 512, len(pos)).astype(np.int32)
+    cache = tm.init_cache(len(pos), max_len, device="cpu")
+    for layer in cache.values():
+        for t in layer.values():
+            t.copy_(torch.from_numpy(rng.normal(size=t.shape).astype(
+                np.float32)))
+    host = {n: {kv: t.numpy().copy() for kv, t in layer.items()}
+            for n, layer in cache.items()}
+    with torch.no_grad():
+        logits, cache = tm.decode_step(tp, torch.from_numpy(tokens), cache,
+                                       torch.from_numpy(pos))
+    decode = jax.jit(lambda p, tk, c, ps: jm.decode_step(p, tk, c, ps))
+    for b, p in enumerate(pos):
+        row = jax.tree.map(lambda a: jnp.asarray(a[:, b:b + 1]), host)
+        jl, jc = decode(jp, jnp.asarray(tokens[b:b + 1]), row,
+                        jnp.asarray(p, jnp.int32))
+        jl = np.asarray(jl)[0]
+        assert np.abs(logits[b].numpy() - jl).max() <= 1e-4 * np.abs(jl).max()
+        for n, layer in cache.items():
+            for kv, t in layer.items():
+                np.testing.assert_allclose(t[:, b].numpy(),
+                                           np.asarray(jc[n][kv])[:, 0],
+                                           rtol=0, atol=1e-5)
+    same = np.full(len(pos), 7, np.int32)
+    with torch.no_grad():
+        by_int, _ = tm.decode_step(tp, torch.from_numpy(tokens),
+                                   tm.init_cache(len(pos), max_len,
+                                                 device="cpu"), 7)
+        by_row, _ = tm.decode_step(tp, torch.from_numpy(tokens),
+                                   tm.init_cache(len(pos), max_len,
+                                                 device="cpu"),
+                                   torch.from_numpy(same))
+    assert torch.equal(by_int, by_row)
 
 
 def test_lm_engine_admission_eos_and_max_new(tiny_lm):
