@@ -224,18 +224,17 @@ def prefill_into_cache(cache: dict, k: torch.Tensor,
     return cache
 
 
-def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
-    """``dynamic_update_slice(cache, new, (0, pos, 0, 0))`` in place: the
-    start is clamped into [0, max_len - 1], so a write past the end lands in
-    the last slot.  ``pos`` is an int (every row at one position) or an int
-    tensor [B] (row b at ``pos[b]``, each clamped the same way)."""
-    if isinstance(pos, int):
-        p = min(max(pos, 0), cache.shape[1] - 1)
-        cache[:, p] = new[:, 0].to(cache.dtype)
-        return
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, pos.long().clamp(0, cache.shape[1] - 1)] = new[:, 0].to(
-        cache.dtype)
+def row_positions(pos, batch: int, device) -> torch.Tensor:
+    """A decode position as an int32 tensor [B]: an int or 0-d tensor puts
+    every row at it, an int tensor [B] gives row b its own ``pos[b]``."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        if pos.shape != (batch,):
+            raise ValueError(f"per-row positions must be [{batch}], got "
+                             f"{tuple(pos.shape)}")
+        return pos.to(device=device, dtype=torch.int32)
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).expand(batch)
+    return torch.full((batch,), int(pos), dtype=torch.int32, device=device)
 
 
 def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -244,43 +243,34 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     """One-token attention against the cache.
 
     x: [B, 1, D]; pos: the current position, an int or 0-d tensor (every row
-    at it) or an int tensor [B] (row b at ``pos[b]``: its own RoPE angle,
-    cache write and mask ``arange(S) <= pos[b]``).  With ``update_cache``
-    the new k, v are written into ``cache`` in place (its tensors are
-    modified; the same dict is returned).  ``update_cache=False`` reads
-    without writing (cross-attention).
+    at it) or an int tensor [B] (see :func:`row_positions`).  Row b takes the
+    RoPE angle of ``pos[b]``, masks the cache to ``arange(S) <= pos[b]`` and,
+    with ``update_cache``, writes its new k, v at ``pos[b]`` clamped into
+    [0, max_len - 1] (``dynamic_update_slice``'s clamp: a write past the end
+    lands in the last slot), in place in ``cache``'s tensors; the same dict
+    is returned.  ``update_cache=False`` reads without writing
+    (cross-attention).
     """
     b = x.shape[0]
-    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
-    if per_row:
-        if pos.shape != (b,):
-            raise ValueError(f"per-row positions must be [{b}], got "
-                             f"{tuple(pos.shape)}")
-        pos = pos.to(device=x.device, dtype=torch.int32)
-    else:
-        pos = int(pos)
+    pos = row_positions(pos, b, x.device)
     g = cfg.n_heads // cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
     if rope:
-        if per_row:
-            posv = pos[:, None]                                # [B, 1]
-        else:
-            posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-        cos, sin = rope_frequencies(cfg, posv)
+        cos, sin = rope_frequencies(cfg, pos[:, None])         # [B, 1]
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
-    if update_cache:
-        _write_slot(cache["k"], k_new, pos)
-        _write_slot(cache["v"], v_new, pos)
     k, v = cache["k"], cache["v"]
     s_len = k.shape[1]
+    if update_cache:
+        at = (torch.arange(b, device=x.device), pos.long().clamp(0, s_len - 1))
+        k[at] = k_new[:, 0].to(k.dtype)
+        v[at] = v_new[:, 0].to(v.dtype)
     # grouped form over the real heads only (pad heads are dead)
     q = q[..., : cfg.n_heads, :]
     qg = q.reshape(b, cfg.n_kv_heads, g, cfg.head_dim)         # [B,KV,G,hd]
     scores = torch.matmul(qg, k.to(qg.dtype).permute(0, 2, 3, 1))  # [B,KV,G,S]
     scores = scores.float() / math.sqrt(cfg.head_dim)
-    valid = torch.arange(s_len, device=x.device) <= (
-        pos[:, None, None, None] if per_row else pos)
+    valid = torch.arange(s_len, device=x.device) <= pos[:, None, None, None]
     scores = scores.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(qg.dtype)
     out = torch.matmul(probs, v.to(qg.dtype).permute(0, 2, 1, 3))  # [B,KV,G,hd]

@@ -109,6 +109,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     -> (logits [B, V], cache), the cache updated in place."""
     n_super, kinds = superblock_layout(cfg)
     x = L.embed_tokens(params["embed"], cfg, token[:, None])
+    pos = attn_lib.row_positions(pos, x.shape[0], x.device)
     for l in range(n_super):
         bp = _layer(params["blocks"], l)
         for i, kind in enumerate(kinds):

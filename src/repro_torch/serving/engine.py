@@ -185,12 +185,14 @@ class _DecodeSlots:
     Slot state (request, next position, pending token) lives host-side; the
     device state is the shared KV cache on ``device``, one row per slot.
     Admission prefills a prompt's first ``len - 1`` tokens with one batch-1
-    ``Model.prefill`` and copies its cache into the slot's row only; the
-    last prompt token is fed on the next tick.  A tick decodes one token for
-    every slot, each at its own position (free slots feed token 0 into their
-    own row), and finished requests (eos, max tokens, cache full) free their
-    slot immediately.  A request's tokens are therefore those of a batch-1
-    prefill and greedy decode of its prompt, whatever shares the slots.
+    ``Model.prefill`` (at most ``max_len`` of them; the rest, and a vlm's
+    whole prompt, through batch-1 decode steps) and copies its cache into the
+    slot's row only; the last prompt token is fed on the next tick.  A tick
+    decodes one token for every slot, each at its own position (free slots
+    feed token 0 into their own row), and finished requests (eos, max tokens,
+    cache full) free their slot immediately.  A request's tokens are
+    therefore those of a batch-1 prefill and greedy decode of its prompt,
+    whatever shares the slots.
     """
 
     def __init__(self, model, params, n_slots: int, max_len: int,
@@ -218,20 +220,37 @@ class _DecodeSlots:
         return sum(1 for s in self.slots if s.req is not None)
 
     def admit(self, req: Request) -> None:
+        """Fill a free slot's cache row with ``prompt[:-1]``; raises
+        ``ValueError`` (the slot stays free) for an empty prompt."""
+        prompt = np.asarray(req.payload, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError(f"request {req.rid}: an LM prompt needs at "
+                             "least one token")
         i = next(j for j, s in enumerate(self.slots) if s.req is None)
-        slot = self.slots[i]
-        prompt = np.asarray(req.payload, np.int32)
         head = prompt[:-1]
-        # decode masks the positions past a slot's own, so what an earlier
-        # request left in the row adds nothing
+        # a batch-1 prefill of as much of the head as the cache holds (none
+        # for a vlm, whose prefill needs patch embeddings a Request does not
+        # carry); the rest is fed one decode step at a time into this row
+        # alone, a write past the end landing in the last slot, as the JAX
+        # engine feeds a whole prompt.  Decode masks the positions past a
+        # slot's own, so what an earlier request left in the row adds nothing
+        n_pre = (0 if self.model.cfg.family == "vlm"
+                 else min(len(head), self.max_len))
         if len(head):
             with torch.no_grad():
-                _, row = self.model.prefill(
-                    self.params, {"tokens": self._tokens(head[None])},
-                    max_len=self.max_len)
+                if n_pre:
+                    toks = {"tokens": self._tokens(head[None, :n_pre])}
+                    _, row = self.model.prefill(self.params, toks,
+                                                max_len=self.max_len)
+                else:
+                    row = self.model.init_cache(1, self.max_len,
+                                                device=self.device)
+                for p in range(n_pre, len(head)):
+                    _, row = self._decode(self._tokens(head[p:p + 1]), row, p)
             for name, layer in self.cache.items():  # [n_super, slots, S, ..]
                 for kv, t in layer.items():
                     t[:, i] = row[name][kv][:, 0]
+        slot = self.slots[i]
         slot.req, slot.pos = req, len(head)
         # the last prompt token is fed on the next engine tick
         slot.pending = int(prompt[-1])
@@ -417,7 +436,9 @@ class ServingEngine:
 
         Ordering (load-bearing, see module docstring): poll failures and
         expire deadlines at the old tick number, advance the counter,
-        admit into free slots, then one fixed-shape device call.
+        admit into free slots, then one fixed-shape device call.  A request
+        that admission refuses (``ValueError``) completes as failed, counts
+        as ``rejected`` and is logged in ``events``; the others go on.
         """
         self._check_failures()
         self._expire()
@@ -430,8 +451,15 @@ class ServingEngine:
                 free -= 1
             if batch:
                 self._cond.notify_all()   # queue shrank: wake blocked submits
-        for req in batch:
-            self._impl.admit(req)         # device work outside the lock
+        for req in batch:                 # device work outside the lock
+            try:
+                self._impl.admit(req)
+            except ValueError as exc:     # this request alone cannot be served
+                self.slo.count("rejected")
+                self.events.append({"tick": self.ticks,
+                                    "kind": "admission_failed",
+                                    "rid": req.rid, "error": str(exc)})
+                req._finish(failed=True)
         if self._impl.n_active() == 0:
             return 0
         t0 = time.perf_counter()

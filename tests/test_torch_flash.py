@@ -13,6 +13,7 @@ absent, run them with ``pytest --noconftest -m gpu``).
 """
 
 import importlib.util
+import itertools
 
 import numpy as np
 import pytest
@@ -118,6 +119,16 @@ def test_flash_checks_inputs():
     assert t_flash.flash_attention(empty, empty, empty).shape == (0, 2, 0, 16)
 
 
+def _offset_view(t):
+    """``t`` as a view one element into a tensor one column wider: its
+    pointer and row strides are not 16-byte aligned, so the kernel takes its
+    per-element loads and stores whatever hd is."""
+    wide = torch.zeros(*t.shape[:3], t.shape[3] + 1, dtype=t.dtype,
+                       device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
 def test_kernel_strides_take_transposed_views():
     """The kernel takes [B, S, H, hd] tensors seen as [B, H, S, hd] through
     ``transpose(1, 2)`` by their strides, the output in q's layout, and
@@ -141,11 +152,12 @@ def test_kernel_strides_take_transposed_views():
 def test_flash_strided_inputs_equal_contiguous():
     q, k, v = (t.transpose(1, 2) for t in _torch(_qkv(8, 2, 48, 4, 32)))
     for causal in (True, False):
-        got = t_flash.flash_attention(q, k, v, causal=causal, bq=16, bk=16)
         want = t_flash.flash_attention(q.contiguous(), k.contiguous(),
                                        v.contiguous(), causal=causal, bq=16,
                                        bk=16)
-        assert torch.equal(got, want)
+        for view in ((q, k, v), [_offset_view(t) for t in (q, k, v)]):
+            got = t_flash.flash_attention(*view, causal=causal, bq=16, bk=16)
+            assert torch.equal(got, want)
 
 
 def test_plain_version_is_the_dense_twin():
@@ -177,30 +189,36 @@ def _bf16_close(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [8, 12, 16, 32, 64, 80, 128, 160, 256])
 def test_flash_kernel_matches_plain_on_card(cuda_device, hd):
     """B9 against its plain version on the same card inputs: S in {32, 96
-    (block 32), 1024}, causal and not, contiguous [B, H, S, hd] and the
-    transposed views of [B, S, H, hd] tensors, float32 at 2e-5 and bfloat16
-    at 3e-2 and one bf16 step per element; one launch per call."""
+    (block 32), 1024}, causal and not, contiguous [B, H, S, hd], the
+    transposed views of [B, S, H, hd] tensors and unaligned views, float32
+    at 2e-5 and bfloat16 at 3e-2 and one bf16 step per element; one launch
+    per call.  hd 12 and the unaligned views take the per-element path, hd
+    80 and 160 the hd-96 and hd-192 tiles."""
     for s, blk in ((32, 128), (96, 32), (1024, 128)):
         arrays = _qkv(s + hd, 2, 3, s, hd)
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             dense = _torch(arrays, dtype, cuda_device)
-            strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
-                       for t in dense]
-            for (q, k, v), causal in ((dense, True), (dense, False),
-                                      (strided, True), (strided, False)):
+            layouts = {
+                "dense": dense,
+                "strided": [t.transpose(1, 2).contiguous().transpose(1, 2)
+                            for t in dense],
+                "offset": [_offset_view(t) for t in dense]}
+            for (layout, (q, k, v)), causal in itertools.product(
+                    layouts.items(), (True, False)):
                 before = t_flash.LAUNCHES["flash_attn_fwd"]
                 got = t_flash.flash_attention(q, k, v, causal=causal, bq=blk,
                                               bk=blk)
                 torch.cuda.synchronize()
                 assert t_flash.LAUNCHES["flash_attn_fwd"] == before + 1
                 want = t_flash.flash_attention_plain(q, k, v, causal=causal)
-                assert got.dtype == dtype and got.stride() == q.stride()
+                assert got.dtype == dtype and got.stride() == (
+                    dense[0].stride() if layout == "offset" else q.stride())
                 err = float((got.float() - want.float()).abs().max())
-                assert err <= tol, (s, dtype, causal, err)
+                assert err <= tol, (s, dtype, layout, causal, err)
                 assert dtype == torch.float32 or _bf16_close(got, want)
 
 

@@ -481,6 +481,88 @@ def test_lm_engine_admission_eos_and_max_new(tiny_lm):
     assert engine.stats["served"] == 5 and engine.queue_depth == 0
 
 
+def _lm_pair(name):
+    """The reduced ``name`` in float32 in both packages, with the JAX
+    package's params carried across."""
+    import dataclasses
+
+    from repro import configs as j_configs
+    from repro.models import Model as JModel
+    from repro_torch import configs as t_configs
+    from repro_torch.models import Model
+
+    jm = JModel(dataclasses.replace(j_configs.get_reduced(name),
+                                    dtype="float32"))
+    jp = jm.init(jax.random.PRNGKey(3))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, Model(dataclasses.replace(t_configs.get_reduced(name),
+                                             dtype="float32")), tp
+
+
+@pytest.mark.parametrize("kind", ["long_prompts", "vlm"])
+def test_lm_engine_serves_what_jax_engine_serves_alone(tiny_lm, kind):
+    """Prompts the cache cannot hold (longer than ``max_len + 1``) and a vlm
+    served from tokens alone (a Request carries no patch embeddings): each
+    request, sharing two slots with the others, gets the tokens the JAX
+    engine gives it alone at ``slots=1`` (fed a token at a time, each write
+    past the cache's end clamped into its last slot)."""
+    max_len = 12
+    if kind == "vlm":
+        lm = _lm_pair("internvl2-2b")
+        lens, max_new = [5, 9, 3, 7], [4, 3, 5, 2]
+    else:
+        lm = tiny_lm
+        lens, max_new = [max_len + 5, 4, max_len - 3, max_len + 1,
+                         2 * max_len], [3, 5, 6, 2, 1]
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in lens]
+    margins: list = []
+    engine = _lm_engine(lm, margins, slots=2, max_len=max_len)
+    reqs = [Request(i, prompt=p, max_new=m)
+            for i, (p, m) in enumerate(zip(prompts, max_new))]
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    assert min(margins) > LM_MARGIN
+    jm, jp = lm[:2]
+    for r, p, m in zip(reqs, prompts, max_new):
+        jeng = JServingEngine(jm, jp, slots=1, max_len=max_len)
+        jr = JRequest(0, prompt=p, max_new=m)
+        jeng.submit(jr)
+        jeng.run()
+        assert r.done and not r.failed and not jr.failed
+        np.testing.assert_array_equal(r.result, jr.result)
+    assert engine.stats["served"] == len(reqs)
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_lm_engine_fails_an_unservable_request_alone(tiny_lm, threaded):
+    """An empty prompt completes as failed (counted ``rejected``, logged in
+    ``events``); the requests beside it are served, from ``run()`` and from
+    the dispatch thread alike."""
+    prompts = _prompts(3, 4, seed=3)
+    reqs = [Request(0, prompt=prompts[0], max_new=2),
+            Request(1, prompt=np.zeros(0, np.int32), max_new=2),
+            Request(2, prompt=prompts[1], max_new=2),
+            Request(3, prompt=prompts[2], max_new=2)]
+    engine = _lm_engine(tiny_lm, slots=2, max_len=16)
+    if threaded:
+        with engine:
+            for r in reqs:
+                engine.submit(r)
+            assert all(r.wait(timeout=60) for r in reqs)
+    else:
+        for r in reqs:
+            engine.submit(r)
+        engine.run()
+    assert reqs[1].failed and reqs[1].result is None
+    assert all(r.done and not r.failed and len(r.result) == 2
+               for r in reqs[:1] + reqs[2:])
+    assert engine.stats["rejected"] == 1 and engine.stats["served"] == 3
+    assert [e["rid"] for e in engine.events
+            if e["kind"] == "admission_failed"] == [1]
+
+
 def test_lm_engine_deadline_expiry_matches_jax(tiny_lm):
     """slots=1: queued requests past ``deadline_ticks`` complete as failed
     at the same ticks as in the JAX engine."""
