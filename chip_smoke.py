@@ -12,8 +12,10 @@ exits non-zero):
    (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``,
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
    ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
-   started together, beside one more ``nvcc -Xptxas -v`` of
-   ``flash_attn_fwd.cu`` (no kernel of B9 may spill registers);
+   started together, beside one more ``nvcc -Xptxas -v`` each of
+   ``flash_attn_fwd.cu`` and ``deepgrid_fwd.cu`` (registers and spill
+   bytes of every B6/B7 instantiation printed; no kernel of B9, B6 or B7
+   may spill registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -55,12 +57,16 @@ exits non-zero):
    yardstick, the whole ``mesh_apply`` and the SGD step;
 10. the deep-grid kernels B6, B7 and B8 against their plain versions for
     (L, To, Ti, n) in {(1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16),
-    (4, 4, 4, 16), (1, 2, 3, 4)}, B in {1, 7, 130, 1024} and B = 0, both
-    readouts, ideal and PROTOTYPE coefficients and a mixed Reck/Clements
-    grid (identity padding), zero input rows and a parked tile (scale 0:
+    (4, 4, 4, 16), (1, 2, 3, 4), (1, 1, 1, 2), (2, 2, 2, 32)} (B6/B7's
+    register path) and (2, 2, 2, 6) (its general path), B in {1, 7, 130,
+    1024} and B = 0, both readouts, ideal and PROTOTYPE coefficients, a
+    mixed Reck/Clements grid (identity padding) and the same with one
+    tile's V all identity, zero input rows and a parked tile (scale 0:
     its V, U and attenuation gradients exactly 0), within 1e-5 * n of
-    each output's largest magnitude, with bit-identical gradients over two
-    calls; then the main path's shapes;
+    each output's largest magnitude, B6 == B7 bitwise, with bit-identical
+    gradients over two calls; the 64x64 cascade at batches around its
+    rows a block R (R - 1, R, R + 1, 131, 133, 1023); then the main
+    path's shapes;
 11. ``MnistRFNN(analog_depth=4, PROTOTYPE, table1)``: 1000 logits through
     one B6 launch (against the reference backend and the CPU), one STE
     epoch of ``train_mnist`` on 1000 digits at batch 10 (B7 and B8 once
@@ -77,7 +83,9 @@ exits non-zero):
 15. times of B6, B7 and B8 at the main path's shapes (the cascade, the
     depth-4 MNIST network, the tiled layer), as phase 9, with a
     ``torch.matmul`` yardstick on each layer's precomputed complex matrix
-    (then ``.abs()``);
+    (then ``.abs()``); for B6/B7 also the launch plan (path, rows a block
+    R, blocks, shared bytes a block) and the device time of the kernel
+    before its redesign (``DEEP_PARENT_MS``, PERF.md);
 16. (a) the flash attention kernel B9 against its plain version, one
     launch a case, for hd in ``FLASH_HDS``, S in {32, 96 (block 32),
     1024}, causal and not, contiguous ``[B, H, S, hd]``, the transposed
@@ -190,6 +198,21 @@ ENGINE_CHECKED = (0, 5, 10, 15)  # held against a batch-1 prefill and decode
 # B9's device ms in its earlier CUDA-core version (PERF.md §6; NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's
 B9_CUDA_CORE_MS = {"tinyllama_prefill": 2.47622, "long_8k": 17.452}
+# B6-B8's device ms before B6/B7's redesign (B6/B7 one block per row), at
+# phase 15's shapes: tools/deepgrid_times.py on that tree, the mean of two
+# runs in one call (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's
+DEEP_PARENT_MS = {
+    ("deepgrid_fwd", "cascade_64x64_l4", 1024): 0.27463,
+    ("deepgrid_fwd_res", "cascade_64x64_l4", 1024): 0.27415,
+    ("deepgrid_bwd", "cascade_64x64_l4", 1024): 1.50195,
+    ("deepgrid_fwd", "mnist_depth4", 1000): 0.04684,
+    ("deepgrid_fwd_res", "mnist_depth4", 10): 0.03531,
+    ("deepgrid_bwd", "mnist_depth4", 10): 0.08267,
+    ("deepgrid_fwd", "tiled_64x64", 256): 0.02712,
+    ("deepgrid_fwd", "tiled_64x64", 1024): 0.04058,
+    ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03876,
+    ("deepgrid_bwd", "tiled_64x64", 1024): 0.16440}
 # tests/test_rfnn_lm.py's CFG, the LM with the paper's analog MLP
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
@@ -340,6 +363,29 @@ def main(argv=None) -> int:
         cuda_build.load(name)
         return time.perf_counter() - t0
 
+    def demangle(names):
+        """C++ names of mangled kernel symbols (cu++filt beside nvcc, then
+        c++filt; the mangled names where neither runs)."""
+        for tool in (str(Path(cuda_build.nvcc_path()).parent / "cu++filt"),
+                     "c++filt"):
+            try:
+                r = subprocess.run([tool], input="\n".join(names),
+                                   capture_output=True, text=True, timeout=60)
+            except OSError:
+                continue
+            out = r.stdout.splitlines()
+            if r.returncode == 0 and len(out) == len(names):
+                return out
+        return list(names)
+
+    def short_kernel(name):
+        """deepgrid_reg_kernel<(int)16, (bool)1, (bool)0>(...) -> reg<16,1,0>"""
+        m = re.search(r"(\w+)_kernel<([^>]*)>", name)
+        if not m:
+            return name.split("(")[0].split("::")[-1]
+        args = re.sub(r"\(\w+\)|\s", "", m.group(2))
+        return f"{m.group(1).replace('deepgrid_', '')}<{args}>"
+
     def ptxas_usage(name):
         """Registers and spill bytes of each kernel of csrc/<name>.cu, from
         a second nvcc with -Xptxas -v (its library is thrown away)."""
@@ -351,16 +397,28 @@ def main(argv=None) -> int:
             capture_output=True, text=True, timeout=600, check=True)
         out.unlink(missing_ok=True)
         log = proc.stdout + proc.stderr
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
-        return {"kernels": len(regs), "max_registers": max(regs),
-                "spill_bytes": sum(spills)}
+        per = []
+        for block in log.split("Compiling entry function '")[1:]:
+            regs = re.search(r"Used (\d+) registers", block)
+            per.append({"kernel": block.split("'", 1)[0],
+                        "registers": int(regs.group(1)) if regs else 0,
+                        "spill_bytes": sum(int(b) for b in re.findall(
+                            r"(\d+) bytes spill", block))})
+        check(len(per) > 0, f"no kernel in the -Xptxas -v log of {name}.cu")
+        for row, pretty in zip(per, demangle([r["kernel"] for r in per])):
+            row["kernel"] = pretty
+        return {"kernels": len(per),
+                "max_registers": max(r["registers"] for r in per),
+                "spill_bytes": sum(r["spill_bytes"] for r in per),
+                "per_kernel": per}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
-        usage = pool.submit(ptxas_usage, "flash_attn_fwd")
+    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
+        usage = {k: pool.submit(ptxas_usage, k)
+                 for k in ("flash_attn_fwd", "deepgrid_fwd")}
         build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
-        b9_usage = usage.result()
+        b9_usage = usage["flash_attn_fwd"].result()
+        b67_usage = usage["deepgrid_fwd"].result()
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
@@ -368,8 +426,16 @@ def main(argv=None) -> int:
     print(f"[1] flash_attn_fwd.cu under -Xptxas -v: {b9_usage['kernels']} "
           f"kernels, at most {b9_usage['max_registers']} registers a thread, "
           f"{b9_usage['spill_bytes']} spill bytes", flush=True)
+    print("[1] deepgrid_fwd.cu under -Xptxas -v, registers (spill bytes) a "
+          "thread: " + ", ".join(
+              f"{short_kernel(r['kernel'])} {r['registers']} "
+              f"({r['spill_bytes']})" for r in b67_usage["per_kernel"]),
+          flush=True)
+    check(b67_usage["spill_bytes"] == 0,
+          f"a B6/B7 kernel spills registers: {b67_usage['per_kernel']}")
     report["build_s"] = build_s
     report["b9_ptxas"] = b9_usage
+    report["b67_ptxas"] = b67_usage
 
     def reset_launches():
         for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
@@ -1328,9 +1394,32 @@ def main(argv=None) -> int:
 
     deep_cases = ((1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16), (4, 4, 4, 16),
                   (1, 2, 3, 4))
-    for depth, to, ti, n in deep_cases:
-        for hw, reck in ((None, "none"), (PROTOTYPE, "none"),
-                         (None, "mixed")):
+    # B6/B7's register path at its edges (n = 2, 32) and one width of its
+    # general path (n = 6), and one tile's V all identity cells (every
+    # column skipped): these draw from their own generator, so every other
+    # input of this script is what it was before they were added
+    new_cases = ((1, 1, 1, 2), (2, 2, 2, 32), (2, 2, 2, 6))
+    rng_new = np.random.default_rng(args.seed + 17)
+    eye = torch.tensor([1, 0, 0, 0, 0, 0, 1, 0], dtype=torch.float32,
+                       device=dev)[:, None]
+
+    def rand_g(draws, b, w, detect_last):
+        if not detect_last:
+            return rand_x(draws, b, w)
+        if draws is rng:
+            return torch.rand(b, w, device=dev)
+        return torch.from_numpy(draws.random((b, w)).astype(np.float32)).to(dev)
+
+    for depth, to, ti, n in deep_cases + new_cases:
+        plan = givens_mesh.deepgrid_fwd_plan(1024, n, depth, to, ti, n + 3)
+        check(plan["register_path"] == int(n in (2, 4, 8, 16, 32)),
+              f"n = {n} took the wrong path: {plan}")
+        for hw, reck, eye_tile in ((None, "none", False),
+                                   (PROTOTYPE, "none", False),
+                                   (None, "mixed", False),
+                                   (None, "mixed", True)):
+            draws = (rng_new if eye_tile or (depth, to, ti, n) in new_cases
+                     else rng)
             parked = (depth - 1, to - 1, 0) if to * ti > 1 else None
             _, _, packed = deep_grid(n, depth, to, ti, seed=depth + n, reck=reck,
                                      parked=parked, hw=hw)
@@ -1338,18 +1427,20 @@ def main(argv=None) -> int:
             if reck == "mixed" and n > 2:
                 check(inputs[0].shape[3] > schedule.clements_schedule(n)
                       .n_columns, "the mixed grid used no identity padding")
+            if eye_tile:
+                inputs[0][0, to - 1, ti - 1] = eye
             for b in (1, 7, 130, 1024):
-                x = rand_x(rng, b, ti * n)
+                x = rand_x(draws, b, ti * n)
                 x[1::9] = 0                   # zero rows: exact zeros
                 for detect_last in (True, False):
-                    g = (torch.rand(b, to * n, device=dev) if detect_last
-                         else rand_x(rng, b, to * n))
+                    g = rand_g(draws, b, to * n, detect_last)
                     deep_vs_plain(inputs, x, g, detect_last, parked)
-        print(f"[10] L, To, Ti, n = {depth}, {to}, {ti}, {n}: deepgrid_fwd "
-              f"(B6), deepgrid_fwd_res (B7) and deepgrid_bwd (B8) == plain "
-              f"(ideal, PROTOTYPE, mixed Reck/Clements; both readouts; zero "
-              f"rows and a parked tile; B 1..1024), gradients bit-identical",
-              flush=True)
+        print(f"[10] L, To, Ti, n = {depth}, {to}, {ti}, {n} ("
+              f"{'register' if plan['register_path'] else 'general'} path): "
+              f"deepgrid_fwd (B6), deepgrid_fwd_res (B7) and deepgrid_bwd (B8) "
+              f"== plain (ideal, PROTOTYPE, mixed Reck/Clements, one tile's V "
+              f"identity; both readouts; zero rows and a parked tile; B "
+              f"1..1024), gradients bit-identical", flush=True)
     _, _, packed = deep_grid(4, 2, 2, 2, seed=1)
     inputs = deep_inputs(packed)
     empty = torch.zeros(0, 8, dtype=torch.complex64, device=dev)
@@ -1370,6 +1461,21 @@ def main(argv=None) -> int:
     check(cascade_in[0].shape[3] == 2 * 16 - 3,
           f"a Reck program at n = 16 has {cascade_in[0].shape[3]} parity "
           "columns, not 29")
+    # batches around the cascade's rows a block R at B = 1024 and around one
+    # block an SM: ragged last blocks and R = 1, 2
+    cascade_plan = givens_mesh.deepgrid_fwd_plan(DEEP_BATCH, 16, 4, 4, 4, 29)
+    r_cascade = cascade_plan["rows"]
+    cascade_batches = sorted({max(r_cascade - 1, 1), r_cascade, r_cascade + 1,
+                              131, 133, DEEP_BATCH - 1})
+    for b in cascade_batches:
+        x = rand_x(rng_new, b, 64)
+        x[1::9] = 0
+        for detect_last in (True, False):
+            deep_vs_plain(cascade_in, x, rand_g(rng_new, b, 64, detect_last),
+                          detect_last)
+    print(f"[10] the 64x64 cascade at B in {cascade_batches} (R = {r_cascade} "
+          f"at B = {DEEP_BATCH}, {cascade_plan['blocks']} blocks): B6, B7, B8 "
+          f"== plain, both readouts", flush=True)
     x = rand_x(rng, DEEP_BATCH, 64)
     main_err_deep = deep_vs_plain(cascade_in, x, torch.rand(DEEP_BATCH, 64,
                                                             device=dev), True)
@@ -1453,9 +1559,9 @@ def main(argv=None) -> int:
     check(d_deep20 <= 1e-4, f"depth-4 SGD card vs CPU after 20 steps: "
           f"{d_deep20}")
     per_step_d, busy_d, ours_d = profile_steps(
-        torch, deep_sgd, 20, ("deepgrid_fwd_kernel", "deepgrid_bwd_kernel",
+        torch, deep_sgd, 20, ("deepgrid_reg_kernel", "deepgrid_bwd_kernel",
                               "reduce_partials"))
-    check(ours_d["deepgrid_fwd_kernel"] > 0 and ours_d["deepgrid_bwd_kernel"] > 0,
+    check(ours_d["deepgrid_reg_kernel"] > 0 and ours_d["deepgrid_bwd_kernel"] > 0,
           f"the profiled depth-4 SGD steps show no deep kernel: {ours_d}")
     print(f"[11] train_mnist(analog_depth=4, ste, PROTOTYPE, table1, batch "
           f"{SGD_BATCH}, lr {DEEP_LR}, 1 epoch, 1000 digits) on the card: "
@@ -1755,22 +1861,36 @@ def main(argv=None) -> int:
                 ld_ms = device_ms(torch, lib, 50)
                 bound_ms, bound_by, nbytes, flops = deep_bound(name, inputs, b,
                                                                detect_last)
+                parent_ms = DEEP_PARENT_MS.get((name, shape_name, b))
                 rows_deep.append({"kernel": name, "shape": shape_name, "B": b,
                                   "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
                                   "plain_ms": p_ms, "matmul_ms": l_ms,
                                   "matmul_device_ms": ld_ms,
                                   "bound_ms": bound_ms, "bound_by": bound_by,
                                   "bytes": nbytes, "flops": flops,
-                                  "columns": inputs[0].shape[3]})
+                                  "columns": inputs[0].shape[3],
+                                  "parent_device_ms": parent_ms})
                 what = ("the dx chain alone" if name == "deepgrid_bwd"
                         else "the layer matrices")
+                layout = ""
+                if name != "deepgrid_bwd":
+                    plan = givens_mesh.deepgrid_fwd_plan(
+                        b, 2 * inputs[0].shape[-1], *inputs[0].shape[:4],
+                        save_stages=name == "deepgrid_fwd_res")
+                    rows_deep[-1]["plan"] = plan
+                    path = "register" if plan["register_path"] else "general"
+                    layout = (f"; {path} path, R={plan['rows']}, "
+                              f"{plan['blocks']} blocks of {plan['threads']} "
+                              f"threads, {plan['shared_bytes']} shared bytes "
+                              f"a block; before the redesign {parent_ms} ms "
+                              f"on the device (PERF.md)")
                 print(f"[15] {card} | {name} {shape_name} B={b} (C="
                       f"{inputs[0].shape[3]}): kernel {k_ms:.5f} ms per call, "
                       f"{kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
                       f"({bound_by}, {flops / 1e9:.4f} GFLOP, "
                       f"{nbytes / 1e6:.3f} MB); plain {p_ms:.3f} ms per call; "
                       f"matmul over {what} {l_ms:.5f} ms per call, "
-                      f"{ld_ms:.5f} ms on the device", flush=True)
+                      f"{ld_ms:.5f} ms on the device{layout}", flush=True)
     report["timings_deep"] = rows_deep
 
     # -- phase 16 (a): the flash attention kernel against its plain version --

@@ -267,10 +267,11 @@ def test_rfnn_network_and_tiled_apply_are_deep_apply():
         ops.deep_apply((tiles,), x, n=4, readout="real")
 
 
-def _grid_inputs(rng, depth, to, ti, n, mixed, b=6):
-    """Random unitary cells, per-tile random (mixed) or Clements parities,
-    random gains and complex x, as the kernels take them."""
-    p, c = n // 2, n + 3
+def _grid_inputs(rng, depth, to, ti, n, mixed, b=6, n_cols=None):
+    """Random unitary cells in ``n_cols`` columns (default n + 3), per-tile
+    random (mixed) or Clements parities, random gains and complex x, as the
+    kernels take them."""
+    p, c = n // 2, n_cols or n + 3
 
     def coef():
         th = torch.from_numpy(rng.uniform(0, np.pi, (depth, to, ti, c, p))
@@ -410,52 +411,92 @@ def cuda_device():
     return torch.device("cuda")
 
 
+_EYE_CELL = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+
+def _check_kernels_on_card(inputs, detect_last):
+    """One B6, one B7 and two B8 launches on ``inputs`` against the plain
+    versions: 1e-5 * n of the largest magnitude, B6 == B7 bitwise and the
+    gradients bit-identical across the two calls.  Returns the gradients."""
+    cuda_device = inputs[0].device
+    b, to, n = inputs[5].shape[0], inputs[0].shape[1], 2 * inputs[0].shape[-1]
+    g = (torch.rand(b, to * n, device=cuda_device) if detect_last
+         else torch.randn(b, to * n, dtype=torch.complex64, device=cuda_device))
+    before = dict(givens_mesh.LAUNCHES)
+    out6 = givens_mesh.launch_deepgrid(*inputs, detect_last=detect_last)
+    out7, sv, su = givens_mesh.launch_deepgrid(
+        *inputs, detect_last=detect_last, save_stages=True)
+    grads = givens_mesh.launch_deepgrid_backward(
+        *inputs, sv, su, g, detect_last=detect_last)
+    grads2 = givens_mesh.launch_deepgrid_backward(
+        *inputs, sv, su, g, detect_last=detect_last)
+    torch.cuda.synchronize()
+    assert {k: givens_mesh.LAUNCHES[k] - before[k] for k in (
+        "deepgrid_fwd", "deepgrid_fwd_res", "deepgrid_bwd")} == {
+        "deepgrid_fwd": 1, "deepgrid_fwd_res": 1, "deepgrid_bwd": 2}
+    assert torch.equal(out6, out7)
+    for a, c in zip(grads[:3], grads2[:3]):
+        assert torch.equal(a, c)
+    pout, psv, psu = givens_mesh.deepgrid_forward_plain(
+        *inputs, detect_last=detect_last)
+    # 1e-5 * n of the largest magnitude, as the fused kernels' card
+    # tests: float32 sums in another order over n-wide columns
+    for got, want in ((out6, pout), (sv, psv), (su, psu)):
+        assert _rel(got.cpu(), want.cpu()) <= REL_TOL * n
+    want = givens_mesh.deepgrid_backward_plain(
+        *inputs, sv, su, g, detect_last=detect_last)
+    for got, w in zip(grads, want):
+        assert _rel(got.cpu(), w.cpu()) <= REL_TOL * n
+    return grads
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("eye_tile", [False, True])
 @pytest.mark.parametrize("shape", [(1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16),
-                                   (4, 4, 4, 16), (1, 2, 3, 4)])
-def test_deepgrid_kernels_match_plain_on_card(cuda_device, shape):
+                                   (4, 4, 4, 16), (1, 2, 3, 4), (1, 1, 1, 2),
+                                   (2, 2, 2, 32), (2, 2, 2, 6)])
+def test_deepgrid_kernels_match_plain_on_card(cuda_device, shape, eye_tile):
     """B6, B7 and B8 against their plain versions on the same card inputs,
     both readouts, mixed per-tile parities, ragged batches and zero rows
     (exactly zero dx wherever a |.| lies behind them); the gradients
-    bit-identical across two calls."""
+    bit-identical across two calls.  n = 2 and 32 are the register path's
+    edges, n = 6 takes the general path; ``eye_tile`` makes one tile's V
+    identity cells only (every column skipped)."""
     rng = np.random.default_rng(sum(shape))
+    to, ti, n = shape[1], shape[2], shape[3]
+    plan = givens_mesh.deepgrid_fwd_plan(130, n, shape[0], to, ti, n + 3)
+    assert plan["register_path"] == int(n in (2, 4, 8, 16, 32))
     for detect_last in (True, False):
         for b in (1, 7, 130):
             inputs = [t.to(cuda_device) for t in _grid_inputs(
                 rng, *shape, mixed=True, b=b)]
             inputs[5][::5] = 0
-            to, n = shape[1], shape[3]
-            g = (torch.rand(b, to * n, device=cuda_device) if detect_last
-                 else torch.randn(b, to * n, dtype=torch.complex64,
-                                  device=cuda_device))
-            before = dict(givens_mesh.LAUNCHES)
-            out6 = givens_mesh.launch_deepgrid(*inputs,
-                                               detect_last=detect_last)
-            out7, sv, su = givens_mesh.launch_deepgrid(
-                *inputs, detect_last=detect_last, save_stages=True)
-            grads = givens_mesh.launch_deepgrid_backward(
-                *inputs, sv, su, g, detect_last=detect_last)
-            grads2 = givens_mesh.launch_deepgrid_backward(
-                *inputs, sv, su, g, detect_last=detect_last)
-            torch.cuda.synchronize()
-            assert {k: givens_mesh.LAUNCHES[k] - before[k] for k in (
-                "deepgrid_fwd", "deepgrid_fwd_res", "deepgrid_bwd")} == {
-                "deepgrid_fwd": 1, "deepgrid_fwd_res": 1, "deepgrid_bwd": 2}
-            assert torch.equal(out6, out7)
-            for a, c in zip(grads[:3], grads2[:3]):
-                assert torch.equal(a, c)
-            pout, psv, psu = givens_mesh.deepgrid_forward_plain(
-                *inputs, detect_last=detect_last)
-            # 1e-5 * n of the largest magnitude, as the fused kernels' card
-            # tests: float32 sums in another order over n-wide columns
-            for got, want in ((out6, pout), (sv, psv), (su, psu)):
-                assert _rel(got.cpu(), want.cpu()) <= REL_TOL * n
-            want = givens_mesh.deepgrid_backward_plain(
-                *inputs, sv, su, g, detect_last=detect_last)
-            for got, w in zip(grads, want):
-                assert _rel(got.cpu(), w.cpu()) <= REL_TOL * n
+            if eye_tile:
+                inputs[0][0, to - 1, ti - 1] = torch.tensor(
+                    _EYE_CELL, device=cuda_device)[:, None]
+            grads = _check_kernels_on_card(inputs, detect_last)
             if detect_last or shape[0] > 1:  # a |.| behind the zero rows
                 assert (grads[3][::5] == 0).all()
+
+
+@pytest.mark.gpu
+def test_deepgrid_kernels_around_rows_per_block_on_card(cuda_device):
+    """The 64x64 cascade's grid (4 layers of 4x4 tiles of 16, 29 columns)
+    at batches around its rows a block R at B = 1024 (R - 1, R, R + 1), at
+    131 and 133 (one and two rows a block on a 132-SM card, ragged) and at
+    1024: B6, B7 and B8 against their plain versions.  A random 40% of the
+    cells are the identity, so lanes of a warp skip different cells."""
+    rng = np.random.default_rng(29)
+    r = givens_mesh.deepgrid_fwd_plan(1024, 16, 4, 4, 4, 29)["rows"]
+    for b in sorted({max(r - 1, 1), r, r + 1, 131, 133, 1024}):
+        for detect_last in (True, False):
+            inputs = _grid_inputs(rng, 4, 4, 4, 16, mixed=True, b=b,
+                                  n_cols=29)
+            for coef in (inputs[0], inputs[2]):
+                eye = torch.from_numpy(rng.random((4, 4, 4, 29, 8)) < 0.4)
+                coef.movedim(4, -1)[eye] = torch.tensor(_EYE_CELL)
+            _check_kernels_on_card([t.to(cuda_device) for t in inputs],
+                                   detect_last)
 
 
 @pytest.mark.gpu
