@@ -485,7 +485,7 @@ def test_deepgrid_kernels_around_rows_per_block_on_card(cuda_device):
     at batches around its rows a block R at B = 1024 (R - 1, R, R + 1), at
     131 and 133 (one and two rows a block on a 132-SM card, ragged) and at
     1024: B6, B7 and B8 against their plain versions.  A random 40% of the
-    cells are the identity, so lanes of a warp skip different cells."""
+    cells are the identity, so lanes of a warp skip different runs."""
     rng = np.random.default_rng(29)
     r = givens_mesh.deepgrid_fwd_plan(1024, 16, 4, 4, 4, 29)["rows"]
     for b in sorted({max(r - 1, 1), r, r + 1, 131, 133, 1024}):
