@@ -76,7 +76,8 @@ exits non-zero):
     steps (B7 and B8 once per step, card vs CPU);
 13. the 4-layer 64x64 cascade (``ops.deep_apply``, 4x4 tiles of 16, Reck V
     plans, C = 29): fwd+bwd at B = 1024 through one B7 and one B8 launch,
-    output and every gradient card vs CPU;
+    output and every gradient card vs CPU, and the distance of both sides'
+    gradients from a float64 witness of the grid (printed, not bounded);
 14. ``ServingEngine`` over ``TiledAnalogLinear(64, 64)`` and
     ``AnalogSequence(8, 4)``: 256 requests each equal to a direct apply,
     ``PACK_EVENTS`` unchanged after the first tick;
@@ -199,20 +200,31 @@ ENGINE_CHECKED = (0, 5, 10, 15)  # held against a batch-1 prefill and decode
 # 80GB HBM3, 700 W), printed beside this run's
 B9_CUDA_CORE_MS = {"tinyllama_prefill": 2.47622, "long_8k": 17.452}
 # B6-B8's device ms before B6/B7's redesign (B6/B7 one block per row), at
-# phase 15's shapes: tools/deepgrid_times.py on that tree, the mean of two
-# runs in one call (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W), printed
-# beside this run's
+# phase 15's shapes: tools/deepgrid_times.py on that tree, the mean of its
+# two runs in the call of PERF.md §6's parent-versus-change table (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's
 DEEP_PARENT_MS = {
-    ("deepgrid_fwd", "cascade_64x64_l4", 1024): 0.27463,
-    ("deepgrid_fwd_res", "cascade_64x64_l4", 1024): 0.27415,
-    ("deepgrid_bwd", "cascade_64x64_l4", 1024): 1.50195,
-    ("deepgrid_fwd", "mnist_depth4", 1000): 0.04684,
-    ("deepgrid_fwd_res", "mnist_depth4", 10): 0.03531,
-    ("deepgrid_bwd", "mnist_depth4", 10): 0.08267,
-    ("deepgrid_fwd", "tiled_64x64", 256): 0.02712,
-    ("deepgrid_fwd", "tiled_64x64", 1024): 0.04058,
-    ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03876,
-    ("deepgrid_bwd", "tiled_64x64", 1024): 0.16440}
+    ("deepgrid_fwd", "cascade_64x64_l4", 1024): 0.27650,
+    ("deepgrid_fwd_res", "cascade_64x64_l4", 1024): 0.27635,
+    ("deepgrid_bwd", "cascade_64x64_l4", 1024): 1.50473,
+    ("deepgrid_fwd", "mnist_depth4", 1000): 0.04656,
+    ("deepgrid_fwd_res", "mnist_depth4", 10): 0.03551,
+    ("deepgrid_bwd", "mnist_depth4", 10): 0.08325,
+    ("deepgrid_fwd", "tiled_64x64", 256): 0.02729,
+    ("deepgrid_fwd", "tiled_64x64", 1024): 0.04085,
+    ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03906,
+    ("deepgrid_bwd", "tiled_64x64", 1024): 0.16540}
+# phase 15's timed batches: shape -> kernel -> B (the cascade at its batch,
+# the depth-4 MNIST network's B6 at the test batch and B7/B8 at the SGD
+# batch, the tiled layer at two batches)
+DEEP_TIMED_BATCHES = {
+    "cascade_64x64_l4": {"deepgrid_fwd": (DEEP_BATCH,),
+                         "deepgrid_fwd_res": (DEEP_BATCH,),
+                         "deepgrid_bwd": (DEEP_BATCH,)},
+    "mnist_depth4": {"deepgrid_fwd": (1000,), "deepgrid_fwd_res": (SGD_BATCH,),
+                     "deepgrid_bwd": (SGD_BATCH,)},
+    "tiled_64x64": {"deepgrid_fwd": (256, 1024), "deepgrid_fwd_res": (1024,),
+                    "deepgrid_bwd": (1024,)}}
 # tests/test_rfnn_lm.py's CFG, the LM with the paper's analog MLP
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
@@ -310,6 +322,123 @@ def profile_steps(torch, run, steps: int, names) -> tuple:
     return len(dev_events) / steps, busy_us, ours_us
 
 
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def build_deep_grid(dev, n, depth, to, ti, seed, *, reck="none", parked=None,
+                    hw=None):
+    """A deep grid's tile dicts on ``dev`` and its pack: random Clements
+    phases with output screens, attenuations in [0.2, 0.9] and scales near
+    1.  ``reck``: "none", "mixed" (a Reck V, input screen included, on every
+    tile with o + i even: identity padding) or "all" (a Reck V on every
+    tile: C = 2n - 3).  ``parked``: (l, o, i) of a tile with scale 0.
+    Returns ``(layers, plans, packed)``.  ``repro_torch`` must be
+    importable."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import decompose
+    from repro_torch.core import mesh as mesh_lib
+    from repro_torch.kernels import ops
+
+    r = np.random.default_rng(seed)
+    shape = mesh_lib.clements_plan(n).param_shape()
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def clements():
+        return {"theta": t(r.uniform(0, np.pi, shape)),
+                "phi": t(r.uniform(0, 2 * np.pi, shape)),
+                "alpha": t(r.uniform(0, 2 * np.pi, n))}
+
+    layers, plans = [], []
+    for l in range(depth):
+        rows, prow = [], []
+        for o in range(to):
+            row, pr = [], []
+            for i in range(ti):
+                v, pair = clements(), None
+                if reck == "all" or (reck == "mixed" and (o + i) % 2 == 0):
+                    plan, v = decompose.reck_program(
+                        decompose.random_unitary(n, int(r.integers(1 << 30))),
+                        device=dev)
+                    pair = (plan, None)
+                row.append({"v": v, "u": clements(),
+                            "atten": t(r.uniform(0.2, 0.9, n)),
+                            "scale": torch.tensor(
+                                0.0 if parked == (l, o, i)
+                                else 1.0 + 0.05 * (o + i), device=dev)})
+                pr.append(pair)
+            rows.append(tuple(row))
+            prow.append(tuple(pr))
+        layers.append(tuple(rows))
+        plans.append(tuple(prow))
+    layers, plans = tuple(layers), tuple(plans)
+    with torch.no_grad():
+        packed = ops.pack_deep_grid(layers, n=n, plans=plans, hardware=hw)
+    return layers, plans, packed
+
+
+def cascade_grads(device, layers, plans, x, w, *, plain_dtype=None):
+    """The output ``y`` of ``ops.deep_apply`` on ``device`` and the gradients
+    of ``sum(w * y)`` in every tile param and ``x`` (phase 13).  With
+    ``plain_dtype`` (``device`` the CPU) the grid runs through the kernels'
+    plain forward (``ref.deep_grid_planes``) in that precision on the
+    float32 pack, and autograd takes its gradients: float64 is the witness
+    (the grid's part of each gradient carries float64's error alone);
+    float32 differs from the plain backward by its rebuild of each column's
+    input (inverse cells) alone."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, schedule
+
+    leaves = []
+
+    def leaf(t):
+        leaves.append(t.detach().to(device).requires_grad_(True))
+        return leaves[-1]
+
+    tree = tree_map(leaf, layers)
+    xx = x.detach().to(device).requires_grad_(True)
+    n = layers[0][0][0]["atten"].shape[-1]
+    if plain_dtype is not None:
+        deep, (cv, cu, gains) = ops.pack_deep_grid(tree, n=n, plans=plans)
+        pv, pu = schedule.deep_grid_parity_arrays(deep, xx.device)
+        wide = torch.complex128 if plain_dtype == torch.float64 \
+            else torch.complex64
+        y = ref.deep_grid_planes(cv.to(plain_dtype), pv, cu.to(plain_dtype),
+                                 pu, gains.to(plain_dtype), xx.to(wide),
+                                 detect_last=True)[0]
+    else:
+        y = ops.deep_apply(tree, xx, n=n, plans=plans)
+    (y * w.to(device)).sum().backward()
+    return y.detach().cpu(), [t.grad.cpu() for t in leaves + [xx]]
+
+
+def leaf_rel(got, want) -> float:
+    """The largest of max |a - b| / max |b| over paired gradients."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def short_kernel(mangled: str) -> str:
+    """A kernel's short name from its mangled symbol:
+    _ZN..19deepgrid_reg_kernelILi16ELb1ELb0EEEv.. -> reg<16,1,0>"""
+    m = re.search(r"(?<=\d)([a-z]+_[a-z_]+?)(?:I((?:L[ib]\d+E)+)E|E)",
+                  mangled)
+    if not m:
+        return mangled
+    name = m.group(1).removeprefix("deepgrid_").removesuffix("_kernel")
+    args = re.findall(r"\d+", m.group(2) or "")
+    return f"{name}<{','.join(args)}>" if args else name
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -363,29 +492,6 @@ def main(argv=None) -> int:
         cuda_build.load(name)
         return time.perf_counter() - t0
 
-    def demangle(names):
-        """C++ names of mangled kernel symbols (cu++filt beside nvcc, then
-        c++filt; the mangled names where neither runs)."""
-        for tool in (str(Path(cuda_build.nvcc_path()).parent / "cu++filt"),
-                     "c++filt"):
-            try:
-                r = subprocess.run([tool], input="\n".join(names),
-                                   capture_output=True, text=True, timeout=60)
-            except OSError:
-                continue
-            out = r.stdout.splitlines()
-            if r.returncode == 0 and len(out) == len(names):
-                return out
-        return list(names)
-
-    def short_kernel(name):
-        """deepgrid_reg_kernel<(int)16, (bool)1, (bool)0>(...) -> reg<16,1,0>"""
-        m = re.search(r"(\w+)_kernel<([^>]*)>", name)
-        if not m:
-            return name.split("(")[0].split("::")[-1]
-        args = re.sub(r"\(\w+\)|\s", "", m.group(2))
-        return f"{m.group(1).replace('deepgrid_', '')}<{args}>"
-
     def ptxas_usage(name):
         """Registers and spill bytes of each kernel of csrc/<name>.cu, from
         a second nvcc with -Xptxas -v (its library is thrown away)."""
@@ -405,8 +511,6 @@ def main(argv=None) -> int:
                         "spill_bytes": sum(int(b) for b in re.findall(
                             r"(\d+) bytes spill", block))})
         check(len(per) > 0, f"no kernel in the -Xptxas -v log of {name}.cu")
-        for row, pretty in zip(per, demangle([r["kernel"] for r in per])):
-            row["kernel"] = pretty
         return {"kernels": len(per),
                 "max_registers": max(r["registers"] for r in per),
                 "spill_bytes": sum(r["spill_bytes"] for r in per),
@@ -444,13 +548,6 @@ def main(argv=None) -> int:
 
     def all_launches():
         return {**givens_mesh.LAUNCHES, **flash.LAUNCHES}
-
-    def tree_map(fn, tree):
-        if isinstance(tree, dict):
-            return {k: tree_map(fn, v) for k, v in tree.items()}
-        if isinstance(tree, (tuple, list)):
-            return type(tree)(tree_map(fn, v) for v in tree)
-        return fn(tree)
 
     def to_cpu(tree):
         return tree_map(lambda t: t.cpu(), tree)
@@ -1304,51 +1401,8 @@ def main(argv=None) -> int:
 
 
     # -- phase 10: the deep-grid kernels against their plain versions --------
-    def deep_grid(n, depth, to, ti, seed, *, reck="none", parked=None,
-                  hw=None):
-        """A deep grid's tile dicts on the card and its pack: random
-        Clements phases with output screens, attenuations in [0.2, 0.9] and
-        scales near 1.  ``reck``: "none", "mixed" (a Reck V, input screen
-        included, on every tile with o + i even: identity padding) or "all"
-        (a Reck V on every tile: C = 2n - 3).  ``parked``: (l, o, i) of a
-        tile with scale 0.  Returns ``(layers, plans, packed)``."""
-        r = np.random.default_rng(seed)
-        shape = mesh_lib.clements_plan(n).param_shape()
-
-        def t(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-
-        def clements():
-            return {"theta": t(r.uniform(0, np.pi, shape)),
-                    "phi": t(r.uniform(0, 2 * np.pi, shape)),
-                    "alpha": t(r.uniform(0, 2 * np.pi, n))}
-
-        layers, plans = [], []
-        for l in range(depth):
-            rows, prow = [], []
-            for o in range(to):
-                row, pr = [], []
-                for i in range(ti):
-                    v, pair = clements(), None
-                    if reck == "all" or (reck == "mixed" and (o + i) % 2 == 0):
-                        plan, v = decompose.reck_program(
-                            decompose.random_unitary(n, int(r.integers(1 << 30))),
-                            device=dev)
-                        pair = (plan, None)
-                    row.append({"v": v, "u": clements(),
-                                "atten": t(r.uniform(0.2, 0.9, n)),
-                                "scale": torch.tensor(
-                                    0.0 if parked == (l, o, i)
-                                    else 1.0 + 0.05 * (o + i), device=dev)})
-                    pr.append(pair)
-                rows.append(tuple(row))
-                prow.append(tuple(pr))
-            layers.append(tuple(rows))
-            plans.append(tuple(prow))
-        layers, plans = tuple(layers), tuple(plans)
-        with torch.no_grad():
-            packed = ops.pack_deep_grid(layers, n=n, plans=plans, hardware=hw)
-        return layers, plans, packed
+    def deep_grid(*shape, **kw):
+        return build_deep_grid(dev, *shape, **kw)
 
     def deep_inputs(packed):
         deep, (cv, cu, gains) = packed
@@ -1660,24 +1714,10 @@ def main(argv=None) -> int:
         size=(DEEP_BATCH, 64)).astype(np.float32))
     x_cascade = rand_x(rng, DEEP_BATCH, 64)
 
-    def cascade_grads(device):
-        """Output and the gradients in every tile param and x of a weighted
-        sum of the cascade's output, on ``device``."""
-        leaves = []
-
-        def leaf(t):
-            leaves.append(t.detach().to(device).requires_grad_(True))
-            return leaves[-1]
-
-        layers = tree_map(leaf, cascade_layers)
-        xx = x_cascade.detach().to(device).requires_grad_(True)
-        y = ops.deep_apply(layers, xx, n=16, plans=cascade_plans)
-        (y * w_cascade.to(device)).sum().backward()
-        return y.detach().cpu(), [t.grad.cpu() for t in leaves + [xx]]
-
     reset_launches()
     t0 = time.perf_counter()
-    y_card, g_card = cascade_grads(dev)
+    y_card, g_card = cascade_grads(dev, cascade_layers, cascade_plans,
+                                   x_cascade, w_cascade)
     torch.cuda.synchronize()
     cascade_ms = (time.perf_counter() - t0) * 1e3
     launches["cascade"] = dict(givens_mesh.LAUNCHES)
@@ -1685,22 +1725,31 @@ def main(argv=None) -> int:
                                   "deepgrid_fwd_res": 1, "deepgrid_bwd": 1},
           f"the cascade's fwd+bwd must be one B7 and one B8 launch: "
           f"{launches['cascade']}")
-    y_cpu, g_cpu = cascade_grads("cpu")
+    y_cpu, g_cpu = cascade_grads("cpu", cascade_layers, cascade_plans,
+                                 x_cascade, w_cascade)
     d_cascade = max_rel_check("cascade card vs CPU", y_card, y_cpu, 16) \
         / float(y_cpu.abs().max())
     d_cascade_g = max(max_rel_check("cascade grad card vs CPU", a, b, 16)
                       / max(float(b.abs().max()), 1e-30)
                       for a, b in zip(g_card, g_cpu))
+    # the float64 witness: how far each side's gradients lie from the grid's
+    # in float64 (the pack in float32, as both sides)
+    _, g_wit = cascade_grads("cpu", cascade_layers, cascade_plans, x_cascade,
+                             w_cascade, plain_dtype=torch.float64)
+    d_card_wit, d_cpu_wit = leaf_rel(g_card, g_wit), leaf_rel(g_cpu, g_wit)
     check(bool(torch.isfinite(y_card).all()) and y_card.shape == (DEEP_BATCH, 64),
           "cascade output")
     print(f"[13] ops.deep_apply, 4 layers of 4x4 tiles of 16 (64x64, Reck V, "
           f"C = 29), fwd+bwd at B={DEEP_BATCH} on the card in {cascade_ms:.1f} "
           f"ms (first call, pack included); card vs CPU output "
           f"{d_cascade:.2e}, gradients (every tile param, x) "
-          f"{d_cascade_g:.2e} of each one's largest magnitude; "
-          f"launches {launches['cascade']}", flush=True)
+          f"{d_cascade_g:.2e} of each one's largest magnitude; against the "
+          f"float64 witness the card's gradients {d_card_wit:.2e}, the CPU's "
+          f"{d_cpu_wit:.2e}; launches {launches['cascade']}", flush=True)
     report["cascade"] = {"card_vs_cpu_rel": d_cascade,
                          "card_vs_cpu_grads_rel": d_cascade_g,
+                         "card_vs_float64_grads_rel": d_card_wit,
+                         "cpu_vs_float64_grads_rel": d_cpu_wit,
                          "first_fwd_bwd_ms": cascade_ms}
 
     # -- phase 14: serving the deep models -------------------------------------
@@ -1815,15 +1864,7 @@ def main(argv=None) -> int:
         max_rel_check(f"{shape_name} yardstick is the same function",
                       lib_fwd(x_chk), givens_mesh.launch_deepgrid(
                           *inputs, x_chk, detect_last=detect_last), 64)
-        batches = {"cascade_64x64_l4": {"deepgrid_fwd": (DEEP_BATCH,),
-                                        "deepgrid_fwd_res": (DEEP_BATCH,),
-                                        "deepgrid_bwd": (DEEP_BATCH,)},
-                   "mnist_depth4": {"deepgrid_fwd": (1000,),
-                                    "deepgrid_fwd_res": (SGD_BATCH,),
-                                    "deepgrid_bwd": (SGD_BATCH,)},
-                   "tiled_64x64": {"deepgrid_fwd": (256, 1024),
-                                   "deepgrid_fwd_res": (1024,),
-                                   "deepgrid_bwd": (1024,)}}[shape_name]
+        batches = DEEP_TIMED_BATCHES[shape_name]
         for name, bs in batches.items():
             for b in bs:
                 width_in = inputs[0].shape[2] * 2 * inputs[0].shape[-1]

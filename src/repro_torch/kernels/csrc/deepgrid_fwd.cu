@@ -32,10 +32,11 @@
 //
 // Design.  The coefficients, not the rows, are what a launch moves: the
 // 4-layer 64 x 64 cascade (4 x 4 tiles of 16, Reck V, C = 29) holds 0.99 MB
-// of them.  So a block owns R rows chosen from the batch (R = ceil(B / SMs),
-// one block an SM: 8 rows and 128 blocks at B = 1024 on the H100's 132), and
-// every coefficient it stages serves all R rows: about 127 MB cross from L2
-// a call at the cascade instead of 1 GB when a block owned one row.
+// of them.  So on the register path (below) a block owns R rows chosen
+// from the batch (R = ceil(B / SMs), one block an SM: 8 rows and 128
+// blocks at B = 1024 on the H100's 132), and every coefficient it stages
+// serves all R rows: about 127 MB cross from L2 a call at the cascade
+// instead of 1 GB when a block owned one row.
 //
 // Register path, n in {2, 4, 8, 16, 32} (deepgrid_reg_kernel<n>): one thread
 // per (row, tile), rows fastest, R To Ti threads (rounded up to a warp, at
@@ -69,22 +70,23 @@
 // loaded ahead; three or four smaller chunk buffers; the chunks multicast
 // by TMA to a cluster of two blocks.
 //
-// General path, any other even n (deepgrid_general_kernel): R rows in
-// shared memory, 128 threads over (row, tile, pair slot), one barrier per
-// column (mesh_sweep.cuh: grid_forward_sweep), coefficients through __ldg
-// (L1 shares them across the block's rows); R is raised from the batch in
-// the same way, as far as shared memory allows.  The path is chosen by n
-// and the grid's size alone (deepgrid_fwd_plan reports it); an error is
-// returned, never a fallback.
+// General path, any other even n (deepgrid_general_kernel): the kernel as
+// it was before the register path, R = 128 / (To Ti n / 2) rows in shared
+// memory (at least 1, fewer where shared memory would not hold them), 128
+// threads over (row, tile, pair slot), one barrier per column
+// (mesh_sweep.cuh: grid_forward_sweep), coefficients through __ldg (L1
+// shares them across the block's rows).  The path is chosen by n and the
+// grid's size alone (deepgrid_fwd_plan reports it); an error is returned,
+// never a fallback.
 //
 // Bound: per row and layer, 28 flops per real cell of both meshes of every
 // tile, against 8 Ti n bytes of input and 4 To n (or 8 To n) of output:
 // operation-bound above a few tiles (64 x 64, L = 4, Reck V: 0.46 GFLOP at
 // B = 1024, 6.9 us at the float32 peak).  What holds the register path
-// above it at the cascade (tools/deepgrid_breakdown.py splits the time):
-// the sweep, whose every thread gets each live coefficient from shared
-// memory for its one row (32 bytes a cell, R times a block), and the chunk
-// stream with its marks and barriers, which the sweep hides only in part.
+// above it at the cascade: the sweep, whose every thread gets each live
+// coefficient from shared memory for its one row (32 bytes a cell, R
+// times a block), and the chunk stream with its marks and barriers, which
+// the sweep hides only in part.
 // At the MNIST depth-4 shape (n = 8, one tile) a launch is bound by the
 // chain of 4 x 2 x 8 dependent columns and launch latency.
 
@@ -674,7 +676,8 @@ inline int sm_count(int* sms) {
   return 0;
 }
 
-// R from the batch: enough rows a block that one block an SM covers it.
+// The register path's R from the batch: enough rows a block that one block
+// an SM covers it.  The general path keeps the rows 128 threads cover.
 inline int make_plan(int batch, int n, int n_layers, int to, int ti,
                      int n_cols, bool save_stages, Plan* pl) {
   int sms = 0;
@@ -713,7 +716,6 @@ inline int make_plan(int batch, int n, int n_layers, int to, int ti,
   }
   int rows = kThreads / (tiles * (n / 2));
   rows = rows < 1 ? 1 : rows;
-  if (want > rows) rows = want;
   while (rows > 1 && general_shared_bytes(n, to, ti, rows) > kMaxShared) {
     --rows;
   }

@@ -523,22 +523,19 @@ _DEEP_BWD_ARGS = {"deepgrid_bwd_blocks": [_I] * 7,
 
 
 def deepgrid_fwd_plan(batch: int, n: int, n_layers: int, to: int, ti: int,
-                      n_cols: int, save_stages: bool = False,
-                      device=None) -> dict:
+                      n_cols: int, save_stages: bool = False) -> dict:
     """How kernel B6 (or, with ``save_stages``, B7) launches for ``batch``
-    rows of an (L, To, Ti, C, n) grid on ``device`` (default: the current
-    card): ``register_path`` (1 for
-    n in {2, 4, 8, 16, 32} and grids whose block fits, else 0), ``rows`` a
-    block (R), ``blocks``, ``threads`` a block, dynamic ``shared_bytes`` a
-    block, ``chunk_columns`` staged at a time and the ring's ``stages`` (0
-    on the general path).  The plan depends on the shape and the card's SM
-    count alone."""
+    rows of an (L, To, Ti, C, n) grid on the current card: ``register_path``
+    (1 for n in {2, 4, 8, 16, 32} and grids whose block fits, else 0),
+    ``rows`` a block (R), ``blocks``, ``threads`` a block, dynamic
+    ``shared_bytes`` a block, ``chunk_columns`` staged at a time and the
+    ring's ``stages`` (0 on the general path).  The plan depends on the
+    shape and the card's SM count alone."""
     if batch < 1:
         raise ValueError(f"a plan needs batch >= 1, got {batch}")
     plan = (_I * len(_PLAN_KEYS))()
     fn = _lib("deepgrid_fwd", _DEEP_FWD_ARGS).deepgrid_fwd_plan
-    with torch.cuda.device(device):
-        err = fn(batch, n, n_layers, to, ti, n_cols, int(save_stages), plan)
+    err = fn(batch, n, n_layers, to, ti, n_cols, int(save_stages), plan)
     if err != 0:
         raise RuntimeError(f"deepgrid_fwd_plan failed: CUDA error {err} "
                            f"(B={batch}, n={n}, L={n_layers}, To={to}, "

@@ -23,10 +23,11 @@ import torch
 
 
 def split_channels(x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Complex [B, N] -> (xer, xei, xor, xoi) float32 [B, N//2] planes."""
+    """Complex [B, N] -> (xer, xei, xor, xoi) real [B, N//2] planes, float32
+    for complex64 and float64 for complex128 (the kernels take complex64;
+    a complex128 grid is the float64 witness of their plain versions)."""
     xe, xo = x[..., 0::2], x[..., 1::2]
-    return (xe.real.float(), xe.imag.float(), xo.real.float(),
-            xo.imag.float())
+    return xe.real, xe.imag, xo.real, xo.imag
 
 
 def merge_channels(xer, xei, xor, xoi) -> torch.Tensor:
@@ -397,7 +398,8 @@ def deep_grid_planes(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
     su)``: the last layer's rows, float32 magnitudes (``detect_last``) or
     complex64, ``[B, To * n]`` in channel order; and every tile's post-V
     and post-U stage boundaries, complex64 [L, B, To, Ti, n], both taken
-    before their gain.
+    before their gain.  A complex128 ``x`` with float64 coefficients and
+    gains runs the same steps in float64.
     """
     n_layers, to, ti, c, p, gv, gu, gl = _deep_setup(coef_v, par_v, par_u,
                                                      gains)

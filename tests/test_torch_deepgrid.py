@@ -314,6 +314,31 @@ def test_plain_backward_equals_autograd_of_plain_forward(shape, detect_last):
         assert _rel(got.detach(), want) <= REL_TOL
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 1, 4), (2, 2, 2, 4), (3, 1, 1, 8)])
+def test_plain_forward_in_float64_is_a_witness(shape):
+    """The plain B6/B7 on a complex128 grid (float64 coefficients and gains)
+    stays in float64 and agrees with the float32 grid's forward, and
+    autograd through it with the plain B8: within 1e-5 relative."""
+    rng = np.random.default_rng(sum(shape) + 20)
+    inputs = _grid_inputs(rng, *shape, mixed=True)
+    out, sv, su = givens_mesh.deepgrid_forward_plain(*inputs, detect_last=True)
+    g = torch.from_numpy(rng.normal(size=out.shape).astype(np.float32))
+    grads = givens_mesh.deepgrid_backward_plain(*inputs, sv, su, g,
+                                                detect_last=True)
+    wide = [inputs[k].to(torch.complex128 if k == 5 else torch.float64)
+            .requires_grad_(True) for k in (0, 2, 4, 5)]
+    o64, sv64, su64 = ref.deep_grid_planes(wide[0], inputs[1], wide[1],
+                                           inputs[3], wide[2], wide[3],
+                                           detect_last=True)
+    assert o64.dtype == torch.float64 and sv64.dtype == torch.complex128
+    for got, want in ((out, o64), (sv, sv64), (su, su64)):
+        assert _rel(got, want.detach()) <= REL_TOL
+    auto = torch.autograd.grad(o64, wide, grad_outputs=g.double())
+    for got, want in zip(grads, auto):
+        assert want.dtype in (torch.float64, torch.complex128)
+        assert _rel(got, want) <= REL_TOL
+
+
 def test_deep_grid_stages_and_validation():
     """The saved boundaries' layout and the checks on the kernels' inputs."""
     rng = np.random.default_rng(4)

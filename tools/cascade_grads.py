@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""chip_smoke.py phase 13's card-against-CPU check of the 4-layer 64x64
+cascade's gradients, at several grid seeds, for this checkout's ``src/``
+or another tree's.
+
+    python3 tools/cascade_grads.py [--src DIR] [--label NAME]
+
+For each seed ``s`` in 0..4, the grid is chip_smoke's ``--seed s`` cascade
+(``build_deep_grid(..., 40 + s, reck="all")``); ``x`` (complex normal) and
+the loss weights ``w`` (normal) at B = 1024 are drawn from seed ``s``.  The
+gradients of ``sum(w * ops.deep_apply(...))`` in every tile param and ``x``
+are taken on the card (B7, B8) and on the CPU (their plain versions), and
+each leaf's max |card - CPU| / max |CPU| is printed beside phase 13's
+bound (1e-5 x 16), with the leaf that reads it.  Where the tree's plain
+version runs in float64 (``ref.split_channels`` keeps complex128's
+precision), three gradients are held against the float64 witness
+(chip_smoke's ``cascade_grads(plain_dtype=torch.float64)``): the card's,
+the CPU's, and autograd's through the plain forward in float32 (no
+rebuild of a column's input from its output).  Writes the readings to
+``chiprun_out/cascade_grads_<label>.json``.  Needs a CUDA card and
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+BOUND = 1e-5 * 16     # phase 13's: 1e-5 * n of each leaf's largest magnitude
+SEEDS = (0, 1, 2, 3, 4)
+
+
+def leaf_names(tree, prefix=""):
+    """Paths of ``tree``'s leaves in ``chip_smoke.tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in leaf_names(v, f"{prefix}.{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [q for i, v in enumerate(tree)
+                for q in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def worst(got, want, names):
+    """(largest per-leaf relative error, its leaf's name)."""
+    errs = [chip_smoke.leaf_rel([a], [b]) for a, b in zip(got, want)]
+    k = max(range(len(errs)), key=errs.__getitem__)
+    return errs[k], names[k]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="tree")
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("cascade_grads: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    import repro_torch.core  # noqa: F401  (first: the kernels import it)
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    card = chip_smoke.card_line()
+    has_witness = ref.split_channels(torch.zeros(
+        1, 2, dtype=torch.complex128))[0].dtype == torch.float64
+    rows = []
+    for s in SEEDS:
+        layers, plans, _ = chip_smoke.build_deep_grid(dev, 16, 4, 4, 4, 40 + s,
+                                                      reck="all")
+        rng = np.random.default_rng(s)
+        x = torch.from_numpy((rng.normal(size=(1024, 64))
+                              + 1j * rng.normal(size=(1024, 64)))
+                             .astype(np.complex64))
+        w = torch.from_numpy(rng.normal(size=(1024, 64)).astype(np.float32))
+        names = leaf_names(layers) + ["x"]
+        grads = {side: chip_smoke.cascade_grads(side, layers, plans, x, w)
+                 for side in (dev, "cpu")}
+        (y_card, g_card), (y_cpu, g_cpu) = grads[dev], grads["cpu"]
+        row = {"label": args.label, "card": card, "seed": s,
+               "output_card_vs_cpu": chip_smoke.leaf_rel([y_card], [y_cpu])}
+        row["card_vs_cpu"], row["card_vs_cpu_leaf"] = worst(g_card, g_cpu,
+                                                            names)
+        line = (f"[{args.label}] {card} | seed {s}: output "
+                f"{row['output_card_vs_cpu']:.3e}, gradients card vs CPU "
+                f"{row['card_vs_cpu']:.3e} at {row['card_vs_cpu_leaf']} "
+                f"(bound {BOUND:.1e}: "
+                f"{'within' if row['card_vs_cpu'] <= BOUND else 'OVER'})")
+        if has_witness:
+            g_wit, g_auto = (chip_smoke.cascade_grads(
+                "cpu", layers, plans, x, w, plain_dtype=dt)[1]
+                for dt in (torch.float64, torch.float32))
+            line += "; against the float64 witness"
+            for side, g in (("card", g_card), ("cpu", g_cpu),
+                            ("cpu_autograd", g_auto)):
+                err, leaf = worst(g, g_wit, names)
+                row[f"{side}_vs_float64"] = err
+                row[f"{side}_vs_float64_leaf"] = leaf
+                line += f" {side} {err:.3e} at {leaf}"
+        rows.append(row)
+        print(line, flush=True)
+    out = ROOT / "chiprun_out" / f"cascade_grads_{args.label}.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,144 +1,41 @@
 #!/usr/bin/env python3
-"""Time the deep-grid kernels B6, B7 and B8 on one card at the main path's
-shapes, for this checkout's ``src/`` or another tree's.
+"""Time the deep-grid kernels B6, B7 and B8 on one card at chip_smoke.py
+phase 15's shapes and batches, for this checkout's ``src/`` or another
+tree's.
 
-    python3 tools/deepgrid_times.py [--src DIR] [--label NAME] [--seed N]
+    python3 tools/deepgrid_times.py [--src DIR] [--label NAME]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is built and
 timed (default: the one beside this script), so one call can time an older
 tree unpacked beside this one and this one in turns (older, newer, newer,
-older: one process each, on the same card).  The shapes are chip_smoke.py
-phase 15's: the 4-layer 64x64 cascade (4 x 4 tiles of 16, Reck V, C = 29)
-at B = 1024; ``MnistRFNN(analog_depth=4)``'s grid (n = 8, one tile,
-PROTOTYPE) at B = 1000 (B6) and 10 (B7, B8); ``TiledAnalogLinear(64, 64,
-16)`` at B = 256 and 1024 (B6) and 1024 (B7, B8).  Device ms come from CUDA
-events around back-to-back launches while the stream is held
-(``torch.cuda._sleep``), so the host's queueing is not timed.  Where the
-tree reports B6/B7's launch plan (``givens_mesh.deepgrid_fwd_plan``), the
-line carries R, the block count and the shared bytes a block.  Prints one
-line per reading and writes them all to ``chiprun_out/deepgrid_times_
-<label>.json``.  Needs a CUDA card and ``nvcc``.
+older: one process each, on the same card).  The grids are chip_smoke.py's
+(``build_deep_grid``, ``DEEP_TIMED_BATCHES``): the 4-layer 64x64 cascade
+(seed 40), the depth-4 MNIST grid (n = 8, one tile, PROTOTYPE, seed 41)
+and ``TiledAnalogLinear(64, 64, 16)`` (seed 3).  Device ms come from
+chip_smoke's ``device_ms`` (the stream held while the host queues).  Where
+the tree reports B6/B7's launch plan (``givens_mesh.deepgrid_fwd_plan``),
+the line carries it.  Prints one line per reading and writes them all to
+``chiprun_out/deepgrid_times_<label>.json``.  Needs a CUDA card and
+``nvcc``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SHAPES = {  # shape: (kernel, B) pairs, as chip_smoke.py phase 15
-    "cascade_64x64_l4": (("deepgrid_fwd", 1024), ("deepgrid_fwd_res", 1024),
-                         ("deepgrid_bwd", 1024)),
-    "mnist_depth4": (("deepgrid_fwd", 1000), ("deepgrid_fwd_res", 10),
-                     ("deepgrid_bwd", 10)),
-    "tiled_64x64": (("deepgrid_fwd", 256), ("deepgrid_fwd", 1024),
-                    ("deepgrid_fwd_res", 1024), ("deepgrid_bwd", 1024)),
-}
+sys.path.insert(0, str(ROOT))
 
-
-def device_ms(torch, fn, iters: int, warmup: int = 5) -> float:
-    """Mean device ms per call with the stream held while the host queues."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(100_000_000)
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    queued_ms = (time.perf_counter() - t0) * 1e3
-    ev[2].record()
-    ev[2].synchronize()
-    if queued_ms >= ev[0].elapsed_time(ev[1]):
-        raise RuntimeError("queueing outlasted the held stream: device time "
-                           "not separable")
-    return ev[1].elapsed_time(ev[2]) / iters
-
-
-def call_ms(torch, fn, iters: int) -> float:
-    """Mean ms per call of back-to-back calls (host and device)."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def make_packs(torch, dev, seed: int) -> dict:
-    """Phase 15's three grids packed on ``dev``: shape name -> (packed,
-    detect_last).  ``repro_torch`` must be importable."""
-    import numpy as np
-
-    from repro_torch.core import decompose
-    from repro_torch.core import mesh as mesh_lib
-    from repro_torch.core.analog_linear import TiledAnalogLinear
-    from repro_torch.kernels import ops
-    from repro_torch.paper.prototype import PROTOTYPE
-
-    def deep_grid(n, depth, to, ti, grid_seed, reck, hw=None):
-        """chip_smoke.py's grids: random Clements tiles, or a Reck V on every
-        tile (C = 2n - 3), attenuations in [0.2, 0.9], scales near 1."""
-        r = np.random.default_rng(grid_seed)
-        shape = mesh_lib.clements_plan(n).param_shape()
-
-        def t(a):
-            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
-
-        def clements():
-            return {"theta": t(r.uniform(0, np.pi, shape)),
-                    "phi": t(r.uniform(0, 2 * np.pi, shape)),
-                    "alpha": t(r.uniform(0, 2 * np.pi, n))}
-
-        layers, plans = [], []
-        for _ in range(depth):
-            rows, prow = [], []
-            for o in range(to):
-                row, pr = [], []
-                for i in range(ti):
-                    v, pair = clements(), None
-                    if reck:
-                        plan, v = decompose.reck_program(
-                            decompose.random_unitary(
-                                n, int(r.integers(1 << 30))), device=dev)
-                        pair = (plan, None)
-                    row.append({"v": v, "u": clements(),
-                                "atten": t(r.uniform(0.2, 0.9, n)),
-                                "scale": torch.tensor(1.0 + 0.05 * (o + i),
-                                                      device=dev)})
-                    pr.append(pair)
-                rows.append(tuple(row))
-                prow.append(tuple(pr))
-            layers.append(tuple(rows))
-            plans.append(tuple(prow))
-        with torch.no_grad():
-            return ops.pack_deep_grid(tuple(layers), n=n, plans=tuple(plans),
-                                      hardware=hw)
-
-    tiled = TiledAnalogLinear(64, 64, tile_size=16, quantize="table1",
-                              output="abs")
-    tparams = tiled.init(torch.Generator().manual_seed(seed + 3), device=dev)
-    return {"cascade_64x64_l4": (deep_grid(16, 4, 4, 4, seed + 40, True),
-                                 True),
-            "mnist_depth4": (deep_grid(8, 4, 1, 1, seed + 41, False,
-                                       PROTOTYPE), True),
-            "tiled_64x64": (ops.pack_tile_grid(tiled._tile_args(tparams),
-                                               n=16), False)}
+import chip_smoke  # noqa: E402
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -146,57 +43,67 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch.core  # noqa: F401  (first: the kernels import it)
-    from repro_torch.kernels import givens_mesh, schedule
+    from repro_torch.core.analog_linear import TiledAnalogLinear
+    from repro_torch.kernels import givens_mesh, ops, schedule
+    from repro_torch.paper.prototype import PROTOTYPE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    card = card.splitlines()[0]
-
-    packs = make_packs(torch, dev, args.seed)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    card = chip_smoke.card_line()
+    tiled = TiledAnalogLinear(64, 64, tile_size=16, quantize="table1",
+                              output="abs")
+    tparams = tiled.init(torch.Generator().manual_seed(3), device=dev)
+    packs = {
+        "cascade_64x64_l4": (chip_smoke.build_deep_grid(
+            dev, 16, 4, 4, 4, 40, reck="all")[2], True),
+        "mnist_depth4": (chip_smoke.build_deep_grid(
+            dev, 8, 4, 1, 1, 41, hw=PROTOTYPE)[2], True),
+        "tiled_64x64": (ops.pack_tile_grid(tiled._tile_args(tparams), n=16),
+                        False)}
+    gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for shape_name, pairs in SHAPES.items():
+    for shape_name, batches in chip_smoke.DEEP_TIMED_BATCHES.items():
         (deep, (cv, cu, gains)), detect = packs[shape_name]
         pv, pu = schedule.deep_grid_parity_arrays(deep, dev)
         inputs = [cv, pv, cu, pu, gains]
         depth, to, ti, c, _, p = cv.shape
         n = 2 * p
-        for name, b in pairs:
-            x = torch.randn(b, ti * n, dtype=torch.complex64, device=dev,
-                            generator=gen)
-            kw = {"detect_last": detect}
-            if name == "deepgrid_bwd":
-                _, sv, su = givens_mesh.launch_deepgrid(*inputs, x,
-                                                        save_stages=True, **kw)
-                g = (torch.rand(b, to * n, device=dev, generator=gen) if detect
-                     else torch.randn(b, to * n, dtype=torch.complex64,
-                                      device=dev, generator=gen))
-                fn = lambda: givens_mesh.launch_deepgrid_backward(  # noqa: E731
-                    *inputs, x, sv, su, g, **kw)
-            else:
-                save = name == "deepgrid_fwd_res"
-                fn = lambda: givens_mesh.launch_deepgrid(  # noqa: E731
-                    *inputs, x, save_stages=save, **kw)
-            row = {"label": args.label, "card": card, "kernel": name,
-                   "shape": shape_name, "B": b, "columns": c,
-                   "device_ms": device_ms(torch, fn, 200),
-                   "call_ms": call_ms(torch, fn, 200)}
-            if name != "deepgrid_bwd" and hasattr(givens_mesh,
-                                                  "deepgrid_fwd_plan"):
-                row["plan"] = givens_mesh.deepgrid_fwd_plan(
-                    b, n, depth, to, ti, c, save_stages=save)
-            rows.append(row)
-            plan = row.get("plan")
-            print(f"[{args.label}] {card} | {name} {shape_name} B={b} (C={c}): "
-                  f"{row['device_ms']:.5f} ms on the device, "
-                  f"{row['call_ms']:.5f} ms per call"
-                  + (f"; R={plan['rows']}, {plan['blocks']} blocks of "
-                     f"{plan['threads']} threads, {plan['shared_bytes']} "
-                     f"shared bytes, {'register' if plan['register_path'] else 'general'} path"
-                     if plan else ""), flush=True)
+        kw = {"detect_last": detect}
+        for name, bs in batches.items():
+            for b in bs:
+                x = torch.randn(b, ti * n, dtype=torch.complex64, device=dev,
+                                generator=gen)
+                if name == "deepgrid_bwd":
+                    _, sv, su = givens_mesh.launch_deepgrid(
+                        *inputs, x, save_stages=True, **kw)
+                    g = (torch.rand(b, to * n, device=dev, generator=gen)
+                         if detect else
+                         torch.randn(b, to * n, dtype=torch.complex64,
+                                     device=dev, generator=gen))
+                    fn = lambda: givens_mesh.launch_deepgrid_backward(  # noqa: E731
+                        *inputs, x, sv, su, g, **kw)
+                else:
+                    save = name == "deepgrid_fwd_res"
+                    fn = lambda: givens_mesh.launch_deepgrid(  # noqa: E731
+                        *inputs, x, save_stages=save, **kw)
+                row = {"label": args.label, "card": card, "kernel": name,
+                       "shape": shape_name, "B": b, "columns": c,
+                       "device_ms": chip_smoke.device_ms(torch, fn, 200),
+                       "call_ms": chip_smoke.cuda_ms(torch, fn, 200)}
+                line = (f"[{args.label}] {card} | {name} {shape_name} B={b} "
+                        f"(C={c}): {row['device_ms']:.5f} ms on the device, "
+                        f"{row['call_ms']:.5f} ms per call")
+                if name != "deepgrid_bwd" and hasattr(givens_mesh,
+                                                      "deepgrid_fwd_plan"):
+                    plan = givens_mesh.deepgrid_fwd_plan(
+                        b, n, depth, to, ti, c, save_stages=save)
+                    row["plan"] = plan
+                    line += (f"; {'register' if plan['register_path'] else 'general'}"
+                             f" path, R={plan['rows']}, {plan['blocks']} "
+                             f"blocks of {plan['threads']} threads, "
+                             f"{plan['shared_bytes']} shared bytes")
+                rows.append(row)
+                print(line, flush=True)
     out = ROOT / "chiprun_out" / f"deepgrid_times_{args.label}.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
