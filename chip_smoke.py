@@ -13,9 +13,10 @@ exits non-zero):
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
    ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
    started together, beside one more ``nvcc -Xptxas -v`` each of
-   ``flash_attn_fwd.cu`` and ``deepgrid_fwd.cu`` (registers and spill
-   bytes of every B6/B7 instantiation printed; no kernel of B9, B6 or B7
-   may spill registers);
+   ``flash_attn_fwd.cu``, ``deepgrid_fwd.cu``, ``mesh_fwd.cu`` and
+   ``mesh_bwd.cu`` (registers and spill bytes of every B1, B2, B6 and B7
+   instantiation printed; no kernel of B9, B1, B2, B6 or B7 may spill
+   registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -24,7 +25,10 @@ exits non-zero):
    4096}, ideal and PROTOTYPE, a mixed-parity schedule, B = 0 and the
    training step's shape, against its plain version and against autograd
    through the plain forward (each output within 1e-5 * n of its largest
-   magnitude), with bit-identical ``dcoef`` over two calls; then the fused
+   magnitude), with bit-identical ``dcoef`` over two calls; B1's and B2's
+   register paths at n in {2, 4, 8, 16, 32} and B in {1, 31, 32, 33, 160,
+   255, 256, 257, 1000, 65536}, the same checks, their launch plans printed
+   (one B2 kernel a call up to B = 256); then the fused
    layer's kernels B3, B4 and B5 for n in {2, 8, 16, 64}, B in {1, 7, 130,
    4096}, Clements and Reck plans (Cv != Cu), ideal and PROTOTYPE, zero
    attenuations, zero input rows and B = 0, against their plain versions
@@ -54,7 +58,11 @@ exits non-zero):
    launch once per step and B3 never;
 9. times at n = 8 with CUDA events: each kernel (per call, and on the
    device alone), its bound, its plain version and a ``torch.matmul``
-   yardstick, the whole ``mesh_apply`` and the SGD step;
+   yardstick, the whole ``mesh_apply`` and the SGD step; B1 and B2 at
+   ``MESH_TIMED``'s shapes (n = 2 at B = 160 among them) beside their times
+   before the register paths (``MESH_PARENT_MS``, PERF.md), and B2 one
+   kernel a call at n = 8, B = 10 and n = 2, B = 160 (every device event
+   the profiler records over 20 calls is B2's, none ``reduce_partials``);
 10. the deep-grid kernels B6, B7 and B8 against their plain versions for
     (L, To, Ti, n) in {(1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16),
     (4, 4, 4, 16), (1, 2, 3, 4), (1, 1, 1, 2), (2, 2, 2, 32)} (B6/B7's
@@ -76,8 +84,9 @@ exits non-zero):
     steps (B7 and B8 once per step, card vs CPU);
 13. the 4-layer 64x64 cascade (``ops.deep_apply``, 4x4 tiles of 16, Reck V
     plans, C = 29): fwd+bwd at B = 1024 through one B7 and one B8 launch,
-    output and every gradient card vs CPU, and the distance of both sides'
-    gradients from a float64 witness of the grid (printed, not bounded);
+    output and every gradient card vs CPU, and both sides' gradients
+    against a float64 witness of the grid, each leaf within ``WITNESS_C``
+    x 2^-24 of its terms' magnitudes (``witness_magnitudes``);
 14. ``ServingEngine`` over ``TiledAnalogLinear(64, 64)`` and
     ``AnalogSequence(8, 4)``: 256 requests each equal to a direct apply,
     ``PACK_EVENTS`` unchanged after the first tick;
@@ -214,6 +223,53 @@ DEEP_PARENT_MS = {
     ("deepgrid_fwd", "tiled_64x64", 1024): 0.04085,
     ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03906,
     ("deepgrid_bwd", "tiled_64x64", 1024): 0.16540}
+# B1/B2's device ms before their register paths (the PR 11/12 shared-memory
+# sweeps), at phase 9's shapes: tools/deepgrid_times.py on that tree, the
+# mean of its two runs in the call of PERF.md §6's parent-versus-change
+# table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+MESH_PARENT_MS = {
+    ("mesh_fwd", 8, 8): 0.005155, ("mesh_fwd", 8, 10): 0.00514,
+    ("mesh_fwd", 8, 64): 0.00536, ("mesh_fwd", 8, 1000): 0.005505,
+    ("mesh_fwd", 8, 65536): 0.01205, ("mesh_fwd", 2, 160): 0.002865,
+    ("mesh_bwd", 8, 8): 0.011505, ("mesh_bwd", 8, 10): 0.01197,
+    ("mesh_bwd", 8, 1000): 0.0135, ("mesh_bwd", 8, 65536): 0.055155,
+    ("mesh_bwd", 2, 160): 0.006155}
+# phase 9's mesh shapes: kernel -> (n, B): the MNIST RFNN's test batch and
+# SGD batch, the engine panel, the fit program's identity probes (B = n =
+# 8), a large batch, and the 2x2 RFNN's 160 training points
+MESH_TIMED = {"mesh_fwd": ((8, 8), (8, SGD_BATCH), (8, 64), (8, 1000),
+                           (8, 65536), (2, 160)),
+              "mesh_bwd": ((8, 8), (8, SGD_BATCH), (8, 1000), (8, 65536),
+                           (2, 160))}
+# C-port2: phase 13's float64-witness check.  Every gradient leaf, on the
+# card and on the CPU, lies within WITNESS_C * 2^-24 * M of the float64
+# witness, M the largest over the leaf's entries of the float64 sum, over
+# disjoint chunks of 16 rows, of |the chunk's witness gradient|
+# (witness_magnitudes; for x, whose rows are their own chunks, max |dx|).
+# WITNESS_C = d, the first-order worst-case rounding bound gamma_d ~ d 2^-24
+# (Higham, Accuracy and Stability of Numerical Algorithms, 2nd ed., sec.
+# 3.1): a term through d roundings, each at most 2^-24 of what it acts on,
+# errs by at most d 2^-24 of its magnitude.  d counts the roundings on the
+# longest path of one row's term to a leaf at the cascade (L = 4, To = Ti =
+# 4, n = 16, C = 29, B = 1024):
+#   33   the batch sum: the plain backward's torch.sum over 1024 rows, a
+#        cascade of 16, 16 and 4 partial sums (15 + 15 + 3 adds); B8's is at
+#        most 28: 3 in a 4-row tile, 1 more tile a block, at most 17 in a
+#        strided group of reduce_partials' slices (at most 137 blocks: its
+#        128 MiB budget), 7 group adds;
+#   1008 the row's cotangent through four layers, 252 each: two reversed
+#        sweeps of 29 columns, 4 roundings a column (a product and up to
+#        three adds, 232), three gain adjoints (2 each), the |.| backward
+#        with its row rebuilt from Ti = 4 tiles (11) and the combine's
+#        transpose over To = 4 (3);
+#   2    the conjugate product of state and cotangent;
+#   25   the pack's float32 chain to the leaf (a scale's 12 P = 96 gain
+#        entries: 15 + 5 adds and their products; a phase's 8 entries).
+# (Higham and Mary's probabilistic bound, 6 sqrt(d) = 196, does not hold
+# here: the plain backward's dx reads 400 at grid seed 43.)
+WITNESS_ROUNDINGS = 33 + 4 * (2 * 29 * 4 + 3 * 2 + 11 + 3) + 2 + 25
+WITNESS_C = WITNESS_ROUNDINGS
+WITNESS_CHUNK = 16
 # phase 15's timed batches: shape -> kernel -> B (the cascade at its batch,
 # the depth-4 MNIST network's B6 at the test batch and B7/B8 at the SGD
 # batch, the tiled layer at two batches)
@@ -247,6 +303,21 @@ GOLDEN_2X2_MAP_PROTO = [
     [6.3667744e-01, 9.9996173e-01, 1.0000000e+00, 1.0000000e+00, 1.0000000e+00],
     [6.6402835e-01, 9.9996626e-01, 1.0000000e+00, 1.0000000e+00, 1.0000000e+00],
 ]
+
+
+def mesh_params(n: int, seed: int) -> dict:
+    """Random Clements phases of an n-channel mesh (CPU tensors)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import mesh as mesh_lib
+
+    rng = np.random.default_rng(seed)
+    shape = mesh_lib.clements_plan(n).param_shape()
+    return {"theta": torch.from_numpy(
+                rng.uniform(0, np.pi, shape).astype(np.float32)),
+            "phi": torch.from_numpy(
+                rng.uniform(0, 2 * np.pi, shape).astype(np.float32))}
 
 
 def check(cond: bool, what: str) -> None:
@@ -421,6 +492,39 @@ def cascade_grads(device, layers, plans, x, w, *, plain_dtype=None):
     return y.detach().cpu(), [t.grad.cpu() for t in leaves + [xx]]
 
 
+def witness_magnitudes(layers, plans, x, w, rows=WITNESS_CHUNK):
+    """Per gradient leaf of :func:`cascade_grads` (``x`` last), the largest
+    over its entries of the float64 sum over disjoint chunks of ``rows``
+    rows of |the chunk's float64-witness gradient|: the magnitudes of the
+    batch sum's terms, a chunk at a time (``x``'s rows are their own
+    chunks)."""
+    import torch
+
+    mags = None
+    for r0 in range(0, x.shape[0], rows):
+        _, g = cascade_grads("cpu", layers, plans, x[r0:r0 + rows],
+                             w[r0:r0 + rows], plain_dtype=torch.float64)
+        g = [t.abs().double() for t in g]
+        if mags is None:
+            mags = g[:-1] + [g[-1].max()]
+        else:
+            mags = [a + b for a, b in zip(mags[:-1], g[:-1])] \
+                + [torch.maximum(mags[-1], g[-1].max())]
+    return [float(m.max()) for m in mags]
+
+
+def witness_reading(got, want, mags) -> float:
+    """The largest over leaves of max |got - want| / (2^-24 M_leaf), ``mags``
+    from :func:`witness_magnitudes`: to be held at or below WITNESS_C."""
+    import torch
+
+    def wide(t):
+        return t.to(torch.complex128) if t.is_complex() else t.double()
+
+    return max(float((wide(a) - wide(b)).abs().max()) / (2.0**-24 * max(m, 1e-300))
+               for a, b, m in zip(got, want, mags))
+
+
 def leaf_rel(got, want) -> float:
     """The largest of max |a - b| / max |b| over paired gradients."""
     return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -517,12 +621,14 @@ def main(argv=None) -> int:
                 "per_kernel": per}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 2) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:
         usage = {k: pool.submit(ptxas_usage, k)
-                 for k in ("flash_attn_fwd", "deepgrid_fwd")}
+                 for k in ("flash_attn_fwd", "deepgrid_fwd", "mesh_fwd",
+                           "mesh_bwd")}
         build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
         b9_usage = usage["flash_attn_fwd"].result()
         b67_usage = usage["deepgrid_fwd"].result()
+        b12_usage = {k: usage[k].result() for k in ("mesh_fwd", "mesh_bwd")}
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
@@ -537,9 +643,18 @@ def main(argv=None) -> int:
           flush=True)
     check(b67_usage["spill_bytes"] == 0,
           f"a B6/B7 kernel spills registers: {b67_usage['per_kernel']}")
+    for name, use in b12_usage.items():
+        print(f"[1] {name}.cu under -Xptxas -v, registers (spill bytes) a "
+              "thread: " + ", ".join(
+                  f"{short_kernel(r['kernel'])} {r['registers']} "
+                  f"({r['spill_bytes']})" for r in use["per_kernel"]),
+              flush=True)
+        check(use["spill_bytes"] == 0,
+              f"a {name} kernel spills registers: {use['per_kernel']}")
     report["build_s"] = build_s
     report["b9_ptxas"] = b9_usage
     report["b67_ptxas"] = b67_usage
+    report["b12_ptxas"] = b12_usage
 
     def reset_launches():
         for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
@@ -560,14 +675,6 @@ def main(argv=None) -> int:
         return float((a.cpu() - b.cpu()).abs().max())
 
     # -- phase 2: the kernel against its plain version on the card ----------
-    def params_for(n, seed):
-        rng = np.random.default_rng(seed)
-        shape = mesh_lib.clements_plan(n).param_shape()
-        return {"theta": torch.from_numpy(
-                    rng.uniform(0, np.pi, shape).astype(np.float32)),
-                "phi": torch.from_numpy(
-                    rng.uniform(0, 2 * np.pi, shape).astype(np.float32))}
-
     def rand_x(rng, b, n):
         x = rng.normal(size=(b, n)) + 1j * rng.normal(size=(b, n))
         return torch.from_numpy(x.astype(np.complex64)).to(dev)
@@ -585,7 +692,7 @@ def main(argv=None) -> int:
         sched = schedule.clements_schedule(n)
         par = schedule.parity_array(sched)
         for hw in (None, PROTOTYPE):
-            coef = ops._mesh_coefficients(sched, params_for(n, n), hw, None)
+            coef = ops._mesh_coefficients(sched, mesh_params(n, n), hw, None)
             for b in (1, 7, 130, 4096):
                 err = kernel_vs_plain(coef, par, rand_x(rng, b, n))
                 check(err <= 1e-5 * n, f"mesh_fwd n={n} B={b} hw={hw}: {err}")
@@ -613,7 +720,7 @@ def main(argv=None) -> int:
     main_err = 0.0
     for n, b in ((8, 1000), (8, 64), (2, 25), (2, 1681)):
         sched = schedule.clements_schedule(n)
-        coef = ops._mesh_coefficients(sched, params_for(n, b), PROTOTYPE, None)
+        coef = ops._mesh_coefficients(sched, mesh_params(n, b), PROTOTYPE, None)
         e = kernel_vs_plain(coef, schedule.parity_array(sched),
                             rand_x(rng, b, n))
         check(e <= 1e-5 * n, f"mesh_fwd main-path shape n={n} B={b}: {e}")
@@ -646,16 +753,16 @@ def main(argv=None) -> int:
                 err = float((got - ref).abs().max())
                 check(err <= 1e-5 * n * scale, f"mesh_bwd {what} vs {ref_name} "
                       f"n={n} B={x.shape[0]}: {err} (scale {scale})")
-        if n > 2:
-            odd = (par == 1).nonzero().flatten()
-            check(bool((dc[odd, :, -1] == 0).all()), "odd wrap slot gradient")
+        # the wrap slot of a parity-1 column (at n = 2 the whole column)
+        odd = (par == 1).nonzero().flatten()
+        check(bool((dc[odd, :, -1] == 0).all()), "odd wrap slot gradient")
         return max(float((dc - pc).abs().max()), float((dx - px).abs().max()))
 
     for n in (2, 8, 16, 64):
         sched = schedule.clements_schedule(n)
         par = schedule.parity_array(sched)
         for hw in (None, PROTOTYPE):
-            coef = ops._mesh_coefficients(sched, params_for(n, n), hw, None)
+            coef = ops._mesh_coefficients(sched, mesh_params(n, n), hw, None)
             for b in (1, 7, 130, 4096):
                 bwd_vs_plain(coef, par, rand_x(rng, b, n), rand_x(rng, b, n))
         print(f"[2] n={n}: mesh_bwd == plain == autograd of the plain forward "
@@ -676,13 +783,52 @@ def main(argv=None) -> int:
           and givens_mesh.LAUNCHES["mesh_bwd"] == n_bwd,
           "B=0 backward must return zeros without a launch")
     sched = schedule.clements_schedule(8)   # the SGD step's shape
-    coef = ops._mesh_coefficients(sched, params_for(8, 10), PROTOTYPE, None)
+    coef = ops._mesh_coefficients(sched, mesh_params(8, 10), PROTOTYPE, None)
     main_err_bwd = bwd_vs_plain(coef, schedule.parity_array(sched),
                                 rand_x(rng, SGD_BATCH, 8),
                                 rand_x(rng, SGD_BATCH, 8))
     print(f"[2] mesh_bwd: mixed parity and B=0 ok; max err {main_err_bwd:.3e} "
           f"at the SGD step's shape (n=8, B={SGD_BATCH})", flush=True)
     report["main_path_max_abs_err_bwd"] = main_err_bwd
+
+    # B1/B2's register paths: every width, both parities (n = 2's parity-1
+    # columns hold no cell), batches around a block's rows (32, 256), the
+    # 2x2 RFNN's 160 and one whose blocks walk tiles; a generator of their
+    # own, so every later phase draws what it drew before
+    rng_reg = np.random.default_rng(18)
+    plans_reg = {}
+    for n in givens_mesh.REG_WIDTHS:
+        sched = schedule.clements_schedule(n)
+        par = schedule.parity_array(sched)
+        coef = ops._mesh_coefficients(sched, mesh_params(n, n + 1), PROTOTYPE,
+                                      None)
+        for b in (1, 31, 32, 33, 160, 255, 256, 257, 1000, 65536):
+            x = rand_x(rng_reg, b, n)
+            err = kernel_vs_plain(coef, par, x)
+            check(err <= 1e-5 * n, f"mesh_fwd register path n={n} B={b}: {err}")
+            bwd_vs_plain(coef, par, x, rand_x(rng_reg, b, n))
+            fp = givens_mesh.mesh_fwd_plan(b, n, coef.shape[0])
+            bp = givens_mesh.mesh_bwd_plan(b, n, coef.shape[0])
+            check(fp["register_path"] == 1 and bp["register_path"] == 1,
+                  f"n={n} B={b} left the register path: {fp}, {bp}")
+            check(bp["kernels"] == 1 if b <= 256 else bp["kernels"] == 2,
+                  f"mesh_bwd n={n} B={b}: {bp['kernels']} kernels a call")
+            plans_reg[(n, b)] = {"mesh_fwd": fp, "mesh_bwd": bp}
+        print(f"[2] n={n}: register paths of mesh_fwd and mesh_bwd == plain "
+              f"(B2 == autograd of the plain forward, dcoef bit-identical) at "
+              f"B 1..65536; plans (fwd rows/blocks | bwd rows/blocks/kernels) "
+              + ", ".join(
+                  f"B={b}: {v['mesh_fwd']['rows']}/{v['mesh_fwd']['blocks']} | "
+                  f"{v['mesh_bwd']['rows']}/{v['mesh_bwd']['blocks']}/"
+                  f"{v['mesh_bwd']['kernels']}"
+                  for (nn, b), v in plans_reg.items() if nn == n
+                  and b in (32, 160, 257, 65536)), flush=True)
+    for n in (6, 64):
+        check(givens_mesh.mesh_fwd_plan(130, n, n)["register_path"] == 0
+              and givens_mesh.mesh_bwd_plan(130, n, n)["register_path"] == 0,
+              f"n={n} must take the general path")
+    report["mesh_plans"] = {f"{k}_n{n}_B{b}": v for (n, b), pl in
+                            plans_reg.items() for k, v in pl.items()}
 
     def fused_inputs(n, hw, plans, zero_atten, seed):
         """Coefficients, parities and gains of a fused layer on the card.
@@ -692,7 +838,7 @@ def main(argv=None) -> int:
         in g1 (zero attenuations)."""
         def mesh(reck, s):
             if not reck:
-                return schedule.clements_schedule(n), params_for(n, s)
+                return schedule.clements_schedule(n), mesh_params(n, s)
             plan, p = decompose.reck_program(decompose.random_unitary(n, s),
                                              device="cpu")
             return schedule.schedule_from_plan(plan), p
@@ -926,9 +1072,13 @@ def main(argv=None) -> int:
     # device time inside a noiseless step, from the profiler's device events
     per_step, busy_us, ours_us = profile_steps(
         torch, sgd_loop(step_model, False), 20,
-        ("mesh_fwd_kernel", "mesh_bwd_kernel", "reduce_partials"))
-    check(ours_us["mesh_fwd_kernel"] > 0 and ours_us["mesh_bwd_kernel"] > 0,
-          f"the profiled SGD steps show no mesh kernel: {ours_us}")
+        ("mesh_fwd_reg_kernel", "mesh_bwd_reg_kernel", "reduce_partials"))
+    check(ours_us["mesh_fwd_reg_kernel"] > 0
+          and ours_us["mesh_bwd_reg_kernel"] > 0,
+          f"the profiled SGD steps show no register-path mesh kernel: "
+          f"{ours_us}")
+    check(ours_us["reduce_partials"] == 0, f"B2 at n=8, B={SGD_BATCH} must be "
+          f"one kernel a call, no reduce_partials: {ours_us}")
     step_mean = sum(step_ms["noiseless"]) / len(step_ms["noiseless"])
     profile_row = {"device_events_per_step": per_step,
                    "device_busy_us_per_step": busy_us,
@@ -1176,7 +1326,7 @@ def main(argv=None) -> int:
     n = 8
     plan = mesh_lib.clements_plan(n)
     sched = schedule.clements_schedule(n)
-    mp = {k: v.to(dev) for k, v in params_for(n, 3).items()}
+    mp = {k: v.to(dev) for k, v in mesh_params(n, 3).items()}
     coef = ops._mesh_coefficients(sched, mp, None, None)
     par = schedule.parity_array(sched, dev)
     mat = mesh_lib.mesh_matrix(plan, mp)          # the yardstick's matrix
@@ -1197,64 +1347,121 @@ def main(argv=None) -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
-    rows = []
-    for b in (64, 1000, 65536):
-        x = rand_x(rng, b, n)
+    def mesh_setup(n_):
+        """(coef, parity, the yardstick's matrix, rotated pairs a row, the
+        phases) of a Clements mesh of width n_ on the card."""
+        if n_ == n:
+            return coef, par, mat, pairs, mp
+        s_ = schedule.clements_schedule(n_)
+        m_ = {k: v.to(dev) for k, v in mesh_params(n_, 3).items()}
+        return (ops._mesh_coefficients(s_, m_, None, None),
+                schedule.parity_array(s_, dev),
+                mesh_lib.mesh_matrix(mesh_lib.clements_plan(n_), m_),
+                sum(n_ // 2 - q for q in s_.parity), m_)
+
+    def time_fwd(n_, b, x):
+        coef_, par_, mat_, pairs_, mp_ = mesh_setup(n_)
         iters = 200 if b < 65536 else 100
-        k_ms = cuda_ms(torch, lambda: givens_mesh.mesh_forward(coef, par, x),
-                       iters)
+        k_ms = cuda_ms(torch, lambda: givens_mesh.mesh_forward(
+            coef_, par_, x), iters)
         kd_ms = device_ms(torch, lambda: givens_mesh.mesh_forward(
-            coef, par, x), 100)
+            coef_, par_, x), 100)
         p_ms = cuda_ms(torch, lambda: givens_mesh.mesh_forward_plain(
-            coef, par, x), 20)
+            coef_, par_, x), 20)
         a_ms = cuda_ms(torch, lambda: ops.mesh_apply(
-            mp, x, n=n, hardware=PROTOTYPE), 50)
-        l_ms = cuda_ms(torch, lambda: torch.matmul(x, mat.T), iters)
-        ld_ms = device_ms(torch, lambda: torch.matmul(x, mat.T), 100)
-        nbytes = 2 * b * n * 8 + coef.numel() * 4 + par.numel() * 4
-        flops = FLOPS_PER_PAIR * b * pairs
+            mp_, x, n=n_, hardware=PROTOTYPE), 50)
+        l_ms = cuda_ms(torch, lambda: torch.matmul(x, mat_.T), iters)
+        ld_ms = device_ms(torch, lambda: torch.matmul(x, mat_.T), 100)
+        nbytes = 2 * b * n_ * 8 + coef_.numel() * 4 + par_.numel() * 4
+        flops = FLOPS_PER_PAIR * b * pairs_
         bound_ms, bound_by = bound(nbytes, flops)
-        row = {"B": b, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+        parent = MESH_PARENT_MS.get(("mesh_fwd", n_, b))
+        plan_ = givens_mesh.mesh_fwd_plan(b, n_, coef_.shape[0])
+        row = {"n": n_, "B": b, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
                "plain_ms": p_ms, "mesh_apply_ms": a_ms, "matmul_ms": l_ms,
                "matmul_device_ms": ld_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        rows.append(row)
-        print(f"[9] {card} | mesh_fwd n=8 B={b}: kernel {k_ms:.5f} ms per "
-              f"call, {kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
-              f"({bound_by}); plain {p_ms:.4f} ms per call; mesh_apply "
-              f"{a_ms:.4f} ms; matmul {l_ms:.5f} ms per call, {ld_ms:.5f} ms "
-              f"on the device", flush=True)
-    report["timings_n8"] = rows
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               "plan": plan_, "parent_device_ms": parent}
+        print(f"[9] {card} | mesh_fwd n={n_} B={b}: kernel {k_ms:.5f} ms per "
+              f"call, {kd_ms:.5f} ms on the device (before the register path "
+              f"{parent} ms, PERF.md); bound {bound_ms:.6f} ms ({bound_by}); "
+              f"plain {p_ms:.4f} ms per call; mesh_apply {a_ms:.4f} ms; "
+              f"matmul {l_ms:.5f} ms per call, {ld_ms:.5f} ms on the device; "
+              f"plan {plan_}", flush=True)
+        return row
 
+    def time_bwd(n_, b, x, g):
+        coef_, par_, mat_, pairs_, _ = mesh_setup(n_)
+        y = givens_mesh.launch(coef_, par_, x)
+        iters = 200 if b < 65536 else 100
+        k_ms = cuda_ms(torch, lambda: givens_mesh.launch_backward(
+            coef_, par_, y, g), iters)
+        kd_ms = device_ms(torch, lambda: givens_mesh.launch_backward(
+            coef_, par_, y, g), 100)
+        p_ms = cuda_ms(torch, lambda: givens_mesh.mesh_backward_plain(
+            coef_, par_, y, g), 10)
+        l_ms = cuda_ms(torch, lambda: torch.matmul(g, mat_.conj()), iters)
+        ld_ms = device_ms(torch, lambda: torch.matmul(g, mat_.conj()), 100)
+        # read y and g, write dx; read coef and parity, write dcoef
+        nbytes = 3 * b * n_ * 8 + 2 * coef_.numel() * 4 + par_.numel() * 4
+        flops = FLOPS_PER_PAIR_BWD * b * pairs_ \
+            + FLOPS_PER_CELL_INV * coef_.shape[0] * coef_.shape[2]
+        bound_ms, bound_by = bound(nbytes, flops)
+        parent = MESH_PARENT_MS.get(("mesh_bwd", n_, b))
+        plan_ = givens_mesh.mesh_bwd_plan(b, n_, coef_.shape[0])
+        row = {"n": n_, "B": b, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+               "plain_ms": p_ms, "matmul_dx_only_ms": l_ms,
+               "matmul_dx_only_device_ms": ld_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+               "plan": plan_, "parent_device_ms": parent}
+        print(f"[9] {card} | mesh_bwd n={n_} B={b}: kernel {k_ms:.5f} ms per "
+              f"call, {kd_ms:.5f} ms on the device (before the register path "
+              f"{parent} ms, PERF.md); bound {bound_ms:.6f} ms ({bound_by}); "
+              f"plain {p_ms:.4f} ms per call; matmul for the dx half alone "
+              f"{l_ms:.5f} ms per call, {ld_ms:.5f} ms on the device; plan "
+              f"{plan_}", flush=True)
+        return row
+
+    # the shapes phase 9 timed before, drawn from rng in the same order;
+    # the rest of MESH_TIMED from a generator of its own
+    rows = [time_fwd(n, b, rand_x(rng, b, n)) for b in (64, 1000, 65536)]
     rows_bwd = []
     for b in (SGD_BATCH, 1000, 65536):
         x, g = rand_x(rng, b, n), rand_x(rng, b, n)
-        y = givens_mesh.launch(coef, par, x)
-        iters = 200 if b < 65536 else 100
-        k_ms = cuda_ms(torch, lambda: givens_mesh.launch_backward(
-            coef, par, y, g), iters)
-        kd_ms = device_ms(torch, lambda: givens_mesh.launch_backward(
-            coef, par, y, g), 100)
-        p_ms = cuda_ms(torch, lambda: givens_mesh.mesh_backward_plain(
-            coef, par, y, g), 10)
-        l_ms = cuda_ms(torch, lambda: torch.matmul(g, mat.conj()), iters)
-        ld_ms = device_ms(torch, lambda: torch.matmul(g, mat.conj()), 100)
-        # read y and g, write dx; read coef and parity, write dcoef
-        nbytes = 3 * b * n * 8 + 2 * coef.numel() * 4 + par.numel() * 4
-        flops = FLOPS_PER_PAIR_BWD * b * pairs \
-            + FLOPS_PER_CELL_INV * coef.shape[0] * coef.shape[2]
-        bound_ms, bound_by = bound(nbytes, flops)
-        row = {"B": b, "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
-               "plain_ms": p_ms, "matmul_dx_only_ms": l_ms,
-               "matmul_dx_only_device_ms": ld_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        rows_bwd.append(row)
-        print(f"[9] {card} | mesh_bwd n=8 B={b}: kernel {k_ms:.5f} ms per "
-              f"call, {kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
-              f"({bound_by}); plain {p_ms:.4f} ms per call; matmul for the dx "
-              f"half alone {l_ms:.5f} ms per call, {ld_ms:.5f} ms on the "
-              f"device", flush=True)
+        rows_bwd.append(time_bwd(n, b, x, g))
+    rng9 = np.random.default_rng(9)
+    for n_, b in MESH_TIMED["mesh_fwd"]:
+        if not any(r["n"] == n_ and r["B"] == b for r in rows):
+            rows.append(time_fwd(n_, b, rand_x(rng9, b, n_)))
+    for n_, b in MESH_TIMED["mesh_bwd"]:
+        if not any(r["n"] == n_ and r["B"] == b for r in rows_bwd):
+            rows_bwd.append(time_bwd(n_, b, rand_x(rng9, b, n_),
+                                     rand_x(rng9, b, n_)))
+    report["timings_n8"] = rows
     report["timings_bwd_n8"] = rows_bwd
+
+    # B2 at the SGD step's and the 2x2 RFNN's shapes: one kernel a call, so
+    # every device event the profiler records over 20 calls is B2's
+    for n_, b in ((n, SGD_BATCH), (2, 160)):
+        coef_, par_, _, _, _ = mesh_setup(n_)
+        x, g = rand_x(rng9, b, n_), rand_x(rng9, b, n_)
+        y = givens_mesh.launch(coef_, par_, x)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                givens_mesh.launch_backward(coef_, par_, y, g)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(0 < len(names) <= 20
+              and all("mesh_bwd_reg_kernel" in s for s in names),
+              f"mesh_bwd n={n_} B={b}: 20 calls gave the device events "
+              f"{sorted(set(names))} x {len(names)}")
+        print(f"[9] mesh_bwd n={n_} B={b}: 20 calls, {len(names)} device "
+              f"events recorded, all mesh_bwd_reg_kernel (no "
+              f"reduce_partials)", flush=True)
     step_ms_mean = sum(step_ms["noiseless"]) / len(step_ms["noiseless"])
     print(f"[9] {card} | SGD step, MnistRFNN(PROTOTYPE, table1), batch 10: "
           f"{step_ms_mean:.3f} ms, {1e3 / step_ms_mean:.1f} steps/s "
@@ -1737,6 +1944,14 @@ def main(argv=None) -> int:
     _, g_wit = cascade_grads("cpu", cascade_layers, cascade_plans, x_cascade,
                              w_cascade, plain_dtype=torch.float64)
     d_card_wit, d_cpu_wit = leaf_rel(g_card, g_wit), leaf_rel(g_cpu, g_wit)
+    # C-port2: each side within WITNESS_C * 2^-24 * M_leaf of the witness
+    mags = witness_magnitudes(cascade_layers, cascade_plans, x_cascade,
+                              w_cascade)
+    c_card = witness_reading(g_card, g_wit, mags)
+    c_cpu = witness_reading(g_cpu, g_wit, mags)
+    check(c_card <= WITNESS_C and c_cpu <= WITNESS_C,
+          f"cascade gradients against the float64 witness: card {c_card:.1f}, "
+          f"CPU {c_cpu:.1f} x 2^-24 M_leaf, bound {WITNESS_C:.1f}")
     check(bool(torch.isfinite(y_card).all()) and y_card.shape == (DEEP_BATCH, 64),
           "cascade output")
     print(f"[13] ops.deep_apply, 4 layers of 4x4 tiles of 16 (64x64, Reck V, "
@@ -1745,11 +1960,15 @@ def main(argv=None) -> int:
           f"{d_cascade:.2e}, gradients (every tile param, x) "
           f"{d_cascade_g:.2e} of each one's largest magnitude; against the "
           f"float64 witness the card's gradients {d_card_wit:.2e}, the CPU's "
-          f"{d_cpu_wit:.2e}; launches {launches['cascade']}", flush=True)
+          f"{d_cpu_wit:.2e} of it, and {c_card:.1f} and {c_cpu:.1f} x 2^-24 "
+          f"M_leaf (bound {WITNESS_C:.1f}); launches {launches['cascade']}",
+          flush=True)
     report["cascade"] = {"card_vs_cpu_rel": d_cascade,
                          "card_vs_cpu_grads_rel": d_cascade_g,
                          "card_vs_float64_grads_rel": d_card_wit,
                          "cpu_vs_float64_grads_rel": d_cpu_wit,
+                         "card_vs_float64_in_u_m": c_card,
+                         "cpu_vs_float64_in_u_m": c_cpu,
                          "first_fwd_bwd_ms": cascade_ms}
 
     # -- phase 14: serving the deep models -------------------------------------

@@ -100,6 +100,7 @@ using mesh_sweep::cadd;
 using mesh_sweep::cmul;
 using mesh_sweep::gain_at;
 using mesh_sweep::kThreads;
+using mesh_sweep::rotate_regs;
 
 constexpr size_t kMaxShared = 232448;  // what a block may use on sm_90
 constexpr int kRegThreads = 256;       // a register-path block's threads, most
@@ -142,20 +143,6 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
   }
-}
-
-// (a, b) <- t (a, b) for a cell's coefficients c[0..7] = (t00, t01, t10,
-// t11) x (re, im) held in registers: mesh_sweep.cuh's rotate_cell, the same
-// expressions.
-__device__ __forceinline__ void rotate_regs(const float (&c)[8], float2& a,
-                                            float2& b) {
-  float2 a2, b2;
-  a2.x = c[0] * a.x - c[1] * a.y + c[2] * b.x - c[3] * b.y;
-  a2.y = c[0] * a.y + c[1] * a.x + c[2] * b.y + c[3] * b.x;
-  b2.x = c[4] * a.x - c[5] * a.y + c[6] * b.x - c[7] * b.y;
-  b2.y = c[4] * a.y + c[5] * a.x + c[6] * b.y + c[7] * b.x;
-  a = a2;
-  b = b2;
 }
 
 // G consecutive floats of shared memory (16-, 8- or 4-byte aligned).

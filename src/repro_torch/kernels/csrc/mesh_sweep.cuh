@@ -1,8 +1,9 @@
 // Device code shared by the mesh kernels: the forward column sweep, the
 // reversed sweep of the VJP (per-cell inverse, adjoint and coefficient
 // gradient terms), the row sums of a tile's gradient terms, their stacked
-// siblings for a grid of tiles sweeping together, and the block-order
-// reduce of per-block gradient slices.
+// siblings for a grid of tiles sweeping together, the block-order reduce of
+// per-block gradient slices, and the register sweeps (one thread a row,
+// cells staged once a block, a warp's gradient terms summed by shuffles).
 //
 // Included by mesh_fwd.cu (B1), mesh_bwd.cu (B2), rfnn_fwd.cu (B3, B4),
 // rfnn_bwd.cu (B5), deepgrid_fwd.cu (B6, B7) and deepgrid_bwd.cu (B8).
@@ -13,9 +14,11 @@
 // complex channels, float2[rows][n] in shared memory.  Coefficients are
 // float32 [C, 8, P] (t00, t01, t10, t11) x (re, im) per pair slot, P = n / 2;
 // parity[c] = 0 pairs (2s, 2s+1), 1 pairs (2s+1, 2s+2) for s < P - 1.
-// Coefficients are read from global memory through __ldg and never staged:
-// a Reck program has ~2n columns, and all columns of an n = 128 mesh would
-// already take 256 KiB, above the 227 KiB a block may use.
+// The shared-memory sweeps read coefficients from global memory through
+// __ldg and never stage them: a Reck program has ~2n columns, and all
+// columns of an n = 128 mesh would already take 256 KiB, above the 227 KiB
+// a block may use.  The register sweeps (last section) stage them, for
+// n <= 32.
 
 #pragma once
 
@@ -344,6 +347,258 @@ int wave_blocks(Kernel kernel, int tiles, size_t smem, int threads = kThreads) {
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int wave = sms * per_sm > 0 ? sms * per_sm : 1;
   return tiles < wave ? tiles : wave;
+}
+
+// ---------------------------------------------------------------------------
+// register sweeps: one thread a row, the row's n channels in registers
+// ---------------------------------------------------------------------------
+//
+// For n in {2, 4, 8, 16, 32} (mesh_fwd.cu B1, mesh_bwd.cu B2).  A block
+// stages the mesh's cells once in shared memory, cell-major: cell (c, s) is
+// cells[(c P + s) W ...], W float4 — t as (t00, t01) and (t10, t11) and,
+// for the VJP, its inverse adj(t) / det(t) likewise — so a warp reads a cell
+// as broadcasts, and no barrier falls between columns.
+
+constexpr int kRegRowsMax = 256;  // rows (threads) of a register-path block
+
+// (a, b) <- t (a, b) for a cell's coefficients c[0..7] = (t00, t01, t10,
+// t11) x (re, im) held in registers: rotate_cell's expressions.
+__device__ __forceinline__ void rotate_regs(const float (&c)[8], float2& a,
+                                            float2& b) {
+  float2 a2, b2;
+  a2.x = c[0] * a.x - c[1] * a.y + c[2] * b.x - c[3] * b.y;
+  a2.y = c[0] * a.y + c[1] * a.x + c[2] * b.y + c[3] * b.x;
+  b2.x = c[4] * a.x - c[5] * a.y + c[6] * b.x - c[7] * b.y;
+  b2.y = c[4] * a.y + c[5] * a.x + c[6] * b.y + c[7] * b.x;
+  a = a2;
+  b = b2;
+}
+
+// inv = adj(t) / det(t) of a cell t = c[0..7] (|det|^2 floored at kDetEps):
+// reverse_cell's expressions.
+__device__ __forceinline__ void inverse_regs(const float (&c)[8],
+                                             float (&inv)[8]) {
+  const float2 t00 = make_float2(c[0], c[1]), t01 = make_float2(c[2], c[3]);
+  const float2 t10 = make_float2(c[4], c[5]), t11 = make_float2(c[6], c[7]);
+  const float2 det = cadd(cmul(t00, t11), cneg(cmul(t01, t10)));
+  const float d2 = fmaxf(det.x * det.x + det.y * det.y, kDetEps);
+  const float2 inv_det = make_float2(det.x / d2, -det.y / d2);
+  const float2 i00 = cmul(t11, inv_det);
+  const float2 i01 = cneg(cmul(t01, inv_det));
+  const float2 i10 = cneg(cmul(t10, inv_det));
+  const float2 i11 = cmul(t00, inv_det);
+  inv[0] = i00.x; inv[1] = i00.y; inv[2] = i01.x; inv[3] = i01.y;
+  inv[4] = i10.x; inv[5] = i10.y; inv[6] = i11.x; inv[7] = i11.y;
+}
+
+// One cell of a reversed column on registers, reverse_cell's expressions
+// with the cell t and its inverse given: (a, b) from the column's output to
+// its input, (ga, gb) from the cotangent at the output to the one at the
+// input, and the four conjugate products into d[0..7] in coef's row order.
+__device__ __forceinline__ void reverse_regs(const float (&t)[8],
+                                             const float (&inv)[8], float2& a,
+                                             float2& b, float2& ga, float2& gb,
+                                             float (&d)[8]) {
+  const float2 i00 = make_float2(inv[0], inv[1]);
+  const float2 i01 = make_float2(inv[2], inv[3]);
+  const float2 i10 = make_float2(inv[4], inv[5]);
+  const float2 i11 = make_float2(inv[6], inv[7]);
+  const float2 a_in = cadd(cmul(i00, a), cmul(i01, b));
+  const float2 b_in = cadd(cmul(i10, a), cmul(i11, b));
+  const float2 d00 = cmulc(a_in, ga), d01 = cmulc(b_in, ga);
+  const float2 d10 = cmulc(a_in, gb), d11 = cmulc(b_in, gb);
+  d[0] = d00.x; d[1] = d00.y; d[2] = d01.x; d[3] = d01.y;
+  d[4] = d10.x; d[5] = d10.y; d[6] = d11.x; d[7] = d11.y;
+  const float2 t00 = make_float2(t[0], t[1]), t01 = make_float2(t[2], t[3]);
+  const float2 t10 = make_float2(t[4], t[5]), t11 = make_float2(t[6], t[7]);
+  a = a_in;
+  b = b_in;
+  const float2 ga_in = cadd(cmulc(t00, ga), cmulc(t10, gb));  // (t^H g)_a
+  gb = cadd(cmulc(t01, ga), cmulc(t11, gb));                  // (t^H g)_b
+  ga = ga_in;
+}
+
+// Shared bytes of the staged cells: W float4 a cell, then the C parities
+// (int32, padded to 16 bytes).
+inline size_t staged_cell_bytes(int n, int n_cols, int w) {
+  return static_cast<size_t>(n_cols) * (n / 2) * w * 16
+         + static_cast<size_t>((n_cols + 3) & ~3) * 4;
+}
+
+// Stage the mesh's C columns cell-major into `cells` (kInverse: W = 4,
+// else 2) and its parities after them.  No barrier.
+template <bool kInverse>
+__device__ void stage_cells(float4* cells, const float* __restrict__ coef,
+                            const int* __restrict__ parity, int n_cols,
+                            int p) {
+  constexpr int W = kInverse ? 4 : 2;
+  for (int i = threadIdx.x; i < n_cols * p; i += blockDim.x) {
+    const int c = i / p, s = i - c * p;
+    const float* cc = coef + static_cast<long long>(c) * 8 * p + s;
+    float t[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) t[q] = __ldg(cc + q * p);
+    cells[i * W] = make_float4(t[0], t[1], t[2], t[3]);
+    cells[i * W + 1] = make_float4(t[4], t[5], t[6], t[7]);
+    if constexpr (kInverse) {
+      float v[8];
+      inverse_regs(t, v);
+      cells[i * W + 2] = make_float4(v[0], v[1], v[2], v[3]);
+      cells[i * W + 3] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+  int* spar = reinterpret_cast<int*>(cells + n_cols * p * W);
+  for (int c = threadIdx.x; c < n_cols; c += blockDim.x) {
+    spar[c] = __ldg(parity + c);
+  }
+}
+
+__device__ __forceinline__ void load_cell(const float4* w, float (&c)[8]) {
+  const float4 lo = w[0], hi = w[1];
+  c[0] = lo.x; c[1] = lo.y; c[2] = lo.z; c[3] = lo.w;
+  c[4] = hi.x; c[5] = hi.y; c[6] = hi.z; c[7] = hi.w;
+}
+
+// Column `cc` (its P staged cells, W = 2) on a row's registers.  The wrap
+// slot of a parity-1 column holds no cell; at n = 2 that leaves none.
+template <int N, int kPar>
+__device__ __forceinline__ void rotate_column(float2 (&st)[N],
+                                              const float4* cc) {
+  constexpr int P = N / 2;
+#pragma unroll
+  for (int s = 0; s < (kPar ? P - 1 : P); ++s) {
+    float c[8];
+    load_cell(cc + 2 * s, c);
+    rotate_regs(c, st[2 * s + kPar], st[2 * s + kPar + 1]);
+  }
+}
+
+// The sum over a warp's 32 lanes of each of the K values v[] (K in {1, 2,
+// 4, ..., 32}), by a butterfly that halves what a lane carries at each
+// level: at offset O a lane keeps the half of its values that its lane bit
+// O selects and adds the partner's copy of that half.  After the levels
+// from O down to 1, lane l holds value l / (32 / K) summed over the warp
+// (the 32 / K lanes that share it hold the same bits: a + b == b + a).
+// The order of the adds is fixed by the lane numbers alone.
+template <int K, int O>
+__device__ __forceinline__ float warp_scatter_sum(const float (&v)[K],
+                                                  int lane) {
+  if constexpr (O == 0) {
+    static_assert(K == 1, "a value per lane at the end");
+    return v[0];
+  } else if constexpr (K == 1) {
+    const float w[1] = {v[0] + __shfl_xor_sync(0xffffffffu, v[0], O)};
+    return warp_scatter_sum<1, O / 2>(w, lane);
+  } else {
+    constexpr int H = K / 2;
+    const bool upper = (lane & O) != 0;
+    float w[H];
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const float send = upper ? v[k] : v[H + k];
+      const float keep = upper ? v[H + k] : v[k];
+      w[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    return warp_scatter_sum<H, O / 2>(w, lane);
+  }
+}
+
+// Group g0 / G of column `cc` (its P staged cells and inverses, W = 4)
+// reversed on a row's registers: the G = min(P, 4) cells from slot g0, and
+// their gradient terms into d, value q G + u for row q of slot g0 + u.  The
+// wrap slot of a parity-1 column holds no cell: its terms are exactly 0.
+template <int N, int kPar>
+__device__ __forceinline__ void reverse_group(float2 (&st)[N],
+                                              float2 (&gt)[N],
+                                              const float4* cc, int g0,
+                                              float (&d)[8 * (N < 8 ? N / 2
+                                                              : 4)]) {
+  constexpr int P = N / 2;
+  constexpr int G = P < 4 ? P : 4;
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const int s = g0 + u;
+    if (kPar == 0 || s < P - 1) {
+      float t[8], inv[8], dd[8];
+      load_cell(cc + 4 * s, t);
+      load_cell(cc + 4 * s + 2, inv);
+      reverse_regs(t, inv, st[2 * s + kPar], st[2 * s + kPar + 1],
+                   gt[2 * s + kPar], gt[2 * s + kPar + 1], dd);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) d[q * G + u] = dd[q];
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) d[q * G + u] = 0.f;
+    }
+  }
+}
+
+// A group's V terms summed over the warp's rows (warp_scatter_sum: 31
+// shuffles at V = 32) into the warp's accumulator `acc` (the group's V
+// floats), stored when `first`, else added, each entry by one lane.
+template <int V>
+__device__ __forceinline__ void add_terms(const float (&d)[V], float* acc,
+                                          int lane, bool first) {
+  constexpr int kShare = 32 / V;  // lanes that hold each summed term
+  const float sum = warp_scatter_sum<V, 16>(d, lane);
+  if ((lane & (kShare - 1)) == 0) {
+    float* a = acc + lane / kShare;
+    *a = first ? sum : *a + sum;
+  }
+}
+
+// Column `cc` reversed on a row's registers, group by group, each group's
+// terms summed over the warp into `acc` (the column's 8 P floats).
+template <int N, int kPar>
+__device__ __forceinline__ void reverse_column(float2 (&st)[N],
+                                               float2 (&gt)[N],
+                                               const float4* cc, float* acc,
+                                               int lane, bool first) {
+  constexpr int P = N / 2;
+  constexpr int G = P < 4 ? P : 4;
+#pragma unroll
+  for (int g0 = 0; g0 < P; g0 += G) {
+    float d[8 * G];
+    reverse_group<N, kPar>(st, gt, cc, g0, d);
+    add_terms(d, acc + 8 * g0, lane, first);
+  }
+}
+
+// A row's N channels between global memory and registers, as N / 2
+// 16-byte words where `vec` (both pointers 16-byte aligned), else N 8-byte
+// ones.
+template <int N>
+__device__ __forceinline__ void load_row(float2 (&r)[N],
+                                         const float2* __restrict__ src,
+                                         bool vec) {
+  if (vec) {
+    const float4* s = reinterpret_cast<const float4*>(src);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      const float4 w = s[k];
+      r[2 * k] = make_float2(w.x, w.y);
+      r[2 * k + 1] = make_float2(w.z, w.w);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r[k] = src[k];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row(float2* __restrict__ dst,
+                                          const float2 (&r)[N], bool vec) {
+  if (vec) {
+    float4* d = reinterpret_cast<float4*>(dst);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      d[k] = make_float4(r[2 * k].x, r[2 * k].y, r[2 * k + 1].x,
+                         r[2 * k + 1].y);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) dst[k] = r[k];
+  }
 }
 
 }  // namespace

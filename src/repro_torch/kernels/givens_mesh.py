@@ -35,6 +35,15 @@ by launch latency.  The TPU kernel's de-interleaved planes were a lane
 layout; the CUDA kernel reads and writes interleaved complex64 directly,
 which drops the split/merge passes around every call.
 
+B1 and B2 take a register path for n in :data:`REG_WIDTHS` (one thread a
+row, the mesh's cells staged once a block, no barrier between columns;
+B2 sums a column's gradient terms over a warp by shuffles and, when one
+block covers the batch, writes ``dcoef`` in its one launch) and the
+shared-memory sweep otherwise.  :func:`mesh_fwd_plan` and
+:func:`mesh_bwd_plan` report the launch for a shape on the current card
+(cached per batch, width, columns and card); :func:`mesh_fwd_layout` and
+:func:`mesh_bwd_layout` compute it from the card's SM count.
+
 ``rfnn_forward(coef_v, par_v, coef_u, par_u, gains, x)`` is the fused
 analog linear layer ``|g2 * U (g1 * V x)|`` (paper Eq. 31): two meshes
 (``Cv`` and ``Cu`` columns, which may differ), a complex mid gain ``g1``
@@ -84,6 +93,11 @@ LAUNCHES = {"mesh_fwd": 0, "mesh_bwd": 0, "rfnn_fwd": 0, "rfnn_fwd_res": 0,
 
 #: The kernels index rows with int32.
 _MAX_BATCH = 2**31 - 256
+
+#: Mesh widths B1 and B2 run on their register path (one thread a row).
+REG_WIDTHS = (2, 4, 8, 16, 32)
+_REG_ROWS_MAX = 256        # csrc/mesh_sweep.cuh: kRegRowsMax
+_MAX_SHARED = 232448       # shared bytes a block may use on sm_90
 
 
 def mesh_forward_plain(coef: torch.Tensor, parity: torch.Tensor,
@@ -157,10 +171,132 @@ def _lib(name: str, argtypes: dict) -> ctypes.CDLL:
     return lib
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = {"mesh_fwd_launch": [_P, _P, _P, _P, _I, _I, _I, _P]}
-_BWD_ARGS = {"mesh_bwd_blocks": [_I, _I],
-             "mesh_bwd_launch": [_P] * 7 + [_I] * 4 + [_P]}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FWD_ARGS = {"mesh_fwd_launch": [_P] * 4 + [_I] * 5 + [_L, _P]}
+_BWD_ARGS = {"mesh_bwd_occupancy": [_I, _I, _I, _L],
+             "mesh_bwd_launch": [_P] * 7 + [_I] * 6 + [_L, _P]}
+
+
+# ---------------------------------------------------------------------------
+# launch plans of B1 and B2
+# ---------------------------------------------------------------------------
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _staged_bytes(n: int, n_cols: int, words: int) -> int:
+    """csrc/mesh_sweep.cuh: staged_cell_bytes: ``words`` float4 a cell, then
+    the parities padded to 16 bytes."""
+    return n_cols * (n // 2) * words * 16 + _ceil_div(n_cols, 4) * 16
+
+
+def _reg_rows(batch: int, sms: int) -> int:
+    """Rows (threads) of a register-path block: one block holds a batch of
+    up to 256 rows; above, ceil(B / SMs) rows rounded up to a warp, at most
+    256."""
+    if batch <= _REG_ROWS_MAX:
+        return 32 * _ceil_div(batch, 32)
+    return min(_REG_ROWS_MAX, 32 * _ceil_div(_ceil_div(batch, sms), 32))
+
+
+def mesh_fwd_layout(batch: int, n: int, n_cols: int, sms: int) -> dict:
+    """How B1 launches for ``batch`` rows of an n-channel, ``n_cols``-column
+    mesh on a card of ``sms`` SMs: ``register_path`` (1 for n in
+    :data:`REG_WIDTHS` when the staged cells fit a block), ``rows`` a block,
+    ``threads`` a block, ``blocks`` and dynamic ``shared_bytes`` a block
+    (one kernel a call)."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    smem = _staged_bytes(n, n_cols, 2)
+    if n in REG_WIDTHS and smem <= _MAX_SHARED:
+        rows = _reg_rows(batch, sms)
+        return {"register_path": 1, "rows": rows, "threads": rows,
+                "blocks": _ceil_div(batch, rows), "shared_bytes": smem}
+    rows = max(1, 128 // (n // 2))   # mesh_sweep.cuh: rows_per_tile
+    return {"register_path": 0, "rows": rows, "threads": 128,
+            "blocks": _ceil_div(batch, rows), "shared_bytes": rows * n * 8}
+
+
+def mesh_bwd_layout(batch: int, n: int, n_cols: int, sms: int,
+                    occupancy) -> dict:
+    """How B2 launches (keys as :func:`mesh_fwd_layout`'s, and ``kernels`` a
+    call); ``occupancy(reg, n, threads, shared_bytes)`` gives the resident
+    blocks an SM holds.  The
+    register path takes up to 256 rows a block (fewer warps where their
+    accumulators would not fit), and its blocks walk the batch's tiles, at
+    most one wave of them: a single block writes ``dcoef`` itself (one
+    kernel), more write slices that a second kernel sums."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    if n in REG_WIDTHS:
+        def smem(rows):   # mesh_bwd.cu: reg_shared_bytes
+            return _staged_bytes(n, n_cols, 4) + (rows // 32) * n_cols * 16 * n
+
+        rows = _reg_rows(batch, sms)
+        while rows > 32 and smem(rows) > _MAX_SHARED:
+            rows -= 32
+        if smem(rows) <= _MAX_SHARED:
+            tiles = _ceil_div(batch, rows)
+            blocks = 1 if tiles == 1 else min(
+                tiles, max(1, sms * occupancy(1, n, rows, smem(rows))))
+            return {"register_path": 1, "rows": rows, "threads": rows,
+                    "blocks": blocks, "shared_bytes": smem(rows),
+                    "kernels": 1 if blocks == 1 else 2}
+    rows = max(1, 128 // (n // 2))
+    smem = rows * n * 32              # mesh_sweep.cuh: reverse_shared_bytes
+    blocks = min(_ceil_div(batch, rows),
+                 max(1, sms * occupancy(0, n, 128, smem)))
+    return {"register_path": 0, "rows": rows, "threads": 128,
+            "blocks": blocks, "shared_bytes": smem, "kernels": 2}
+
+
+_PLANS: dict = {}
+_SMS: dict = {}
+
+
+def _sms(index: int) -> int:
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def _occupancy(reg: int, n: int, threads: int, smem: int) -> int:
+    per_sm = _lib("mesh_bwd", _BWD_ARGS).mesh_bwd_occupancy(reg, n, threads,
+                                                            smem)
+    if per_sm < 0:
+        raise RuntimeError(f"mesh_bwd_occupancy failed: CUDA error {-per_sm} "
+                           f"(n={n}, threads={threads}, shared={smem})")
+    return per_sm
+
+
+def _cached_plan(kind: str, index: int, batch: int, n: int,
+                 n_cols: int) -> dict:
+    """The plan of B1 (``kind`` "fwd") or B2 ("bwd") on card ``index``,
+    computed once per (kind, card, batch, n, C)."""
+    key = (kind, index, batch, n, n_cols)
+    if key not in _PLANS:
+        if kind == "fwd":
+            _PLANS[key] = mesh_fwd_layout(batch, n, n_cols, _sms(index))
+        else:
+            _PLANS[key] = mesh_bwd_layout(batch, n, n_cols, _sms(index),
+                                          _occupancy)
+    return _PLANS[key]
+
+
+def mesh_fwd_plan(batch: int, n: int, n_cols: int) -> dict:
+    """B1's launch for ``batch`` rows on the current card
+    (:func:`mesh_fwd_layout`)."""
+    return dict(_cached_plan("fwd", torch.cuda.current_device(), batch, n,
+                             n_cols))
+
+
+def mesh_bwd_plan(batch: int, n: int, n_cols: int) -> dict:
+    """B2's launch for ``batch`` rows on the current card
+    (:func:`mesh_bwd_layout`)."""
+    return dict(_cached_plan("bwd", torch.cuda.current_device(), batch, n,
+                             n_cols))
 
 
 def launch(coef: torch.Tensor, parity: torch.Tensor,
@@ -169,18 +305,21 @@ def launch(coef: torch.Tensor, parity: torch.Tensor,
     _check(coef, parity, x)
     _on_card("mesh", x)
     b, n = x.shape
+    c = coef.shape[0]
     coef, parity, x = coef.contiguous(), parity.contiguous(), _dense(x)
     y = torch.empty_like(x)
     if b == 0:  # a grid of 0 blocks is an invalid launch
         return y
     fn = _lib("mesh_fwd", _FWD_ARGS).mesh_fwd_launch
     with torch.cuda.device(x.device):
+        plan = _cached_plan("fwd", x.device.index, b, n, c)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), coef.data_ptr(),
-                 parity.data_ptr(), b, n, coef.shape[0], stream)
+                 parity.data_ptr(), b, n, c, plan["register_path"],
+                 plan["rows"], plan["shared_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"mesh_fwd launch failed: CUDA error {err} "
-                           f"(B={b}, n={n}, C={coef.shape[0]})")
+                           f"(B={b}, n={n}, C={c}, plan {plan})")
     LAUNCHES["mesh_fwd"] += 1
     return y
 
@@ -190,9 +329,10 @@ def launch_backward(coef: torch.Tensor, parity: torch.Tensor, y: torch.Tensor,
     """Launch kernel B2 on the current stream: ``(dcoef, dx)`` from the
     forward's output ``y`` and the cotangent ``g`` (no autograd).
 
-    Each block writes its batch-summed coefficient gradient into its own
-    slice of a ``[blocks, C, 8, P]`` scratch, and a second kernel sums the
-    slices in block order: ``dcoef`` is the same bits on every call.
+    One block covering the batch writes ``dcoef`` itself; otherwise each
+    block writes its batch-summed coefficient gradient into its own slice
+    of a ``[blocks, C, 8, P]`` scratch, and a second kernel sums the slices
+    in block order.  Either way ``dcoef`` is the same bits on every call.
     """
     _check_backward(coef, parity, y, g)
     _on_card("mesh backward", y)
@@ -204,21 +344,21 @@ def launch_backward(coef: torch.Tensor, parity: torch.Tensor, y: torch.Tensor,
         return torch.zeros_like(coef), torch.empty_like(y)
     lib = _lib("mesh_bwd", _BWD_ARGS)
     with torch.cuda.device(y.device):
-        blocks = lib.mesh_bwd_blocks(b, n)
-        if blocks <= 0:
-            raise RuntimeError(f"mesh_bwd_blocks failed: CUDA error {-blocks}")
-        partial = torch.empty((blocks, c, 8, n // 2), dtype=torch.float32,
-                              device=y.device)
+        plan = _cached_plan("bwd", y.device.index, b, n, c)
+        partial = torch.empty((plan["blocks"], c, 8, n // 2),
+                              dtype=torch.float32, device=y.device) \
+            if plan["kernels"] == 2 else None
         dcoef = torch.empty_like(coef)
         dx = torch.empty_like(y)
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.mesh_bwd_launch(y.data_ptr(), g.data_ptr(), coef.data_ptr(),
-                                  parity.data_ptr(), partial.data_ptr(),
-                                  dcoef.data_ptr(), dx.data_ptr(), b, n, c,
-                                  blocks, stream)
+        err = lib.mesh_bwd_launch(
+            y.data_ptr(), g.data_ptr(), coef.data_ptr(), parity.data_ptr(),
+            None if partial is None else partial.data_ptr(), dcoef.data_ptr(),
+            dx.data_ptr(), b, n, c, plan["register_path"], plan["rows"],
+            plan["blocks"], plan["shared_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"mesh_bwd launch failed: CUDA error {err} "
-                           f"(B={b}, n={n}, C={c}, blocks={blocks})")
+                           f"(B={b}, n={n}, C={c}, plan {plan})")
     LAUNCHES["mesh_bwd"] += 1
     return dcoef, dx
 

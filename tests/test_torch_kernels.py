@@ -474,6 +474,72 @@ def test_mesh_backward_validates_and_never_launches_on_cpu():
     assert all(v.grad is not None for v in p.values())
 
 
+# ---------------------------------------------------------------------------
+# launch plans of B1 and B2 (computed on the host)
+# ---------------------------------------------------------------------------
+
+def _two_per_sm(reg, n, threads, smem):
+    return 2
+
+
+@pytest.mark.parametrize("n,b,c,path,rows,blocks,bwd_kernels", [
+    (8, 10, 8, 1, 32, 1, 1),          # the SGD step: one block, one kernel
+    (8, 8, 8, 1, 32, 1, 1),           # the fit program's identity probes
+    (2, 160, 2, 1, 160, 1, 1),        # the 2x2 RFNN's 160 points
+    (8, 256, 8, 1, 256, 1, 1),        # the most one block holds
+    (8, 257, 8, 1, 32, 9, 2),         # spread over the SMs, then summed
+    (8, 1000, 8, 1, 32, 32, 2),
+    (32, 65536, 32, 1, 256, 256, 2),
+    (6, 130, 6, 0, 42, 4, 2),         # no register path at n = 6
+    (64, 7, 64, 0, 4, 2, 2),
+])
+def test_mesh_layouts_choose_path_rows_and_blocks(n, b, c, path, rows, blocks,
+                                                  bwd_kernels):
+    fwd = givens_mesh.mesh_fwd_layout(b, n, c, 132)
+    bwd = givens_mesh.mesh_bwd_layout(b, n, c, 132, _two_per_sm)
+    assert fwd["register_path"] == bwd["register_path"] == path
+    assert fwd["rows"] == rows and fwd["blocks"] == -(-b // rows)
+    assert bwd["rows"] == rows and bwd["blocks"] == blocks
+    assert bwd["kernels"] == bwd_kernels
+    if path:
+        assert fwd["threads"] == bwd["threads"] == rows
+
+
+def test_mesh_layouts_fit_shared_memory():
+    """A mesh whose staged cells and warp accumulators would not fit a block
+    takes fewer warps, then the general path: never a launch that the card
+    refuses."""
+    bwd = givens_mesh.mesh_bwd_layout(65536, 32, 61, 132, _two_per_sm)
+    assert bwd["register_path"] == 1 and bwd["rows"] == 160
+    assert bwd["shared_bytes"] <= 232448
+    assert bwd["blocks"] == 132 * 2           # one wave: the blocks walk tiles
+    for layout in (givens_mesh.mesh_fwd_layout(10, 32, 500, 132),
+                   givens_mesh.mesh_bwd_layout(10, 32, 500, 132, _two_per_sm)):
+        assert layout["register_path"] == 0
+    with pytest.raises(ValueError):
+        givens_mesh.mesh_bwd_layout(0, 8, 8, 132, _two_per_sm)
+
+
+def test_mesh_plans_are_cached_per_card_and_shape(monkeypatch):
+    calls = []
+
+    def occupancy(*args):
+        calls.append(args)
+        return 3
+
+    monkeypatch.setattr(givens_mesh, "_PLANS", {})
+    monkeypatch.setattr(givens_mesh, "_SMS", {0: 132, 1: 66})
+    monkeypatch.setattr(givens_mesh, "_occupancy", occupancy)
+    first = givens_mesh._cached_plan("bwd", 0, 1000, 8, 8)
+    assert givens_mesh._cached_plan("bwd", 0, 1000, 8, 8) is first
+    assert len(calls) == 1
+    assert givens_mesh._cached_plan("bwd", 1, 1000, 8, 8)["rows"] == 32
+    assert givens_mesh._cached_plan("bwd", 0, 10, 8, 8)["kernels"] == 1
+    assert len(calls) == 2                    # one block needs no wave
+    assert givens_mesh._cached_plan("fwd", 0, 1000, 8, 8)["blocks"] == 32
+    assert len(givens_mesh._PLANS) == 4
+
+
 def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
     """An edit to a shared ``*.cuh`` header changes every library's file
     name, so no stale library is loaded after it (checked on a copy)."""
@@ -507,56 +573,100 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [2, 8, 16, 64, 128])
-def test_mesh_kernel_matches_plain_on_card(cuda_device, n):
-    rng = np.random.default_rng(n)
-    plan = t_mesh.clements_plan(n)
-    p = _torch(_params(rng, plan))
+def _mixed_schedule(rng, n):
+    """A mesh whose columns do not alternate parity (packed cells)."""
+    cells = [(int(rng.integers(0, n - 1)), float(rng.uniform(0, np.pi)),
+              float(rng.uniform(0, 2 * np.pi))) for _ in range(3 * n)]
+    plan, theta, phi = t_mesh.pack_cells_to_columns(n, cells)
+    return schedule.schedule_from_plan(plan), {"theta": theta, "phi": phi}
+
+
+def _card_cases(rng, n, device):
+    """(coef, parity) on the card: a Clements mesh (both parities; at n = 2
+    its parity-1 column holds no cell) with ideal and PROTOTYPE cells and,
+    for n >= 4, a mixed-parity mesh of PROTOTYPE cells."""
     sched = schedule.clements_schedule(n)
-    for hw in (None, PROTOTYPE):
-        coef = ops._mesh_coefficients(sched, p, hw, None)
-        par = schedule.parity_array(sched)
-        for b in (1, 7, 130, 4096):
-            x = torch.from_numpy(_x(rng, b, n))
-            y_plain = givens_mesh.mesh_forward_plain(coef, par, x)
+    p = _torch(_params(rng, t_mesh.clements_plan(n)))
+    cases = [(sched, p, hw) for hw in (None, PROTOTYPE)]
+    if n >= 4:
+        cases.append((*_mixed_schedule(rng, n), PROTOTYPE))
+    return [(ops._mesh_coefficients(s, q, hw, None).to(device),
+             schedule.parity_array(s, device)) for s, q, hw in cases]
+
+
+#: Ragged batches, batches around a register-path block's rows (32 and
+#: 256) and a large one.
+_CARD_BATCHES = (1, 7, 31, 32, 33, 130, 255, 256, 257, 4096, 65536)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128])
+def test_mesh_kernel_matches_plain_on_card(cuda_device, n):
+    """Kernel B1 against its plain version on the same card inputs; the
+    register path for n in REG_WIDTHS, the shared-memory sweep otherwise."""
+    rng = np.random.default_rng(n)
+    for coef, par in _card_cases(rng, n, cuda_device):
+        for b in _CARD_BATCHES:
+            plan = givens_mesh.mesh_fwd_plan(b, n, coef.shape[0])
+            assert plan["register_path"] == (n in givens_mesh.REG_WIDTHS)
+            x = torch.from_numpy(_x(rng, b, n)).to(cuda_device)
             before = givens_mesh.LAUNCHES["mesh_fwd"]
-            y = givens_mesh.mesh_forward(coef.to(cuda_device),
-                                         par.to(cuda_device),
-                                         x.to(cuda_device))
+            y = givens_mesh.mesh_forward(coef, par, x)
             torch.cuda.synchronize()
             assert givens_mesh.LAUNCHES["mesh_fwd"] == before + 1
-            torch.testing.assert_close(y.cpu(), y_plain, rtol=0,
-                                       atol=1e-5 * n)
+            y_plain = givens_mesh.mesh_forward_plain(coef, par, x)
+            torch.testing.assert_close(y, y_plain, rtol=0, atol=1e-5 * n)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [2, 8, 16, 64])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64])
 def test_mesh_backward_kernel_matches_plain_on_card(cuda_device, n):
-    """Kernel B2 against its plain version on the same card inputs, ideal
-    and PROTOTYPE cells, ragged batches; dcoef bit-identical across calls."""
+    """Kernel B2 against its plain version on the same card inputs, dcoef
+    and dx bit-identical across calls, a parity-1 column's wrap slot (at
+    n = 2 the whole column) exactly 0; on the register path one kernel a
+    call up to 256 rows."""
     rng = np.random.default_rng(50 + n)
-    p = _torch(_params(rng, t_mesh.clements_plan(n)))
-    sched = schedule.clements_schedule(n)
-    par = schedule.parity_array(sched, cuda_device)
-    for hw in (None, PROTOTYPE):
-        coef = ops._mesh_coefficients(sched, p, hw, None).to(cuda_device)
-        for b in (1, 7, 130, 4096):
+    for coef, par in _card_cases(rng, n, cuda_device):
+        for b in _CARD_BATCHES:
+            plan = givens_mesh.mesh_bwd_plan(b, n, coef.shape[0])
+            assert plan["register_path"] == (n in givens_mesh.REG_WIDTHS)
+            if plan["register_path"]:
+                assert plan["kernels"] == (1 if b <= 256 else 2)
             x = torch.from_numpy(_x(rng, b, n)).to(cuda_device)
             g = torch.from_numpy(_x(rng, b, n)).to(cuda_device)
             y = givens_mesh.launch(coef, par, x)
             before = givens_mesh.LAUNCHES["mesh_bwd"]
             dc, dx = givens_mesh.launch_backward(coef, par, y, g)
-            dc2, _ = givens_mesh.launch_backward(coef, par, y, g)
+            dc2, dx2 = givens_mesh.launch_backward(coef, par, y, g)
             torch.cuda.synchronize()
             assert givens_mesh.LAUNCHES["mesh_bwd"] == before + 2
-            assert torch.equal(dc, dc2)
+            assert torch.equal(dc, dc2) and torch.equal(dx, dx2)
             pc, px = givens_mesh.mesh_backward_plain(coef, par, y, g)
             for got, want in ((dc, pc), (dx, px)):
                 scale = float(want.abs().max())
                 assert float((got - want).abs().max()) <= 1e-5 * n * scale
-            if n > 2 and sched.parity[1] == 1:
-                assert torch.all(dc[1::2, :, -1] == 0)  # odd columns' wrap slot
+            odd = (par == 1).nonzero().flatten()
+            assert torch.all(dc[odd, :, -1] == 0)
+
+
+@pytest.mark.gpu
+def test_mesh_backward_blocks_walk_tiles_on_card(cuda_device):
+    """A batch of more 256-row tiles than one wave of blocks: each block
+    sums its tiles in order into its slice."""
+    coef, par = _card_cases(np.random.default_rng(3), 8, cuda_device)[0]
+    b = 1 << 20
+    plan = givens_mesh.mesh_bwd_plan(b, 8, coef.shape[0])
+    assert plan["rows"] == 256 and plan["blocks"] < -(-b // 256)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_x(rng, b, 8)).to(cuda_device)
+    g = torch.from_numpy(_x(rng, b, 8)).to(cuda_device)
+    y = givens_mesh.launch(coef, par, x)
+    dc, dx = givens_mesh.launch_backward(coef, par, y, g)
+    assert torch.equal(dc, givens_mesh.launch_backward(coef, par, y, g)[0])
+    pc, px = givens_mesh.mesh_backward_plain(coef, par, y, g)
+    for got, want in ((dc, pc), (dx, px)):
+        assert float((got - want).abs().max()) <= 1e-5 * 8 * float(
+            want.abs().max())
 
 
 @pytest.mark.gpu
@@ -593,7 +703,9 @@ def test_mesh_gradient_on_card_launches_backward_kernel(cuda_device):
 @pytest.mark.gpu
 def test_mesh_kernels_read_conjugate_views_on_card(cuda_device):
     """A lazily conjugated input or cotangent (conj bit set) is read as its
-    conjugate values, not as the memory under the view."""
+    conjugate values, not as the memory under the view; rows 8 bytes past a
+    16-byte boundary take the kernels' 8-byte loads and give the same
+    bits."""
     rng = np.random.default_rng(4)
     p = _torch(_params(rng, t_mesh.clements_plan(8)))
     sched = schedule.clements_schedule(8)
@@ -610,3 +722,18 @@ def test_mesh_kernels_read_conjugate_views_on_card(cuda_device):
     dc2, dx2 = givens_mesh.launch_backward(coef, par, y,
                                            g.conj().resolve_conj())
     assert torch.equal(dc, dc2) and torch.equal(dx, dx2)
+
+    def shifted(t):   # the same values, 8 bytes off a 16-byte boundary
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 8 and view.is_contiguous()
+        return view
+
+    assert torch.equal(givens_mesh.launch(coef, par, shifted(x)),
+                       givens_mesh.launch(coef, par, x))
+    dc3, dx3 = givens_mesh.launch_backward(coef, par, shifted(y),
+                                           shifted(g))
+    dc4, dx4 = givens_mesh.launch_backward(coef, par, y, g)
+    assert torch.equal(dc3, dc4) and torch.equal(dx3, dx4)
+

@@ -16,9 +16,12 @@ version runs in float64 (``ref.split_channels`` keeps complex128's
 precision), three gradients are held against the float64 witness
 (chip_smoke's ``cascade_grads(plain_dtype=torch.float64)``): the card's,
 the CPU's, and autograd's through the plain forward in float32 (no
-rebuild of a column's input from its output).  Writes the readings to
-``chiprun_out/cascade_grads_<label>.json``.  Needs a CUDA card and
-``nvcc``.
+rebuild of a column's input from its output), each as the largest leaf's
+max |a - b| / max |witness| and as phase 13's reading in units of 2^-24
+M_leaf (``chip_smoke.witness_reading``; the card's and the CPU's must stay
+at or below ``chip_smoke.WITNESS_C``, and the tool exits 1 where one does
+not).  Writes the readings to ``chiprun_out/cascade_grads_<label>.json``.
+Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ def main(argv=None) -> int:
     card = chip_smoke.card_line()
     has_witness = ref.split_channels(torch.zeros(
         1, 2, dtype=torch.complex128))[0].dtype == torch.float64
-    rows = []
+    rows, failed = [], False
     for s in SEEDS:
         layers, plans, _ = chip_smoke.build_deep_grid(dev, 16, 4, 4, 4, 40 + s,
                                                       reck="all")
@@ -99,19 +102,30 @@ def main(argv=None) -> int:
             g_wit, g_auto = (chip_smoke.cascade_grads(
                 "cpu", layers, plans, x, w, plain_dtype=dt)[1]
                 for dt in (torch.float64, torch.float32))
+            mags = chip_smoke.witness_magnitudes(layers, plans, x, w)
             line += "; against the float64 witness"
             for side, g in (("card", g_card), ("cpu", g_cpu),
                             ("cpu_autograd", g_auto)):
                 err, leaf = worst(g, g_wit, names)
                 row[f"{side}_vs_float64"] = err
                 row[f"{side}_vs_float64_leaf"] = leaf
-                line += f" {side} {err:.3e} at {leaf}"
+                per_leaf = [chip_smoke.witness_reading([a], [b], [m])
+                            for a, b, m in zip(g, g_wit, mags)]
+                k = max(range(len(per_leaf)), key=per_leaf.__getitem__)
+                reading = per_leaf[k]
+                row[f"{side}_vs_float64_in_u_m"] = reading
+                row[f"{side}_vs_float64_in_u_m_leaf"] = names[k]
+                line += (f" {side} {err:.3e} at {leaf} ({reading:.1f} x "
+                         f"2^-24 M_leaf at {names[k]})")
+                if side != "cpu_autograd" and reading > chip_smoke.WITNESS_C:
+                    failed = True
+            line += f" (bound {chip_smoke.WITNESS_C:.1f} x 2^-24 M_leaf)"
         rows.append(row)
         print(line, flush=True)
     out = ROOT / "chiprun_out" / f"cascade_grads_{args.label}.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Time the deep-grid kernels B6, B7 and B8 on one card at chip_smoke.py
-phase 15's shapes and batches, for this checkout's ``src/`` or another
-tree's.
+"""Time the mesh kernels B1 and B2 at chip_smoke.py phase 9's shapes
+(``MESH_TIMED``) and the deep-grid kernels B6, B7 and B8 at phase 15's
+(``DEEP_TIMED_BATCHES``) on one card, for this checkout's ``src/`` or
+another tree's.
 
     python3 tools/deepgrid_times.py [--src DIR] [--label NAME]
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is built and
 timed (default: the one beside this script), so one call can time an older
 tree unpacked beside this one and this one in turns (older, newer, newer,
-older: one process each, on the same card).  The grids are chip_smoke.py's
+older: one process each, on the same card).  The meshes are Clements
+meshes of chip_smoke's phases (``mesh_params(n, 3)``, ideal cells), x and
+the cotangent complex normal.  The grids are chip_smoke.py's
 (``build_deep_grid``, ``DEEP_TIMED_BATCHES``): the 4-layer 64x64 cascade
 (seed 40), the depth-4 MNIST grid (n = 8, one tile, PROTOTYPE, seed 41)
 and ``TiledAnalogLinear(64, 64, 16)`` (seed 3).  Device ms come from
 chip_smoke's ``device_ms`` (the stream held while the host queues).  Where
-the tree reports B6/B7's launch plan (``givens_mesh.deepgrid_fwd_plan``),
-the line carries it.  Prints one line per reading and writes them all to
+the tree reports a kernel's launch plan (``givens_mesh.mesh_fwd_plan``,
+``mesh_bwd_plan``, ``deepgrid_fwd_plan``), the line carries it.  Prints one line per reading and writes them all to
 ``chiprun_out/deepgrid_times_<label>.json``.  Needs a CUDA card and
 ``nvcc``.
 """
@@ -62,6 +65,41 @@ def main(argv=None) -> int:
                         False)}
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
+
+    def report(row, line, plan_fn, *plan_args):
+        if hasattr(givens_mesh, plan_fn):
+            row["plan"] = getattr(givens_mesh, plan_fn)(*plan_args)
+            line += f"; plan {row['plan']}"
+        rows.append(row)
+        print(line, flush=True)
+
+    for name, shapes in chip_smoke.MESH_TIMED.items():
+        for n, b in shapes:
+            sched = schedule.clements_schedule(n)
+            coef = ops._mesh_coefficients(
+                sched, {k: v.to(dev) for k, v in
+                        chip_smoke.mesh_params(n, 3).items()}, None, None)
+            par = schedule.parity_array(sched, dev)
+            x = torch.randn(b, n, dtype=torch.complex64, device=dev,
+                            generator=gen)
+            if name == "mesh_bwd":
+                y = givens_mesh.launch(coef, par, x)
+                g = torch.randn(b, n, dtype=torch.complex64, device=dev,
+                                generator=gen)
+                fn = lambda: givens_mesh.launch_backward(  # noqa: E731
+                    coef, par, y, g)
+            else:
+                fn = lambda: givens_mesh.launch(coef, par, x)  # noqa: E731
+            row = {"label": args.label, "card": card, "kernel": name,
+                   "shape": f"mesh_n{n}", "n": n, "B": b,
+                   "columns": coef.shape[0],
+                   "device_ms": chip_smoke.device_ms(torch, fn, 200),
+                   "call_ms": chip_smoke.cuda_ms(torch, fn, 200)}
+            report(row, f"[{args.label}] {card} | {name} n={n} B={b}: "
+                   f"{row['device_ms']:.5f} ms on the device, "
+                   f"{row['call_ms']:.5f} ms per call", f"{name}_plan", b, n,
+                   coef.shape[0])
+
     for shape_name, batches in chip_smoke.DEEP_TIMED_BATCHES.items():
         (deep, (cv, cu, gains)), detect = packs[shape_name]
         pv, pu = schedule.deep_grid_parity_arrays(deep, dev)
@@ -93,17 +131,12 @@ def main(argv=None) -> int:
                 line = (f"[{args.label}] {card} | {name} {shape_name} B={b} "
                         f"(C={c}): {row['device_ms']:.5f} ms on the device, "
                         f"{row['call_ms']:.5f} ms per call")
-                if name != "deepgrid_bwd" and hasattr(givens_mesh,
-                                                      "deepgrid_fwd_plan"):
-                    plan = givens_mesh.deepgrid_fwd_plan(
-                        b, n, depth, to, ti, c, save_stages=save)
-                    row["plan"] = plan
-                    line += (f"; {'register' if plan['register_path'] else 'general'}"
-                             f" path, R={plan['rows']}, {plan['blocks']} "
-                             f"blocks of {plan['threads']} threads, "
-                             f"{plan['shared_bytes']} shared bytes")
-                rows.append(row)
-                print(line, flush=True)
+                if name == "deepgrid_bwd":
+                    rows.append(row)
+                    print(line, flush=True)
+                else:
+                    report(row, line, "deepgrid_fwd_plan", b, n, depth, to,
+                           ti, c, save)
     out = ROOT / "chiprun_out" / f"deepgrid_times_{args.label}.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
