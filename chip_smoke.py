@@ -223,7 +223,7 @@ DEEP_PARENT_MS = {
     ("deepgrid_fwd", "tiled_64x64", 1024): 0.04085,
     ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03906,
     ("deepgrid_bwd", "tiled_64x64", 1024): 0.16540}
-# B1/B2's device ms before their register paths (the PR 11/12 shared-memory
+# B1/B2's device ms before their register paths (the shared-memory
 # sweeps), at phase 9's shapes: tools/deepgrid_times.py on that tree, the
 # mean of its two runs in the call of PERF.md §6's parent-versus-change
 # table (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
