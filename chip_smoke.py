@@ -13,10 +13,10 @@ exits non-zero):
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
    ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
    started together, beside one more ``nvcc -Xptxas -v`` each of
-   ``flash_attn_fwd.cu``, ``deepgrid_fwd.cu``, ``mesh_fwd.cu`` and
-   ``mesh_bwd.cu`` (registers and spill bytes of every B1, B2, B6 and B7
-   instantiation printed; no kernel of B9, B1, B2, B6 or B7 may spill
-   registers);
+   ``flash_attn_fwd.cu``, ``deepgrid_fwd.cu``, ``mesh_fwd.cu``,
+   ``mesh_bwd.cu``, ``rfnn_bwd.cu`` and ``deepgrid_bwd.cu`` (registers and
+   spill bytes of every B1, B2, B5, B6, B7 and B8 instantiation printed;
+   no kernel of B9, B1, B2, B5, B6, B7 or B8 may spill registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -33,7 +33,11 @@ exits non-zero):
    4096}, Clements and Reck plans (Cv != Cu), ideal and PROTOTYPE, zero
    attenuations, zero input rows and B = 0, against their plain versions
    (B5 also against autograd through the plain B4), with bit-identical
-   ``dcv``/``dcu``/``dg`` over two calls;
+   ``dcv``/``dcu``/``dg`` over two calls and exactly zero wrap slots; B5's
+   register path at n in {2, 4, 8, 16, 32} and B in {1, 31, 32, 33, 255,
+   256, 257, 1000} (Reck V, PROTOTYPE, zero attenuations, zero rows with
+   exactly zero dx), the same checks, its plan printed (one kernel a call
+   up to B = 256) and n = 64 on the general path;
 3. ``MnistRFNN`` (8x8 analog mesh, PROTOTYPE hardware, Table-I phases) at
    full width on 1000 procedural digits: kernel-path logits against the
    reference backend on the card and the plain path on the CPU;
@@ -63,6 +67,9 @@ exits non-zero):
    before the register paths (``MESH_PARENT_MS``, PERF.md), and B2 one
    kernel a call at n = 8, B = 10 and n = 2, B = 160 (every device event
    the profiler records over 20 calls is B2's, none ``reduce_partials``);
+   B5's plan beside its time before the register path
+   (``FUSED_PARENT_MS``), and the profiled fused SGD step at B = 1000
+   launching B5 once and ``reduce_partials`` as often as its plan says;
 10. the deep-grid kernels B6, B7 and B8 against their plain versions for
     (L, To, Ti, n) in {(1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16),
     (4, 4, 4, 16), (1, 2, 3, 4), (1, 1, 1, 2), (2, 2, 2, 32)} (B6/B7's
@@ -73,12 +80,16 @@ exits non-zero):
     its V, U and attenuation gradients exactly 0), within 1e-5 * n of
     each output's largest magnitude, B6 == B7 bitwise, with bit-identical
     gradients over two calls; the 64x64 cascade at batches around its
-    rows a block R (R - 1, R, R + 1, 131, 133, 1023); then the main
-    path's shapes;
+    rows a block R (R - 1, R, R + 1, 131, 133, 1023); B8 at its plan's
+    edges (one tile at n = 8 and 32: rows a warp and the one-block limit;
+    a grid: 8 rows a block), one kernel a call up to the one-block limit;
+    then the main path's shapes;
 11. ``MnistRFNN(analog_depth=4, PROTOTYPE, table1)``: 1000 logits through
     one B6 launch (against the reference backend and the CPU), one STE
     epoch of ``train_mnist`` on 1000 digits at batch 10 (B7 and B8 once
     per step, B6 only for the two evaluations), 20 SGD steps card vs CPU;
+    the profiled SGD step shows one B8 kernel a step and no
+    ``reduce_partials`` (its plan: one kernel);
 12. ``TiledAnalogLinear(64, 64, tile_size=16, table1)``: forward at B = 256
     and 1024 (one B6 launch each, against the reference backend) and 5 SGD
     steps (B7 and B8 once per step, card vs CPU);
@@ -93,9 +104,10 @@ exits non-zero):
 15. times of B6, B7 and B8 at the main path's shapes (the cascade, the
     depth-4 MNIST network, the tiled layer), as phase 9, with a
     ``torch.matmul`` yardstick on each layer's precomputed complex matrix
-    (then ``.abs()``); for B6/B7 also the launch plan (path, rows a block
-    R, blocks, shared bytes a block) and the device time of the kernel
-    before its redesign (``DEEP_PARENT_MS``, PERF.md);
+    (then ``.abs()``); for B6, B7 and B8 also the launch plan (path, rows
+    a block R, blocks, shared bytes a block; for B8 also its kernels a
+    call) and the device time of the kernel before its redesign
+    (``DEEP_PARENT_MS``, PERF.md);
 16. (a) the flash attention kernel B9 against its plain version, one
     launch a case, for hd in ``FLASH_HDS``, S in {32, 96 (block 32),
     1024}, causal and not, contiguous ``[B, H, S, hd]``, the transposed
@@ -208,21 +220,28 @@ ENGINE_CHECKED = (0, 5, 10, 15)  # held against a batch-1 prefill and decode
 # B9's device ms in its earlier CUDA-core version (PERF.md §6; NVIDIA H100
 # 80GB HBM3, 700 W), printed beside this run's
 B9_CUDA_CORE_MS = {"tinyllama_prefill": 2.47622, "long_8k": 17.452}
-# B6-B8's device ms before B6/B7's redesign (B6/B7 one block per row), at
-# phase 15's shapes: tools/deepgrid_times.py on that tree, the mean of its
-# two runs in the call of PERF.md §6's parent-versus-change table (NVIDIA
-# H100 80GB HBM3, 700 W), printed beside this run's
+# B6-B8's device ms before their redesigns (B6/B7 one block per row; B8 R =
+# 512 / (To Ti P) rows in shared memory, a global read-add-store of every
+# column's sums), at phase 15's shapes: tools/deepgrid_times.py on those
+# trees, the mean of its two runs in the calls of PERF.md §6's
+# parent-versus-change tables (NVIDIA H100 80GB HBM3, 700 W), printed
+# beside this run's
 DEEP_PARENT_MS = {
     ("deepgrid_fwd", "cascade_64x64_l4", 1024): 0.27650,
     ("deepgrid_fwd_res", "cascade_64x64_l4", 1024): 0.27635,
-    ("deepgrid_bwd", "cascade_64x64_l4", 1024): 1.50473,
+    ("deepgrid_bwd", "cascade_64x64_l4", 1024): 1.50226,
     ("deepgrid_fwd", "mnist_depth4", 1000): 0.04656,
     ("deepgrid_fwd_res", "mnist_depth4", 10): 0.03551,
-    ("deepgrid_bwd", "mnist_depth4", 10): 0.08325,
+    ("deepgrid_bwd", "mnist_depth4", 10): 0.0828,
     ("deepgrid_fwd", "tiled_64x64", 256): 0.02729,
     ("deepgrid_fwd", "tiled_64x64", 1024): 0.04085,
     ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03906,
-    ("deepgrid_bwd", "tiled_64x64", 1024): 0.16540}
+    ("deepgrid_bwd", "tiled_64x64", 1024): 0.164505}
+# B5's device ms before its register path (the shared-memory sweep), at
+# phase 9's training layer: tools/deepgrid_times.py on that tree, the mean
+# of its two runs in the call of PERF.md §6's parent-versus-change table
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+FUSED_PARENT_MS = {("rfnn_bwd", "training", FUSED_BATCH): 0.021475}
 # B1/B2's device ms before their register paths (the shared-memory
 # sweeps), at phase 9's shapes: tools/deepgrid_times.py on that tree, the
 # mean of its two runs in the call of PERF.md §6's parent-versus-change
@@ -254,9 +273,10 @@ MESH_TIMED = {"mesh_fwd": ((8, 8), (8, SGD_BATCH), (8, 64), (8, 1000),
 # 4, n = 16, C = 29, B = 1024):
 #   33   the batch sum: the plain backward's torch.sum over 1024 rows, a
 #        cascade of 16, 16 and 4 partial sums (15 + 15 + 3 adds); B8's is at
-#        most 28: 3 in a 4-row tile, 1 more tile a block, at most 17 in a
-#        strided group of reduce_partials' slices (at most 137 blocks: its
-#        128 MiB budget), 7 group adds;
+#        most 27: 3 in the shuffle tree over a block's 8 rows of a tile (one
+#        row tile a block at B = 1024), at most 17 in a strided group of
+#        reduce_partials' slices (at most 137 blocks: the 128 MiB budget), 7
+#        group adds;
 #   1008 the row's cotangent through four layers, 252 each: two reversed
 #        sweeps of 29 columns, 4 roundings a column (a product and up to
 #        three adds, 232), three gain adjoints (2 each), the |.| backward
@@ -377,8 +397,8 @@ def device_ms(torch, fn, iters: int, warmup: int = 5) -> float:
 
 def profile_steps(torch, run, steps: int, names) -> tuple:
     """``run(steps)`` under ``torch.profiler``: device events per step,
-    device-busy us per step and the us per step of the kernels whose names
-    contain each of ``names``."""
+    device-busy us per step, and the us and the launches per step of the
+    kernels whose names contain each of ``names``."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -390,7 +410,8 @@ def profile_steps(torch, run, steps: int, names) -> tuple:
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events) / steps
     ours_us = {k: sum(e.time_range.elapsed_us() for e in dev_events
                       if k in e.name) / steps for k in names}
-    return len(dev_events) / steps, busy_us, ours_us
+    ours_n = {k: sum(k in e.name for e in dev_events) / steps for k in names}
+    return len(dev_events) / steps, busy_us, ours_us, ours_n
 
 
 def tree_map(fn, tree):
@@ -454,6 +475,28 @@ def build_deep_grid(dev, n, depth, to, ti, seed, *, reck="none", parked=None,
     with torch.no_grad():
         packed = ops.pack_deep_grid(layers, n=n, plans=plans, hardware=hw)
     return layers, plans, packed
+
+
+def fused_layer_inputs(layer, params):
+    """The fused kernels' inputs ``[coef_v, par_v, coef_u, par_u, gains]``
+    of an 8-channel ``AnalogLinear`` and its params, on the params'
+    device (phase 9)."""
+    import torch
+
+    from repro_torch.kernels import ops, schedule
+
+    dev = params["atten_logit"].device
+    with torch.no_grad():
+        v_p, u_p = layer._quant(params["v"]), layer._quant(params["u"])
+        sv = schedule.schedule_from_plan(layer.v_plan)
+        su = schedule.schedule_from_plan(layer.u_plan)
+        return [ops._mesh_coefficients(sv, v_p, layer.hardware, None),
+                schedule.parity_array(sv, dev),
+                ops._mesh_coefficients(su, u_p, layer.hardware, None),
+                schedule.parity_array(su, dev),
+                ops._gains(torch.sigmoid(params["atten_logit"]),
+                           torch.nn.functional.softplus(params["log_scale"]),
+                           v_p, u_p, 8, dev)]
 
 
 def cascade_grads(device, layers, plans, x, w, *, plain_dtype=None):
@@ -621,14 +664,16 @@ def main(argv=None) -> int:
                 "per_kernel": per}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 4) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 6) as pool:
         usage = {k: pool.submit(ptxas_usage, k)
                  for k in ("flash_attn_fwd", "deepgrid_fwd", "mesh_fwd",
-                           "mesh_bwd")}
+                           "mesh_bwd", "rfnn_bwd", "deepgrid_bwd")}
         build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
         b9_usage = usage["flash_attn_fwd"].result()
         b67_usage = usage["deepgrid_fwd"].result()
-        b12_usage = {k: usage[k].result() for k in ("mesh_fwd", "mesh_bwd")}
+        sweep_usage = {k: usage[k].result() for k in ("mesh_fwd", "mesh_bwd",
+                                                    "rfnn_bwd",
+                                                    "deepgrid_bwd")}
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
@@ -643,7 +688,7 @@ def main(argv=None) -> int:
           flush=True)
     check(b67_usage["spill_bytes"] == 0,
           f"a B6/B7 kernel spills registers: {b67_usage['per_kernel']}")
-    for name, use in b12_usage.items():
+    for name, use in sweep_usage.items():
         print(f"[1] {name}.cu under -Xptxas -v, registers (spill bytes) a "
               "thread: " + ", ".join(
                   f"{short_kernel(r['kernel'])} {r['registers']} "
@@ -654,7 +699,7 @@ def main(argv=None) -> int:
     report["build_s"] = build_s
     report["b9_ptxas"] = b9_usage
     report["b67_ptxas"] = b67_usage
-    report["b12_ptxas"] = b12_usage
+    report["b12_b5_b8_ptxas"] = sweep_usage
 
     def reset_launches():
         for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
@@ -890,6 +935,9 @@ def main(argv=None) -> int:
                     for k, a, b in zip(names, grads, plain))
         check(all(bool(torch.isfinite(t).all()) for t in grads),
               f"rfnn_bwd non-finite gradients {tag}")
+        for dc, par in ((grads[0], inputs[1]), (grads[1], inputs[3])):
+            check(bool((dc[par == 1, :, -1] == 0).all()),
+                  f"rfnn_bwd wrap slot gradient {tag}")
         if autograd:
             leaves = [t.clone().requires_grad_(True)
                       for t in (inputs[0], inputs[2], inputs[4], x)]
@@ -944,6 +992,50 @@ def main(argv=None) -> int:
     report["main_path_max_abs_err_fused"] = {
         "rfnn_fwd": main_err_fused[0], "rfnn_fwd_res": main_err_fused_train[0],
         "rfnn_bwd": main_err_fused_train[1]}
+
+    # B5's register path at every width (a Reck V over a Clements U,
+    # PROTOTYPE, zero attenuations), at batches around a warp and one block
+    # and at the training step's 1000, with zero input rows at B = 33 and
+    # 1000 (exactly zero dx there); a generator of its own, so every later
+    # phase draws what it drew before
+    rng_b5 = np.random.default_rng(19)
+    plans_b5 = {}
+    for n in givens_mesh.REG_WIDTHS:
+        inputs = fused_inputs(n, PROTOTYPE, "reck_v", True, seed=n + 19)
+        for b in (1, 31, 32, 33, 255, 256, 257, 1000):
+            x = rand_x(rng_b5, b, n)
+            zero_rows = b in (33, 1000)
+            if zero_rows:
+                x[::9] = 0
+            g = torch.from_numpy(rng_b5.normal(size=(b, n)).astype(
+                np.float32)).to(dev)
+            fused_vs_plain(inputs, x, g, autograd=not zero_rows)
+            if zero_rows:
+                _, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
+                dx = givens_mesh.launch_rfnn_backward(*inputs, v, u, g)[3]
+                check(not bool(dx[::9].any()),
+                      f"rfnn_bwd dx at zero rows n={n} B={b}")
+            plan = givens_mesh.rfnn_bwd_plan(b, n, inputs[0].shape[0],
+                                             inputs[2].shape[0])
+            # one kernel exactly where one block covers the batch: up to
+            # B = 256 at n <= 16; n = 32's 61-column Reck V leaves room for
+            # fewer warps' accumulators
+            check(plan["register_path"] == 1
+                  and (plan["kernels"] == 1) == (b <= plan["rows"])
+                  and (n > 16 or plan["kernels"] == (1 if b <= 256 else 2)),
+                  f"rfnn_bwd n={n} B={b}: plan {plan}")
+            plans_b5[(n, b)] = plan
+        print(f"[2] n={n}: B5's register path == plain == autograd of the "
+              f"plain B4 (Reck V, PROTOTYPE, zero attenuations; B 1..1000, "
+              f"zero rows), gradients bit-identical; plans (rows/blocks/"
+              f"kernels) " + ", ".join(
+                  f"B={b}: {v['rows']}/{v['blocks']}/{v['kernels']}"
+                  for (nn, b), v in plans_b5.items() if nn == n
+                  and b in (1, 33, 256, 257, 1000)), flush=True)
+    check(givens_mesh.rfnn_bwd_plan(130, 64, 64, 64)["register_path"] == 0,
+          "B5 at n=64 must take the general path")
+    report["rfnn_bwd_plans"] = {f"n{n}_B{b}": v
+                                for (n, b), v in plans_b5.items()}
 
     launches: dict[str, dict] = {}
 
@@ -1070,7 +1162,7 @@ def main(argv=None) -> int:
           f"noisy, noisy, noiseless)", flush=True)
 
     # device time inside a noiseless step, from the profiler's device events
-    per_step, busy_us, ours_us = profile_steps(
+    per_step, busy_us, ours_us, _ = profile_steps(
         torch, sgd_loop(step_model, False), 20,
         ("mesh_fwd_reg_kernel", "mesh_bwd_reg_kernel", "reduce_partials"))
     check(ours_us["mesh_fwd_reg_kernel"] > 0
@@ -1447,14 +1539,22 @@ def main(argv=None) -> int:
         x, g = rand_x(rng9, b, n_), rand_x(rng9, b, n_)
         y = givens_mesh.launch(coef_, par_, x)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                givens_mesh.launch_backward(coef_, par_, y, g)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        # a window that recorded no device event at all says nothing about
+        # the kernels: it is taken again, at most twice
+        for _ in range(3):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    givens_mesh.launch_backward(coef_, par_, y, g)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+            print(f"[9] mesh_bwd n={n_} B={b}: the profiler recorded no "
+                  f"device event ({len(prof.events())} host events); "
+                  f"taken again", flush=True)
         check(0 < len(names) <= 20
               and all("mesh_bwd_reg_kernel" in s for s in names),
               f"mesh_bwd n={n_} B={b}: 20 calls gave the device events "
@@ -1470,18 +1570,7 @@ def main(argv=None) -> int:
     # the fused layer at n = 8: B3 on the programmed processor's
     # coefficients (Reck V and U, 13 columns each), B4 and B5 on the trained
     # layer's (Clements, PROTOTYPE, Table-I phases)
-    def layer_inputs(layer, params):
-        with torch.no_grad():
-            v_p, u_p = layer._quant(params["v"]), layer._quant(params["u"])
-            sv = schedule.schedule_from_plan(layer.v_plan)
-            su = schedule.schedule_from_plan(layer.u_plan)
-            return [ops._mesh_coefficients(sv, v_p, layer.hardware, None),
-                    schedule.parity_array(sv, dev),
-                    ops._mesh_coefficients(su, u_p, layer.hardware, None),
-                    schedule.parity_array(su, dev),
-                    ops._gains(torch.sigmoid(params["atten_logit"]),
-                               torch.nn.functional.softplus(params["log_scale"]),
-                               v_p, u_p, 8, dev)]
+    layer_inputs = fused_layer_inputs
 
     def realized(layer, params):
         """The complex 8x8 matrix of the layer's linear half (no |.|)."""
@@ -1562,12 +1651,20 @@ def main(argv=None) -> int:
                                "columns": [inputs[0].shape[0],
                                            inputs[2].shape[0]]})
             half = "the dx half" if name == "rfnn_bwd" else "the linear half"
+            extra = ""
+            if name == "rfnn_bwd":
+                plan_ = givens_mesh.rfnn_bwd_plan(b, n, inputs[0].shape[0],
+                                                  inputs[2].shape[0])
+                parent = FUSED_PARENT_MS.get((name, layer_name, b))
+                rows_fused[-1].update(plan=plan_, parent_device_ms=parent)
+                extra = (f"; plan {plan_}; before the register path {parent} "
+                         f"ms on the device (PERF.md)")
             print(f"[9] {card} | {name} n=8 B={b} ({layer_name}; Cv, Cu = "
                   f"{inputs[0].shape[0]}, {inputs[2].shape[0]}): kernel "
                   f"{k_ms:.5f} ms per call, {kd_ms:.5f} ms on the device; bound "
                   f"{bound_ms:.6f} ms ({bound_by}); plain {p_ms:.4f} ms per "
                   f"call; matmul for {half} alone {l_ms:.5f} ms per call, "
-                  f"{ld_ms:.5f} ms on the device", flush=True)
+                  f"{ld_ms:.5f} ms on the device{extra}", flush=True)
     report["timings_fused_n8"] = rows_fused
 
     fused_step = make_sgd_step(lambda p, xx, yy: (
@@ -1590,21 +1687,33 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     fused_step_ms = (time.perf_counter() - t0) * 1e3 / 50
     check(bool(torch.isfinite(loss)), "non-finite fused SGD loss")
-    per_step, busy_us, ours_us = profile_steps(
-        torch, fused_steps, 20, ("rfnn_fwd_kernel", "rfnn_bwd_kernel",
+    # B5 once a step on its register path (n / 2 lanes a row at this
+    # batch), and reduce_partials only where its plan has two kernels
+    fused_plan = givens_mesh.rfnn_bwd_plan(FUSED_BATCH, 8, train_in[0].shape[0],
+                                           train_in[2].shape[0])
+    b5_name = ("rfnn_bwd_lane_kernel" if fused_plan["lanes"] > 1
+               else "rfnn_bwd_reg_kernel")
+    per_step, busy_us, ours_us, ours_n = profile_steps(
+        torch, fused_steps, 20, ("rfnn_fwd_kernel", b5_name,
                                  "reduce_partials"))
-    check(ours_us["rfnn_fwd_kernel"] > 0 and ours_us["rfnn_bwd_kernel"] > 0,
+    check(ours_us["rfnn_fwd_kernel"] > 0 and ours_us[b5_name] > 0,
           f"the profiled fused SGD steps show no fused kernel: {ours_us}")
+    check(fused_plan["register_path"] == 1 and ours_n[b5_name] == 1
+          and ours_n["reduce_partials"] == fused_plan["kernels"] - 1,
+          f"B5 a fused SGD step: {ours_n} (plan {fused_plan})")
     print(f"[9] {card} | SGD step, AnalogLinear(8, 8, abs, table1, PROTOTYPE), "
           f"batch {FUSED_BATCH}: {fused_step_ms:.3f} ms, "
           f"{1e3 / fused_step_ms:.1f} steps/s (50 steps); profiler: "
           f"{per_step:.0f} device events and {busy_us:.1f} us of device time "
           f"per step ({100 * busy_us / (fused_step_ms * 1e3):.1f}%), fused "
-          f"kernels per step (us) {ours_us}", flush=True)
+          f"kernels per step (us) {ours_us}, launches per step {ours_n}; "
+          f"B5's plan {fused_plan}", flush=True)
     report["fused_sgd_step"] = {"ms": fused_step_ms,
                                 "device_events_per_step": per_step,
                                 "device_busy_us_per_step": busy_us,
-                                "fused_kernels_us_per_step": ours_us}
+                                "fused_kernels_us_per_step": ours_us,
+                                "fused_kernels_per_step": ours_n,
+                                "rfnn_bwd_plan": fused_plan}
 
 
     # -- phase 10: the deep-grid kernels against their plain versions --------
@@ -1737,6 +1846,44 @@ def main(argv=None) -> int:
     print(f"[10] the 64x64 cascade at B in {cascade_batches} (R = {r_cascade} "
           f"at B = {DEEP_BATCH}, {cascade_plan['blocks']} blocks): B6, B7, B8 "
           f"== plain, both readouts", flush=True)
+    # B8's plan edges: one tile (n / 2 lanes a row, whole warps: 8 rows a
+    # warp at n = 8 and 2 at n = 32, one block up to 256 threads) and a
+    # grid (8 rows a block), each side of every edge; a generator of their
+    # own, so every other draw of this script is what it was
+    rng_b8 = np.random.default_rng(args.seed + 19)
+    plans_b8 = {}
+    for depth, to, ti, n in ((4, 1, 1, 8), (2, 1, 1, 32), (1, 2, 3, 4)):
+        parked = (depth - 1, to - 1, 0) if to * ti > 1 else None
+        _, _, packed = deep_grid(n, depth, to, ti, seed=depth + n + 19,
+                                 reck="mixed", parked=parked, hw=PROTOTYPE)
+        inputs = deep_inputs(packed)
+        c = inputs[0].shape[3]
+        if to * ti == 1:  # rows a warp, rows one block holds
+            edges = (32 // (n // 2), 256 // (n // 2))
+        else:
+            edges = (8,)
+        batches = sorted({1} | {e + d for e in edges for d in (-1, 0, 1)})
+        for b in batches:
+            x = rand_x(rng_b8, b, ti * n)
+            x[1::9] = 0
+            for detect_last in (True, False):
+                deep_vs_plain(inputs, x, rand_g(rng_b8, b, to * n, detect_last),
+                              detect_last, parked)
+                plan = givens_mesh.deepgrid_bwd_plan(b, n, depth, to, ti, c,
+                                                     detect_last)
+                check(plan["register_path"] == 1
+                      and (plan["kernels"] == 1) == (b <= edges[-1]),
+                      f"deepgrid_bwd L, To, Ti, n = {depth}, {to}, {ti}, {n} "
+                      f"B={b}: plan {plan}")
+                plans_b8[(depth, to, ti, n, b)] = plan
+        print(f"[10] B8 at its plan's edges, L, To, Ti, n = {depth}, {to}, "
+              f"{ti}, {n} (C = {c}), B in {batches}: == plain, both "
+              f"readouts, gradients bit-identical; plans (rows/threads/"
+              f"blocks/kernels) " + ", ".join(
+                  f"B={k[-1]}: {v['rows']}/{v['threads']}/{v['blocks']}/"
+                  f"{v['kernels']}" for k, v in plans_b8.items()
+                  if k[:4] == (depth, to, ti, n)), flush=True)
+    report["deepgrid_bwd_plans"] = {f"{k}": v for k, v in plans_b8.items()}
     x = rand_x(rng, DEEP_BATCH, 64)
     main_err_deep = deep_vs_plain(cascade_in, x, torch.rand(DEEP_BATCH, 64,
                                                             device=dev), True)
@@ -1819,11 +1966,19 @@ def main(argv=None) -> int:
     d_deep20 = max_tree_diff(deep_state["p"], p_cpu)
     check(d_deep20 <= 1e-4, f"depth-4 SGD card vs CPU after 20 steps: "
           f"{d_deep20}")
-    per_step_d, busy_d, ours_d = profile_steps(
-        torch, deep_sgd, 20, ("deepgrid_reg_kernel", "deepgrid_bwd_kernel",
+    per_step_d, busy_d, ours_d, ours_dn = profile_steps(
+        torch, deep_sgd, 20, ("deepgrid_reg_kernel", "deepgrid_bwd_lane_kernel",
                               "reduce_partials"))
-    check(ours_d["deepgrid_reg_kernel"] > 0 and ours_d["deepgrid_bwd_kernel"] > 0,
+    check(ours_d["deepgrid_reg_kernel"] > 0
+          and ours_d["deepgrid_bwd_lane_kernel"] > 0,
           f"the profiled depth-4 SGD steps show no deep kernel: {ours_d}")
+    # B8 once a step, one kernel (its plan): no reduce_partials
+    deep_plan = givens_mesh.deepgrid_bwd_plan(SGD_BATCH, 8, 4, 1, 1,
+                                              mnist_in[0].shape[3])
+    check(deep_plan["kernels"] == 1 and ours_dn["deepgrid_bwd_lane_kernel"] == 1
+          and ours_dn["reduce_partials"] == 0,
+          f"B8 a depth-4 SGD step must be one kernel: {ours_dn} (plan "
+          f"{deep_plan})")
     print(f"[11] train_mnist(analog_depth=4, ste, PROTOTYPE, table1, batch "
           f"{SGD_BATCH}, lr {DEEP_LR}, 1 epoch, 1000 digits) on the card: "
           f"{deep_train_s:.1f} s, {deep_steps} SGD steps, loss "
@@ -1835,7 +1990,8 @@ def main(argv=None) -> int:
           f"table1), batch {SGD_BATCH}: {deep_step_ms:.3f} ms (20 steps); "
           f"profiler: {per_step_d:.0f} device events and {busy_d:.1f} us of "
           f"device time per step ({100 * busy_d / (deep_step_ms * 1e3):.1f}%), "
-          f"deep kernels per step (us) {ours_d}", flush=True)
+          f"deep kernels per step (us) {ours_d}, launches per step "
+          f"{ours_dn}; B8's plan {deep_plan}", flush=True)
     report["mnist_deep"] = {"max_abs_vs_reference": d_dref,
                             "max_abs_vs_cpu": d_dcpu,
                             "train_s": deep_train_s, "history": dres["history"],
@@ -1845,7 +2001,9 @@ def main(argv=None) -> int:
                             "sgd_step_ms": deep_step_ms,
                             "device_events_per_step": per_step_d,
                             "device_busy_us_per_step": busy_d,
-                            "deep_kernels_us_per_step": ours_d}
+                            "deep_kernels_us_per_step": ours_d,
+                            "deep_kernels_per_step": ours_dn,
+                            "deepgrid_bwd_plan": deep_plan}
 
     # -- phase 12: TiledAnalogLinear(64, 64) ----------------------------------
     tiled = TiledAnalogLinear(64, 64, tile_size=16, quantize="table1", output="abs")
@@ -2132,8 +2290,14 @@ def main(argv=None) -> int:
                                   "parent_device_ms": parent_ms})
                 what = ("the dx chain alone" if name == "deepgrid_bwd"
                         else "the layer matrices")
-                layout = ""
-                if name != "deepgrid_bwd":
+                if name == "deepgrid_bwd":
+                    plan = givens_mesh.deepgrid_bwd_plan(
+                        b, 2 * inputs[0].shape[-1], *inputs[0].shape[:4],
+                        detect_last)
+                    rows_deep[-1]["plan"] = plan
+                    layout = (f"; plan {plan}; before the redesign "
+                              f"{parent_ms} ms on the device (PERF.md)")
+                else:
                     plan = givens_mesh.deepgrid_fwd_plan(
                         b, 2 * inputs[0].shape[-1], *inputs[0].shape[:4],
                         save_stages=name == "deepgrid_fwd_res")
@@ -2392,7 +2556,7 @@ def main(argv=None) -> int:
     for name, run, steps, wall_ms in (
             ("prefill", run_prefill, 2, lm_row["prefill_ms"]),
             ("decode", run_decode, 8, lm_row["decode_p50_ms"])):
-        events, busy_us, ours_us = profile_steps(
+        events, busy_us, ours_us, _ = profile_steps(
             torch, run, steps, ["flash_fwd", "nvjet", "gemm", "copy"])
         lm_row[f"{name}_profile"] = {
             "device_events": events, "device_busy_us": busy_us,

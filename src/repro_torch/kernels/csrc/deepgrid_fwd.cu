@@ -98,7 +98,10 @@ namespace {
 
 using mesh_sweep::cadd;
 using mesh_sweep::cmul;
+using mesh_sweep::cp_async_commit;
+using mesh_sweep::cp_async_wait;
 using mesh_sweep::gain_at;
+using mesh_sweep::kParityBit;
 using mesh_sweep::kThreads;
 using mesh_sweep::rotate_regs;
 
@@ -107,43 +110,10 @@ constexpr int kRegThreads = 256;       // a register-path block's threads, most
 constexpr size_t kChunkBytes = 65536;  // a staged chunk's target size
 constexpr size_t kRingBytes = 131072;  // the chunk ring's target size
 constexpr int kMaxStages = 8;          // chunk buffers at most (cp_async_wait)
-constexpr unsigned kParityBit = 0x80000000u;
 
 // ---------------------------------------------------------------------------
 // register path
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` (0..6) of this thread's newest cp.async
-// groups are still in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-  }
-}
 
 // G consecutive floats of shared memory (16-, 8- or 4-byte aligned).
 template <int G>
@@ -182,8 +152,7 @@ struct RegLayout {
 
 // Stage chunk j: columns [c0, c0 + kc) of layer l's V (m = 0) or U (m = 1)
 // for every tile, into buffer j % stages: each tile's kc [8, P] columns in
-// their global order (16-byte copies where the coefficients are 16-byte
-// aligned), then their parities.
+// their global order (mesh_sweep.cuh: copy_chunk), then their parities.
 __device__ __forceinline__ void stage_chunk(
     int j, float* sm, const RegLayout& lay, const float* __restrict__ coef_v,
     const int* __restrict__ par_v, const float* __restrict__ coef_u,
@@ -193,59 +162,13 @@ __device__ __forceinline__ void stage_chunk(
   const int m = (j / per_mesh) % 2;
   const int c0 = (j % per_mesh) * kcap;
   const int kc = n_cols - c0 < kcap ? n_cols - c0 : kcap;
-  const float* coef = m ? coef_u : coef_v;
-  const int* par = m ? par_u : par_v;
+  const long long layer = static_cast<long long>(l) * tiles * n_cols;
   float* buf = sm + (j % stages) * lay.buf;
-  const int col = 4 * n;                 // floats a column: 8 P
-  const int per_tile = kc * n;           // 16-byte words a tile
-  const float* src0 = coef + (static_cast<long long>(l) * tiles * n_cols + c0)
-                                 * col;
-  const bool aligned = (reinterpret_cast<uintptr_t>(coef) & 15) == 0;
-  int t = threadIdx.x / per_tile, f = threadIdx.x % per_tile;
-  const int dt = blockDim.x / per_tile, df = blockDim.x % per_tile;
-  for (int w = threadIdx.x; w < tiles * per_tile; w += blockDim.x) {
-    const float* src = src0 + static_cast<long long>(t) * n_cols * col + 4 * f;
-    float* dst = buf + t * lay.stride + 4 * f;
-    if (aligned) {
-      cp_async16(dst, src);
-    } else {
-      for (int u = 0; u < 4; ++u) cp_async4(dst + u, src + u);
-    }
-    t += dt;
-    f += df;
-    if (f >= per_tile) {
-      f -= per_tile;
-      ++t;
-    }
-  }
-  int* pb = reinterpret_cast<int*>(buf + tiles * lay.stride);
-  const int* psrc = par + static_cast<long long>(l) * tiles * n_cols + c0;
-  for (int w = threadIdx.x; w < tiles * kc; w += blockDim.x) {
-    const int tt = w / kc, k = w - tt * kc;
-    cp_async4(pb + tt * kcap + k, psrc + static_cast<long long>(tt) * n_cols
-                                        + k);
-  }
-}
-
-// Stage every layer's gains, tile t of layer l at gbuf + (l tiles + t)
-// gstride (its 12 P floats).
-__device__ __forceinline__ void stage_gains(float* gbuf,
-                                            const float* __restrict__ gains,
-                                            int n_layers, int tiles, int n,
-                                            int gstride) {
-  const int per_tile = 3 * n / 2;        // 16-byte words a tile: 12 P floats
-  const bool aligned = (reinterpret_cast<uintptr_t>(gains) & 15) == 0;
-  for (int w = threadIdx.x; w < n_layers * tiles * per_tile;
-       w += blockDim.x) {
-    const int lt = w / per_tile, f = w - lt * per_tile;  // lt = l tiles + t
-    const float* src = gains + static_cast<long long>(lt) * 6 * n + 4 * f;
-    float* dst = gbuf + lt * gstride + 4 * f;
-    if (aligned) {
-      cp_async16(dst, src);
-    } else {
-      for (int u = 0; u < 4; ++u) cp_async4(dst + u, src + u);
-    }
-  }
+  mesh_sweep::copy_chunk(buf, lay.stride,
+                         reinterpret_cast<int*>(buf + tiles * lay.stride),
+                         kcap, (m ? coef_u : coef_v) + layer * 4 * n,
+                         (m ? par_u : par_v) + layer, tiles, n_cols, c0, kc,
+                         n);
 }
 
 // Slots of a run: one 16-byte load of each coefficient row covers four
@@ -436,7 +359,8 @@ deepgrid_reg_kernel(const float2* __restrict__ x, void* __restrict__ out,
   // a ring of `stages` chunk buffers: chunks 0 .. stages - 2 (and every
   // layer's gains, with chunk 0) in flight before the first sweep, one
   // commit group a chunk
-  stage_gains(sm + lay.gains, gains, n_layers, tiles, N, lay.gstride);
+  mesh_sweep::copy_gains(sm + lay.gains, gains, n_layers, tiles, N,
+                         lay.gstride);
   for (int jj = 0; jj < stages - 1; ++jj) {
     if (jj < n_chunks) {
       stage_chunk(jj, sm, lay, coef_v, par_v, coef_u, par_u, tiles, n_cols,

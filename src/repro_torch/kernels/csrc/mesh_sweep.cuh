@@ -22,6 +22,8 @@
 
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace mesh_sweep {
@@ -328,27 +330,6 @@ __device__ void grid_reverse_sweep(float2* st, float2* gt, float* terms,
   }
 }
 
-// The block count of a gradient sweep: the batch's row tiles, capped at one
-// wave of resident blocks of `kernel` (launched with `threads` threads) on
-// the current device, so the count (and with it the summation order)
-// depends only on B, the shapes and the card.  Returns -(CUDA error) on
-// failure.
-template <typename Kernel>
-int wave_blocks(Kernel kernel, int tiles, size_t smem, int threads = kThreads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                         threads, smem);
-  }
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  const int wave = sms * per_sm > 0 ? sms * per_sm : 1;
-  return tiles < wave ? tiles : wave;
-}
-
 // ---------------------------------------------------------------------------
 // register sweeps: one thread a row, the row's n channels in registers
 // ---------------------------------------------------------------------------
@@ -473,22 +454,25 @@ __device__ __forceinline__ void rotate_column(float2 (&st)[N],
   }
 }
 
-// The sum over a warp's 32 lanes of each of the K values v[] (K in {1, 2,
-// 4, ..., 32}), by a butterfly that halves what a lane carries at each
-// level: at offset O a lane keeps the half of its values that its lane bit
-// O selects and adds the partner's copy of that half.  After the levels
-// from O down to 1, lane l holds value l / (32 / K) summed over the warp
-// (the 32 / K lanes that share it hold the same bits: a + b == b + a).
-// The order of the adds is fixed by the lane numbers alone.
-template <int K, int O>
-__device__ __forceinline__ float warp_scatter_sum(const float (&v)[K],
-                                                  int lane) {
+// The sums over a segment of S = 2 O aligned lanes (a warp at O = 16) of
+// each of the K values v[] (K a power of two), by a butterfly that halves
+// what a lane carries at each level: at offset O a lane keeps the half of
+// its values that its lane bit O selects and adds the partner's copy of
+// that half.  After the levels from O down to 1, with K >= S, lane l holds
+// in out[j] the value (l mod S) (K / S) + j summed over its segment (KO =
+// K / S); with K < S, out[0] is value (l mod S) / (S / K) (KO = 1; the
+// S / K lanes that share it hold the same bits: a + b == b + a).  The
+// order of the adds is fixed by the lane numbers alone.
+template <int K, int O, int KO>
+__device__ __forceinline__ void scatter_sum(const float (&v)[K], int lane,
+                                            float (&out)[KO]) {
   if constexpr (O == 0) {
-    static_assert(K == 1, "a value per lane at the end");
-    return v[0];
+    static_assert(K == KO, "KO values a lane at the end");
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[k] = v[k];
   } else if constexpr (K == 1) {
     const float w[1] = {v[0] + __shfl_xor_sync(0xffffffffu, v[0], O)};
-    return warp_scatter_sum<1, O / 2>(w, lane);
+    scatter_sum<1, O / 2, KO>(w, lane, out);
   } else {
     constexpr int H = K / 2;
     const bool upper = (lane & O) != 0;
@@ -499,8 +483,18 @@ __device__ __forceinline__ float warp_scatter_sum(const float (&v)[K],
       const float keep = upper ? v[H + k] : v[k];
       w[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
     }
-    return warp_scatter_sum<H, O / 2>(w, lane);
+    scatter_sum<H, O / 2, KO>(w, lane, out);
   }
+}
+
+// The sum over a warp's 32 lanes of each of the K <= 32 values v[]: lane l
+// holds value l / (32 / K) (scatter_sum over the whole warp).
+template <int K, int O>
+__device__ __forceinline__ float warp_scatter_sum(const float (&v)[K],
+                                                  int lane) {
+  float out[1];
+  scatter_sum<K, O, 1>(v, lane, out);
+  return out[0];
 }
 
 // Group g0 / G of column `cc` (its P staged cells and inverses, W = 4)
@@ -599,6 +593,407 @@ __device__ __forceinline__ void store_row(float2* __restrict__ dst,
 #pragma unroll
     for (int k = 0; k < N; ++k) dst[k] = r[k];
   }
+}
+
+// ---------------------------------------------------------------------------
+// staged sweeps with identity marks (rfnn_bwd.cu B5, deepgrid_bwd.cu B8)
+// ---------------------------------------------------------------------------
+//
+// A mesh's cells are staged cell-major with their inverses (W = 4, as
+// stage_cells<true>), each inverse computed once a block, and each column
+// gets a mark word: bit s for a slot holding a cell that is not the
+// identity, kParityBit for parity 1.  The reversed sweep skips the inverse
+// and adjoint of a run of slots that holds no such cell (they give the pair
+// back), but every slot's gradient terms are summed: an identity cell's
+// coefficients have a gradient like any other's.
+
+constexpr unsigned kParityBit = 0x80000000u;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` (0..6) of this thread's newest cp.async
+// groups are still in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+  }
+}
+
+// Copy columns [c0, c0 + kc) of one layer's [tiles][C][8][P] coefficients
+// (`coef` and `par` at that layer) into shared memory: tile t's kc columns
+// in their global order at dst + t * tstride floats (16-byte cp.async where
+// coef is 16-byte aligned, 4-byte otherwise), their parities at
+// pdst[t * kcap + k].  No commit.
+__device__ __forceinline__ void copy_chunk(float* dst, int tstride, int* pdst,
+                                           int kcap,
+                                           const float* __restrict__ coef,
+                                           const int* __restrict__ par,
+                                           int tiles, int n_cols, int c0,
+                                           int kc, int n) {
+  const int col = 4 * n;                 // floats a column: 8 P
+  const int per_tile = kc * n;           // 16-byte words a tile
+  const float* src0 = coef + static_cast<long long>(c0) * col;
+  const bool aligned = (reinterpret_cast<uintptr_t>(coef) & 15) == 0;
+  int t = threadIdx.x / per_tile, f = threadIdx.x % per_tile;
+  const int dt = blockDim.x / per_tile, df = blockDim.x % per_tile;
+  for (int w = threadIdx.x; w < tiles * per_tile; w += blockDim.x) {
+    const float* src = src0 + static_cast<long long>(t) * n_cols * col + 4 * f;
+    float* d = dst + t * tstride + 4 * f;
+    if (aligned) {
+      cp_async16(d, src);
+    } else {
+      for (int u = 0; u < 4; ++u) cp_async4(d + u, src + u);
+    }
+    t += dt;
+    f += df;
+    if (f >= per_tile) {
+      f -= per_tile;
+      ++t;
+    }
+  }
+  const int* psrc = par + c0;
+  for (int w = threadIdx.x; w < tiles * kc; w += blockDim.x) {
+    const int tt = w / kc, k = w - tt * kc;
+    cp_async4(pdst + tt * kcap + k,
+              psrc + static_cast<long long>(tt) * n_cols + k);
+  }
+}
+
+// Stage every layer's gains, tile t of layer l at gbuf + (l tiles + t)
+// gstride (its 12 P floats).  No commit.
+__device__ __forceinline__ void copy_gains(float* gbuf,
+                                           const float* __restrict__ gains,
+                                           int n_layers, int tiles, int n,
+                                           int gstride) {
+  const int per_tile = 3 * n / 2;        // 16-byte words a tile: 12 P floats
+  const bool aligned = (reinterpret_cast<uintptr_t>(gains) & 15) == 0;
+  for (int w = threadIdx.x; w < n_layers * tiles * per_tile;
+       w += blockDim.x) {
+    const int lt = w / per_tile, f = w - lt * per_tile;  // lt = l tiles + t
+    const float* src = gains + static_cast<long long>(lt) * 6 * n + 4 * f;
+    float* dst = gbuf + lt * gstride + 4 * f;
+    if (aligned) {
+      cp_async16(dst, src);
+    } else {
+      for (int u = 0; u < 4; ++u) cp_async4(dst + u, src + u);
+    }
+  }
+}
+
+// Stage kc columns of `tiles` meshes cell-major: cell (t, k, s) at
+// cells + t * cts + 4 (k P + s) as t (two float4) then its inverse
+// adj(t) / det(t) (two float4), from tile t's column k at raw + t * rts +
+// 8 P k (rows of P floats) and its parity at par[t * pts + k]; the column's
+// mark word into marks[k * tiles + t].  The test for the identity
+// [1,0,0,0,0,0,1,0] is on the bits (a -0 is not the identity).  One lane a
+// slot, a column's P slots in adjacent lanes, so one ballot gathers a
+// column's bits; every lane of a warp runs the loop.  No barrier.
+template <int P>
+__device__ void stage_marked(float4* cells, int cts, unsigned* marks,
+                             const float* raw, int rts, const int* par,
+                             int pts, int tiles, int kc) {
+  constexpr unsigned kOne = 0x3f800000u;  // 1.0f
+  const int total = tiles * kc * P;
+  const int lane = threadIdx.x & 31;
+  for (int e0 = threadIdx.x - lane; e0 < total; e0 += blockDim.x) {
+    const int e = e0 + lane;
+    bool real = false;
+    int k = 0, t = 0, parity = 0;
+    if (e < total) {
+      const int s = e % P, kt = e / P;
+      t = kt % tiles;
+      k = kt / tiles;
+      const float* cc = raw + t * rts + 8 * P * k + s;
+      float c[8], v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) c[q] = cc[q * P];
+      parity = par[t * pts + k];
+      inverse_regs(c, v);
+      float4* w = cells + t * cts + 4 * (k * P + s);
+      w[0] = make_float4(c[0], c[1], c[2], c[3]);
+      w[1] = make_float4(c[4], c[5], c[6], c[7]);
+      w[2] = make_float4(v[0], v[1], v[2], v[3]);
+      w[3] = make_float4(v[4], v[5], v[6], v[7]);
+      unsigned diff = 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        diff |= __float_as_uint(c[q]) ^ ((q == 0 || q == 6) ? kOne : 0u);
+      }
+      real = diff != 0u && !(parity && s == P - 1);
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, real);
+    if (e < total && (lane & (P - 1)) == 0) {  // slot 0 of its column
+      marks[k * tiles + t] = ((bits >> lane) & ((1u << P) - 1u))
+                             | (parity ? kParityBit : 0u);
+    }
+  }
+}
+
+// A group's gradient terms from the pairs as they stand, for a run of
+// identity cells (reverse_group's terms; state and cotangent unchanged).
+template <int N, int kPar>
+__device__ __forceinline__ void terms_group(const float2 (&st)[N],
+                                            const float2 (&gt)[N], int g0,
+                                            float (&d)[8 * (N < 8 ? N / 2
+                                                            : 4)]) {
+  constexpr int P = N / 2;
+  constexpr int G = P < 4 ? P : 4;
+#pragma unroll
+  for (int u = 0; u < G; ++u) {
+    const int s = g0 + u;
+    if (kPar == 0 || s < P - 1) {
+      const float2 a = st[2 * s + kPar], b = st[2 * s + kPar + 1];
+      const float2 ga = gt[2 * s + kPar], gb = gt[2 * s + kPar + 1];
+      const float2 d00 = cmulc(a, ga), d01 = cmulc(b, ga);
+      const float2 d10 = cmulc(a, gb), d11 = cmulc(b, gb);
+      d[0 * G + u] = d00.x; d[1 * G + u] = d00.y;
+      d[2 * G + u] = d01.x; d[3 * G + u] = d01.y;
+      d[4 * G + u] = d10.x; d[5 * G + u] = d10.y;
+      d[6 * G + u] = d11.x; d[7 * G + u] = d11.y;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) d[q * G + u] = 0.f;
+    }
+  }
+}
+
+// Group g0 of a column with mark word w reversed at a lane into d
+// (reverse_group, or terms_group where no lane of the warp has a live cell
+// in the group), then after() in the same branch, so that work handed to
+// it (a sink's shuffles) can overlap the group's arithmetic.  The branch
+// is the warp's: lanes whose tiles disagree on the parity (a mixed grid)
+// take the plain reversal.  Every lane of the warp calls it.
+template <int N, class After>
+__device__ __forceinline__ void reverse_marked(float2 (&st)[N],
+                                               float2 (&gt)[N],
+                                               const float4* cc, unsigned w,
+                                               int g0,
+                                               float (&d)[8 * (N < 8 ? N / 2
+                                                               : 4)],
+                                               After&& after) {
+  constexpr int P = N / 2;
+  constexpr int G = P < 4 ? P : 4;
+  const bool par = (w & kParityBit) != 0u;
+  const bool live = __any_sync(0xffffffffu,
+                               ((w >> g0) & ((1u << G) - 1u)) != 0u);
+  if (__all_sync(0xffffffffu, par)) {
+    if (live) {
+      reverse_group<N, 1>(st, gt, cc, g0, d);
+    } else {
+      terms_group<N, 1>(st, gt, g0, d);
+    }
+    after();
+  } else if (!__any_sync(0xffffffffu, par)) {
+    if (live) {
+      reverse_group<N, 0>(st, gt, cc, g0, d);
+    } else {
+      terms_group<N, 0>(st, gt, g0, d);
+    }
+    after();
+  } else {
+    if (par) {
+      reverse_group<N, 1>(st, gt, cc, g0, d);
+    } else {
+      reverse_group<N, 0>(st, gt, cc, g0, d);
+    }
+    after();
+  }
+}
+
+// Columns k_end - 1 down to k_begin of a staged mesh (column k's cells and
+// inverses at cells + 4 P k, its mark word at marks[k * mstride]) reversed
+// on a row's registers, group by group, each group's terms handed to
+// sink(d, k, g0).  For P <= 4 (one group a column) a column's sink runs
+// while the next column is reversed.  Every lane of the warp runs it.
+template <int N, class Sink>
+__device__ __forceinline__ void reverse_columns(float2 (&st)[N],
+                                                float2 (&gt)[N],
+                                                const float4* cells,
+                                                const unsigned* marks,
+                                                int mstride, int k_begin,
+                                                int k_end, Sink&& sink) {
+  constexpr int P = N / 2;
+  constexpr int G = P < 4 ? P : 4;
+  constexpr int V = 8 * G;
+  if (k_end <= k_begin) return;
+  if constexpr (P <= 4) {
+    float prev[V];
+    int k = k_end - 1;
+    reverse_marked<N>(st, gt, cells + 4 * P * k, marks[k * mstride], 0, prev,
+                      [] {});
+    for (; k > k_begin; --k) {
+      float cur[V];
+      reverse_marked<N>(st, gt, cells + 4 * P * (k - 1),
+                        marks[(k - 1) * mstride], 0, cur,
+                        [&] { sink(prev, k, 0); });
+#pragma unroll
+      for (int v = 0; v < V; ++v) prev[v] = cur[v];
+    }
+    sink(prev, k_begin, 0);
+  } else {
+    for (int k = k_end - 1; k >= k_begin; --k) {
+      const unsigned w = marks[k * mstride];
+#pragma unroll
+      for (int g0 = 0; g0 < P; g0 += G) {
+        float d[V];
+        reverse_marked<N>(st, gt, cells + 4 * P * k, w, g0, d,
+                          [&] { sink(d, k, g0); });
+      }
+    }
+  }
+}
+
+// conj(a_k) b_k of the channels of slots g0 .. g0 + GG - 1 into d in a
+// gain's row order: value q GG + u is row q (even re, even im, odd re, odd
+// im) of slot g0 + u.
+template <int N, int GG>
+__device__ __forceinline__ void gain_group(const float2 (&a)[N],
+                                           const float2 (&b)[N], int g0,
+                                           float (&d)[4 * GG]) {
+#pragma unroll
+  for (int u = 0; u < GG; ++u) {
+    const int s = g0 + u;
+    const float2 e = cmulc(a[2 * s], b[2 * s]);
+    const float2 o = cmulc(a[2 * s + 1], b[2 * s + 1]);
+    d[0 * GG + u] = e.x;
+    d[1 * GG + u] = e.y;
+    d[2 * GG + u] = o.x;
+    d[3 * GG + u] = o.y;
+  }
+}
+
+// dst[e] (first: =, else +=) the sum over rows r < rows, in row order, of
+// src[r * stride + e], for e < total; a thread carries four entries at once
+// (their rows' loads in flight together).
+__device__ __forceinline__ void flush_rows(const float* src, int stride,
+                                           int rows, int total,
+                                           float* __restrict__ dst,
+                                           bool first) {
+  constexpr int kE = 4;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kE * blockDim.x) {
+    float v[kE];
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int e = e0 + j * blockDim.x;
+      v[j] = e < total ? src[e] : 0.f;
+    }
+    for (int r = 1; r < rows; ++r) {
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        const int e = e0 + j * blockDim.x;
+        if (e < total) v[j] += src[r * stride + e];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      const int e = e0 + j * blockDim.x;
+      if (e < total) dst[e] = first ? v[j] : dst[e] + v[j];
+    }
+  }
+}
+
+// The two channels (2 j, 2 j + 1) of a row at p (16-byte aligned where
+// `vec`).
+__device__ __forceinline__ void load_pair(float2& a, float2& b,
+                                          const float2* p, bool vec) {
+  if (vec) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    a = make_float2(w.x, w.y);
+    b = make_float2(w.z, w.w);
+  } else {
+    a = p[0];
+    b = p[1];
+  }
+}
+
+
+// Column `cc` (its P cells and inverses, W = 4; mark word w) reversed at
+// lane j of a row spread over P = N / 2 lanes, lane j holding channels 2 j
+// and 2 j + 1 (state s0, s1; cotangent g0, g1): a parity-0 column's cell j
+// is the lane's own pair; a parity-1 column's cell j pairs the lane's odd
+// channel with lane j + 1's even one, which a shuffle brings and takes
+// back (lane P - 1 holds the wrap slot: no cell, terms 0).  d gets the
+// cell's terms in coef's row order.  A column that holds no live cell
+// skips the inverse and adjoint (its identity cells give the pairs back).
+// Every lane of the warp runs it, with the same w.
+template <int N>
+__device__ __forceinline__ void lane_column(float2& s0, float2& s1,
+                                            float2& g0, float2& g1,
+                                            const float4* cc, unsigned w,
+                                            int j, float (&d)[8]) {
+  constexpr int P = N / 2;
+  const bool live = (w & ((1u << P) - 1u)) != 0u;
+  auto terms = [&](float2 a, float2 b, float2 ga, float2 gb) {
+    const float2 d00 = cmulc(a, ga), d01 = cmulc(b, ga);
+    const float2 d10 = cmulc(a, gb), d11 = cmulc(b, gb);
+    d[0] = d00.x; d[1] = d00.y; d[2] = d01.x; d[3] = d01.y;
+    d[4] = d10.x; d[5] = d10.y; d[6] = d11.x; d[7] = d11.y;
+  };
+  if (!(w & kParityBit)) {
+    if (live) {
+      float t[8], inv[8];
+      load_cell(cc + 4 * j, t);
+      load_cell(cc + 4 * j + 2, inv);
+      reverse_regs(t, inv, s0, s1, g0, g1, d);
+    } else {
+      terms(s0, s1, g0, g1);
+    }
+    return;
+  }
+  float2 b, gb;  // lane j + 1's even channel
+  b.x = __shfl_down_sync(0xffffffffu, s0.x, 1);
+  b.y = __shfl_down_sync(0xffffffffu, s0.y, 1);
+  gb.x = __shfl_down_sync(0xffffffffu, g0.x, 1);
+  gb.y = __shfl_down_sync(0xffffffffu, g0.y, 1);
+  const bool cell = j < P - 1;
+  if (cell && live) {
+    float t[8], inv[8];
+    load_cell(cc + 4 * j, t);
+    load_cell(cc + 4 * j + 2, inv);
+    reverse_regs(t, inv, s1, b, g1, gb, d);
+  } else if (cell) {
+    terms(s1, b, g1, gb);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = 0.f;
+  }
+  b.x = __shfl_up_sync(0xffffffffu, b.x, 1);
+  b.y = __shfl_up_sync(0xffffffffu, b.y, 1);
+  gb.x = __shfl_up_sync(0xffffffffu, gb.x, 1);
+  gb.y = __shfl_up_sync(0xffffffffu, gb.y, 1);
+  if (j > 0) {
+    s0 = b;
+    g0 = gb;
+  }
+}
+
+// The |.| backward: the real cotangent g of |z| carried to z, 0 at |z| = 0.
+__device__ __forceinline__ float2 detect_bwd(float2 z, float g) {
+  const float mag = sqrtf(z.x * z.x + z.y * z.y);
+  const float w = mag > 0.f ? g / mag : 0.f;
+  return make_float2(w * z.x, w * z.y);
 }
 
 }  // namespace

@@ -42,7 +42,15 @@ block covers the batch, writes ``dcoef`` in its one launch) and the
 shared-memory sweep otherwise.  :func:`mesh_fwd_plan` and
 :func:`mesh_bwd_plan` report the launch for a shape on the current card
 (cached per batch, width, columns and card); :func:`mesh_fwd_layout` and
-:func:`mesh_bwd_layout` compute it from the card's SM count.
+:func:`mesh_bwd_layout` compute it from the card's SM count.  B5 and B8
+take register paths for the same widths (B8 for at most 32 tiles): each
+cell's inverse computed once a block, identity runs skipped, gradient
+terms summed over a block's rows and written once, one kernel a call
+where one block covers the batch; one thread a row (B5 up to 256 rows) or
+a (row, tile) (B8 on a grid), n / 2 lanes a row for B5 above 256 rows and
+for B8 on one tile.  :func:`rfnn_bwd_plan` / :func:`deepgrid_bwd_plan`
+report their launches, :func:`rfnn_bwd_layout` /
+:func:`deepgrid_bwd_layout` compute them.
 
 ``rfnn_forward(coef_v, par_v, coef_u, par_u, gains, x)`` is the fused
 analog linear layer ``|g2 * U (g1 * V x)|`` (paper Eq. 31): two meshes
@@ -98,6 +106,12 @@ _MAX_BATCH = 2**31 - 256
 REG_WIDTHS = (2, 4, 8, 16, 32)
 _REG_ROWS_MAX = 256        # csrc/mesh_sweep.cuh: kRegRowsMax
 _MAX_SHARED = 232448       # shared bytes a block may use on sm_90
+_DEEP_REG_THREADS = 256    # csrc/deepgrid_bwd.cu: kRegThreads
+_DEEP_MAX_STAGES = 8       # csrc/deepgrid_bwd.cu: kMaxStages
+_DEEP_BWD_THREADS = 512    # csrc/deepgrid_bwd.cu: kBwdThreads (general path)
+#: Bytes of per-block gradient slices a B8 call may write (its blocks walk
+#: more row tiles beyond it).
+DEEP_SLICE_BUDGET = 128 << 20
 
 
 def mesh_forward_plain(coef: torch.Tensor, parity: torch.Tensor,
@@ -262,26 +276,50 @@ def _sms(index: int) -> int:
     return _SMS[index]
 
 
-def _occupancy(reg: int, n: int, threads: int, smem: int) -> int:
-    per_sm = _lib("mesh_bwd", _BWD_ARGS).mesh_bwd_occupancy(reg, n, threads,
-                                                            smem)
+def _lib_occupancy(name: str, args: dict, *shape) -> int:
+    """Resident blocks an SM holds, from ``<name>_occupancy(*shape)`` of the
+    kernel library ``name``."""
+    per_sm = getattr(_lib(name, args), f"{name}_occupancy")(*shape)
     if per_sm < 0:
-        raise RuntimeError(f"mesh_bwd_occupancy failed: CUDA error {-per_sm} "
-                           f"(n={n}, threads={threads}, shared={smem})")
+        raise RuntimeError(f"{name}_occupancy failed: CUDA error {-per_sm} "
+                           f"(arguments {shape})")
     return per_sm
 
 
-def _cached_plan(kind: str, index: int, batch: int, n: int,
-                 n_cols: int) -> dict:
-    """The plan of B1 (``kind`` "fwd") or B2 ("bwd") on card ``index``,
-    computed once per (kind, card, batch, n, C)."""
-    key = (kind, index, batch, n, n_cols)
+def _occupancy(reg: int, n: int, threads: int, smem: int) -> int:
+    return _lib_occupancy("mesh_bwd", _BWD_ARGS, reg, n, threads, smem)
+
+
+def _rfnn_occupancy(reg: int, n: int, lanes: int, threads: int,
+                    smem: int) -> int:
+    return _lib_occupancy("rfnn_bwd", _RFNN_BWD_ARGS, reg, n, lanes, threads,
+                          smem)
+
+
+def _deep_occupancy(reg: int, n: int, tiles: int, detect_last: int,
+                    threads: int, smem: int) -> int:
+    return _lib_occupancy("deepgrid_bwd", _DEEP_BWD_ARGS, reg, n, tiles,
+                          detect_last, threads, smem)
+
+
+def _cached_plan(kind: str, index: int, batch: int, n: int, *shape) -> dict:
+    """The plan of B1 (``kind`` "fwd"), B2 ("bwd"; ``shape`` (C,)), B5
+    ("rfnn_bwd"; (Cv, Cu)) or B8 ("deep_bwd"; (L, To, Ti, C,
+    detect_last)) on card ``index``, computed once per kind, card, batch
+    and shape."""
+    key = (kind, index, batch, n, *shape)
     if key not in _PLANS:
+        sms = _sms(index)
         if kind == "fwd":
-            _PLANS[key] = mesh_fwd_layout(batch, n, n_cols, _sms(index))
+            _PLANS[key] = mesh_fwd_layout(batch, n, *shape, sms)
+        elif kind == "bwd":
+            _PLANS[key] = mesh_bwd_layout(batch, n, *shape, sms, _occupancy)
+        elif kind == "rfnn_bwd":
+            _PLANS[key] = rfnn_bwd_layout(batch, n, *shape, sms,
+                                          _rfnn_occupancy)
         else:
-            _PLANS[key] = mesh_bwd_layout(batch, n, n_cols, _sms(index),
-                                          _occupancy)
+            _PLANS[key] = deepgrid_bwd_layout(batch, n, *shape, sms,
+                                              _deep_occupancy)
     return _PLANS[key]
 
 
@@ -445,9 +483,82 @@ _RFNN_FWD_ARGS = {"rfnn_fwd_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _P,
                                       _I, _I, _P],
                   "rfnn_fwd_res_launch": [_P] * 6 + [_I, _P, _P, _I, _P, _I,
                                                      _I, _P]}
-_RFNN_BWD_ARGS = {"rfnn_bwd_blocks": [_I, _I],
+_RFNN_BWD_ARGS = {"rfnn_bwd_occupancy": [_I] * 4 + [_L],
                   "rfnn_bwd_launch": [_P] * 5 + [_I, _P, _P, _I] + [_P] * 4
-                  + [_I, _I, _I, _P]}
+                  + [_I] * 6 + [_L, _P]}
+
+
+def _rfnn_bwd_smem(n: int, cv: int, cu: int, warps: int) -> int:
+    """csrc/rfnn_bwd.cu: reg_shared_bytes: both meshes' cells and inverses,
+    the gains, the mark words, each warp's accumulator."""
+    p, cols = n // 2, cv + cu
+    return (cols * p * 64 + 32 * p + _ceil_div(cols, 4) * 16
+            + warps * (cols + 1) * 8 * p * 4)
+
+
+def _rfnn_lane_smem(n: int, cv: int, cu: int, rows: int) -> int:
+    """csrc/rfnn_bwd.cu: lane_shared_bytes: both meshes' cells and
+    inverses, the gains, the mark words, each row's padded terms."""
+    p, cols = n // 2, cv + cu
+    return (cols * p * 64 + 32 * p + _ceil_div(cols, 4) * 16
+            + rows * ((cols + 1) * 8 * p + 4) * 4)
+
+
+def rfnn_bwd_layout(batch: int, n: int, cv: int, cu: int, sms: int,
+                    occupancy) -> dict:
+    """How B5 launches for ``batch`` rows of an n-channel layer with
+    ``cv``/``cu`` V/U columns on a card of ``sms`` SMs (keys as
+    :func:`mesh_bwd_layout`'s, and ``lanes`` a row);
+    ``occupancy(reg, n, lanes, threads, shared_bytes)`` gives the resident
+    blocks an SM holds.  As B2: the register path takes one thread a row
+    and up to 256 rows a block (fewer warps where their accumulators would
+    not fit); a single block writes the gradients itself (one kernel), more
+    write slices that a second kernel sums.  Above 256 rows (n >= 4) it
+    takes n / 2 lanes a row and ceil(B / SMs) rows a block, rounded up to a
+    warp's rows."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    if n in REG_WIDTHS and n > 2 and batch > _REG_ROWS_MAX:
+        p = n // 2
+        per_warp = 32 // p
+        rows = min(_REG_ROWS_MAX // p,
+                   per_warp * _ceil_div(_ceil_div(batch, sms), per_warp))
+        while rows > per_warp and _rfnn_lane_smem(n, cv, cu, rows) \
+                > _MAX_SHARED:
+            rows -= per_warp
+        smem = _rfnn_lane_smem(n, cv, cu, rows)
+        if smem <= _MAX_SHARED:
+            blocks = min(_ceil_div(batch, rows), max(1, sms * occupancy(
+                1, n, p, rows * p, smem)))
+            return {"register_path": 1, "rows": rows, "threads": rows * p,
+                    "lanes": p, "blocks": blocks, "shared_bytes": smem,
+                    "kernels": 2}
+    if n in REG_WIDTHS:
+        rows = _reg_rows(batch, sms)
+        while rows > 32 and _rfnn_bwd_smem(n, cv, cu, rows // 32) \
+                > _MAX_SHARED:
+            rows -= 32
+        smem = _rfnn_bwd_smem(n, cv, cu, rows // 32)
+        if smem <= _MAX_SHARED:
+            tiles = _ceil_div(batch, rows)
+            blocks = 1 if tiles == 1 else min(
+                tiles, max(1, sms * occupancy(1, n, 1, rows, smem)))
+            return {"register_path": 1, "rows": rows, "threads": rows,
+                    "lanes": 1, "blocks": blocks, "shared_bytes": smem,
+                    "kernels": 1 if blocks == 1 else 2}
+    rows = max(1, 128 // (n // 2))
+    smem = rows * n * 32              # mesh_sweep.cuh: reverse_shared_bytes
+    blocks = min(_ceil_div(batch, rows),
+                 max(1, sms * occupancy(0, n, 1, 128, smem)))
+    return {"register_path": 0, "rows": rows, "threads": 128, "lanes": 1,
+            "blocks": blocks, "shared_bytes": smem, "kernels": 2}
+
+
+def rfnn_bwd_plan(batch: int, n: int, cv: int, cu: int) -> dict:
+    """B5's launch for ``batch`` rows on the current card
+    (:func:`rfnn_bwd_layout`)."""
+    return dict(_cached_plan("rfnn_bwd", torch.cuda.current_device(), batch,
+                             n, cv, cu))
 
 
 def launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x, *,
@@ -487,7 +598,8 @@ def launch_rfnn_backward(coef_v, par_v, coef_u, par_u, gains, v, u, g):
     """Launch kernel B5 on the current stream: ``(dcv, dcu, dg, dx)`` from
     the saved boundaries and the magnitudes' cotangent (no autograd).
 
-    Each block writes its batch-summed gradients into its own slice of a
+    One block covering the batch writes the gradients itself; otherwise
+    each block writes its batch-summed gradients into its own slice of a
     ``[blocks, (Cv + Cu + 1) * 8 * P]`` scratch and a second kernel sums the
     slices in block order: the three gradients are the same bits on every
     call.  They are views of one buffer.
@@ -501,29 +613,30 @@ def launch_rfnn_backward(coef_v, par_v, coef_u, par_u, gains, v, u, g):
     coef_u, par_u = coef_u.contiguous(), par_u.contiguous()
     gains, v, u, g = gains.contiguous(), _dense(v), _dense(u), _dense(g)
     total = (cv + cu + 1) * 8 * p
-    # written whole by the reduce; zeros only when there is nothing to sum
+    # written whole by the kernels; zeros only when there is nothing to sum
     grads = (torch.empty if b > 0 else torch.zeros)(
         total, dtype=torch.float32, device=v.device)
     dx = torch.empty_like(v)
     if b > 0:  # nothing to sum and a 0-block grid is an invalid launch
         lib = _lib("rfnn_bwd", _RFNN_BWD_ARGS)
         with torch.cuda.device(v.device):
-            blocks = lib.rfnn_bwd_blocks(b, n)
-            if blocks <= 0:
-                raise RuntimeError(f"rfnn_bwd_blocks failed: CUDA error "
-                                   f"{-blocks}")
-            partial = torch.empty((blocks, total), dtype=torch.float32,
-                                  device=v.device)
+            plan = _cached_plan("rfnn_bwd", v.device.index, b, n, cv, cu)
+            partial = torch.empty((plan["blocks"], total), dtype=torch.float32,
+                                  device=v.device) \
+                if plan["kernels"] == 2 else None
             stream = torch.cuda.current_stream(v.device).cuda_stream
             err = lib.rfnn_bwd_launch(
                 v.data_ptr(), u.data_ptr(), g.data_ptr(), coef_v.data_ptr(),
                 par_v.data_ptr(), cv, coef_u.data_ptr(), par_u.data_ptr(), cu,
-                gains.data_ptr(), partial.data_ptr(), grads.data_ptr(),
-                dx.data_ptr(), b, n, blocks, stream)
+                gains.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                grads.data_ptr(), dx.data_ptr(), b, n, plan["register_path"],
+                plan["rows"], plan["lanes"], plan["blocks"],
+                plan["shared_bytes"], stream)
         if err != 0:
             raise RuntimeError(f"rfnn_bwd launch failed: CUDA error {err} "
                                f"(B={b}, n={n}, Cv={cv}, Cu={cu}, "
-                               f"blocks={blocks})")
+                               f"plan {plan})")
         LAUNCHES["rfnn_bwd"] += 1
     dcv, dcu, dg = grads.split([cv * 8 * p, cu * 8 * p, 8 * p])
     return (dcv.view(cv, 8, p), dcu.view(cu, 8, p), dg.view(8, p), dx)
@@ -658,8 +771,101 @@ _DEEP_FWD_ARGS = {"deepgrid_fwd_launch": [_P] * 9 + [_I] * 8 + [_P],
                   "deepgrid_fwd_plan": [_I] * 7 + [ctypes.POINTER(_I)]}
 _PLAN_KEYS = ("register_path", "rows", "blocks", "threads", "shared_bytes",
               "chunk_columns", "stages")
-_DEEP_BWD_ARGS = {"deepgrid_bwd_blocks": [_I] * 7,
-                  "deepgrid_bwd_launch": [_P] * 12 + [_I] * 8 + [_P]}
+_DEEP_BWD_ARGS = {"deepgrid_bwd_occupancy": [_I] * 5 + [_L],
+                  "deepgrid_bwd_launch": [_P] * 12 + [_I] * 13 + [_L, _P]}
+
+
+def _deep_bwd_smem(n: int, n_layers: int, to: int, ti: int, rows: int,
+                   kcap: int, stages: int) -> int:
+    """csrc/deepgrid_bwd.cu: reg_shared_bytes (BwdLayout): the landing
+    buffers, the staged cells, the marks, every layer's gains, then for a
+    grid the column and gain sums and the rows' exchange buffers, for one
+    tile each row's column and gain terms."""
+    tiles = to * ti
+    pars = _ceil_div(tiles * kcap, 4) * 4
+    floats = (stages * (tiles * (kcap * 4 * n + (8 if tiles > 1 else 0))
+                        + pars)
+              + 4 * tiles * (2 * kcap * n + 1) + pars
+              + n_layers * tiles * (6 * n + 4))
+    if tiles == 1:
+        return 4 * (floats + rows * (kcap * 4 * n + 4 + 6 * n + 4))
+    floats += tiles * (kcap * 4 * n + 6 * n)
+    return 4 * floats + 8 * rows * (tiles * n + 2 * max(to, ti) * n)
+
+
+def deepgrid_bwd_layout(batch: int, n: int, n_layers: int, to: int, ti: int,
+                        n_cols: int, detect_last: bool, sms: int,
+                        occupancy) -> dict:
+    """How B8 launches for ``batch`` rows of an (L, To, Ti, C, n) grid on a
+    card of ``sms`` SMs: ``register_path``, ``rows`` a block, ``threads``
+    a block, ``blocks``, dynamic ``shared_bytes`` a block, ``kernels`` a
+    call, the staged ``chunk_columns`` and landing ``stages`` (0 on the
+    general path) and the bytes of one gradient slice (``slice_bytes``);
+    ``occupancy(reg, n, tiles, detect_last, threads, shared_bytes)`` gives
+    the resident blocks an SM holds.
+
+    The register path (n in :data:`REG_WIDTHS`, at most 32 tiles) takes,
+    for a grid, 8 rows a block, one thread a (row, tile); for one tile n / 2
+    lanes a row, whole warps, as many rows as cover the batch up to 256
+    threads (above that ceil(B / SMs) rows rounded up to a warp's).  It
+    stages as many columns a chunk as fit beside two landing buffers (more
+    buffers, up to 8, where whole meshes fit).  A block a row tile, capped
+    at one wave and at :data:`DEEP_SLICE_BUDGET` bytes of slices (its
+    blocks then walk row tiles); one block writes the gradients itself (one
+    kernel), more write slices that a second kernel sums."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    tiles, p = to * ti, n // 2
+    slice_bytes = 4 * n_layers * tiles * (2 * n_cols * 8 * p + 12 * p)
+    budget = max(1, DEEP_SLICE_BUDGET // slice_bytes)
+    if n in REG_WIDTHS and 8 * tiles <= _DEEP_REG_THREADS:
+        if tiles == 1:
+            per_warp = 32 // p                # rows a warp, p lanes a row
+            most = _DEEP_REG_THREADS // p
+            want = batch if batch <= most else _ceil_div(batch, sms)
+            rows = min(most, per_warp * _ceil_div(want, per_warp))
+            threads = rows * p
+        else:
+            rows = 8
+            threads = _ceil_div(rows * tiles, 32) * 32
+        kcap = n_cols
+        stages = min(_DEEP_MAX_STAGES, 2 * n_layers)
+
+        def smem():
+            return _deep_bwd_smem(n, n_layers, to, ti, rows, kcap, stages)
+
+        while stages > 2 and smem() > _MAX_SHARED:
+            stages -= 1
+        while kcap > 1 and smem() > _MAX_SHARED:
+            kcap -= 1
+        if smem() <= _MAX_SHARED:
+            row_tiles = _ceil_div(batch, rows)
+            blocks = 1 if row_tiles == 1 else min(
+                row_tiles, budget, max(1, sms * occupancy(
+                    1, n, tiles, int(detect_last), threads, smem())))
+            return {"register_path": 1, "rows": rows, "threads": threads,
+                    "blocks": blocks, "shared_bytes": smem(),
+                    "kernels": 1 if blocks == 1 else 2,
+                    "chunk_columns": kcap, "stages": stages,
+                    "slice_bytes": slice_bytes}
+    rows = min(64, max(1, _DEEP_BWD_THREADS // (tiles * p)))
+    smem = rows * (32 * tiles * n + 16 * max(to, ti) * n)
+    if smem > _MAX_SHARED:
+        raise ValueError(f"no block of B8's general path fits shared memory "
+                         f"(n={n}, {to}x{ti} tiles: {smem} bytes a row)")
+    blocks = min(_ceil_div(batch, rows), budget, max(1, sms * occupancy(
+        0, n, tiles, int(detect_last), _DEEP_BWD_THREADS, smem)))
+    return {"register_path": 0, "rows": rows, "threads": _DEEP_BWD_THREADS,
+            "blocks": blocks, "shared_bytes": smem, "kernels": 2,
+            "chunk_columns": 0, "stages": 0, "slice_bytes": slice_bytes}
+
+
+def deepgrid_bwd_plan(batch: int, n: int, n_layers: int, to: int, ti: int,
+                      n_cols: int, detect_last: bool = True) -> dict:
+    """B8's launch for ``batch`` rows on the current card
+    (:func:`deepgrid_bwd_layout`)."""
+    return dict(_cached_plan("deep_bwd", torch.cuda.current_device(), batch,
+                             n, n_layers, to, ti, n_cols, bool(detect_last)))
 
 
 def deepgrid_fwd_plan(batch: int, n: int, n_layers: int, to: int, ti: int,
@@ -725,7 +931,8 @@ def launch_deepgrid_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su,
     the input, the saved boundaries and the output's cotangent (no
     autograd).
 
-    Each block writes its batch-summed gradients into its own slice of a
+    One block covering the batch writes the gradients itself; otherwise
+    each block writes its batch-summed gradients into its own slice of a
     ``[blocks, L To Ti (2 C 8 P + 12 P)]`` scratch and a second kernel sums
     the slices in block order: the three gradients are the same bits on
     every call.  They are views of one buffer.
@@ -741,31 +948,32 @@ def launch_deepgrid_backward(coef_v, par_v, coef_u, par_u, gains, x, sv, su,
     sv, su, g = _dense(sv), _dense(su), _dense(g)
     coef_n = n_layers * to * ti * c * 8 * p
     gain_n = n_layers * to * ti * 12 * p
-    # written whole by the reduce; zeros only when there is nothing to sum
+    # written whole by the kernels; zeros only when there is nothing to sum
     grads = (torch.empty if b > 0 else torch.zeros)(
         2 * coef_n + gain_n, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     if b > 0:  # nothing to sum and a 0-block grid is an invalid launch
         lib = _lib("deepgrid_bwd", _DEEP_BWD_ARGS)
-        dims = (b, n, n_layers, to, ti, c, int(detect_last))
         with torch.cuda.device(x.device):
-            blocks = lib.deepgrid_bwd_blocks(*dims)
-            if blocks <= 0:
-                raise RuntimeError(f"deepgrid_bwd_blocks failed: CUDA error "
-                                   f"{-blocks} (B={b}, n={n}, L={n_layers}, "
-                                   f"To={to}, Ti={ti}, C={c})")
-            partial = torch.empty((blocks, grads.numel()),
-                                  dtype=torch.float32, device=x.device)
+            plan = _cached_plan("deep_bwd", x.device.index, b, n, n_layers,
+                                to, ti, c, bool(detect_last))
+            partial = torch.empty((plan["blocks"], grads.numel()),
+                                  dtype=torch.float32, device=x.device) \
+                if plan["kernels"] == 2 else None
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.deepgrid_bwd_launch(
                 x.data_ptr(), sv.data_ptr(), su.data_ptr(), g.data_ptr(),
                 coef_v.data_ptr(), par_v.data_ptr(), coef_u.data_ptr(),
-                par_u.data_ptr(), gains.data_ptr(), partial.data_ptr(),
-                grads.data_ptr(), dx.data_ptr(), *dims, blocks, stream)
+                par_u.data_ptr(), gains.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                grads.data_ptr(), dx.data_ptr(), b, n, n_layers, to, ti, c,
+                int(detect_last), plan["register_path"], plan["rows"],
+                plan["threads"], plan["blocks"], plan["chunk_columns"],
+                plan["stages"], plan["shared_bytes"], stream)
         if err != 0:
             raise RuntimeError(f"deepgrid_bwd launch failed: CUDA error {err} "
                                f"(B={b}, n={n}, L={n_layers}, To={to}, "
-                               f"Ti={ti}, C={c}, blocks={blocks})")
+                               f"Ti={ti}, C={c}, plan {plan})")
         LAUNCHES["deepgrid_bwd"] += 1
     dcv, dcu, dg = grads.split([coef_n, coef_n, gain_n])
     return (dcv.view(coef_v.shape), dcu.view(coef_u.shape),

@@ -425,6 +425,90 @@ def test_memoize_by_leaf_ids_keeps_derived_tensors():
 
 
 # ---------------------------------------------------------------------------
+# launch plans of B8 (computed on the host)
+# ---------------------------------------------------------------------------
+
+def _two_per_sm(reg, n, tiles, detect_last, threads, smem):
+    return 2
+
+
+@pytest.mark.parametrize("b,shape,path,rows,threads,blocks,kernels", [
+    (10, (4, 1, 1, 8, 8), 1, 16, 64, 1, 1),    # depth-4 MNIST's SGD step
+    (1, (4, 1, 1, 8, 8), 1, 8, 32, 1, 1),
+    (64, (4, 1, 1, 8, 8), 1, 64, 256, 1, 1),   # the most one block holds
+    (65, (4, 1, 1, 8, 8), 1, 8, 32, 9, 2),     # spread, then summed
+    (10, (4, 1, 1, 2, 1), 1, 32, 32, 1, 1),    # n = 2: one lane a row
+    (10, (2, 1, 1, 32, 35), 1, 10, 160, 1, 1),
+    (1024, (1, 4, 4, 16, 16), 1, 8, 128, 128, 2),  # TiledAnalogLinear(64)
+    (1024, (4, 4, 4, 16, 29), 1, 8, 128, 128, 2),  # the 64x64 cascade
+    (7, (1, 2, 3, 4, 7), 1, 8, 64, 1, 1),      # a grid's one block
+    (1024, (2, 2, 2, 32, 35), 1, 8, 32, 128, 2),
+    (1024, (2, 2, 2, 6, 9), 0, 42, 512, 25, 2),   # no register path at 6
+    (8, (1, 1, 1, 64, 64), 0, 16, 512, 1, 2),     # nor at 64
+    (100, (1, 8, 8, 8, 8), 0, 2, 512, 50, 2),     # nor above 32 tiles
+])
+def test_deepgrid_bwd_layouts_choose_path_rows_and_blocks(
+        b, shape, path, rows, threads, blocks, kernels):
+    depth, to, ti, n, c = shape
+    plan = givens_mesh.deepgrid_bwd_layout(b, n, depth, to, ti, c, True, 132,
+                                           _two_per_sm)
+    assert plan["register_path"] == path
+    assert (plan["rows"], plan["threads"], plan["blocks"],
+            plan["kernels"]) == (rows, threads, blocks, kernels)
+    assert plan["shared_bytes"] <= 232448
+    if path:
+        assert 1 <= plan["chunk_columns"] <= c
+        assert 2 <= plan["stages"] <= 8
+    else:
+        assert plan["chunk_columns"] == plan["stages"] == 0
+
+
+@pytest.mark.parametrize("b", [1024, 4096, 65536])
+def test_deepgrid_bwd_cascade_slices_within_budget(b):
+    """The cascade's per-block gradient slices stay within the budget: one
+    block a row tile up to it, then blocks walk row tiles."""
+    plan = givens_mesh.deepgrid_bwd_layout(b, 16, 4, 4, 4, 29, True, 132,
+                                           _two_per_sm)
+    assert plan["slice_bytes"] == 4 * 4 * 16 * (2 * 29 * 64 + 96)
+    assert plan["blocks"] * plan["slice_bytes"] <= \
+        givens_mesh.DEEP_SLICE_BUDGET
+    assert plan["blocks"] == min(-(-b // 8),
+                                 givens_mesh.DEEP_SLICE_BUDGET
+                                 // plan["slice_bytes"])
+
+
+def test_deepgrid_bwd_layout_refuses_no_rows():
+    with pytest.raises(ValueError):
+        givens_mesh.deepgrid_bwd_layout(0, 8, 4, 1, 1, 8, True, 132,
+                                        _two_per_sm)
+
+
+def test_deepgrid_bwd_plans_are_cached_per_card_and_shape(monkeypatch):
+    calls = []
+
+    def occupancy(*args):
+        calls.append(args)
+        return 1
+
+    monkeypatch.setattr(givens_mesh, "_PLANS", {})
+    monkeypatch.setattr(givens_mesh, "_SMS", {0: 132, 1: 66})
+    monkeypatch.setattr(givens_mesh, "_deep_occupancy", occupancy)
+    shape = (16, 4, 4, 4, 29, True)
+    first = givens_mesh._cached_plan("deep_bwd", 0, 1024, *shape)
+    assert givens_mesh._cached_plan("deep_bwd", 0, 1024, *shape) is first
+    assert len(calls) == 1
+    assert first["blocks"] == 128
+    assert givens_mesh._cached_plan("deep_bwd", 1, 1024, *shape)["blocks"] \
+        == 66                                 # one wave of the smaller card
+    assert givens_mesh._cached_plan("deep_bwd", 0, 1024, 16, 4, 4, 4, 29,
+                                    False) is not first
+    assert givens_mesh._cached_plan("deep_bwd", 0, 10, 8, 4, 1, 1, 8,
+                                    True)["kernels"] == 1
+    assert len(calls) == 3                    # one block needs no wave
+    assert len(givens_mesh._PLANS) == 4
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -557,3 +641,28 @@ def test_deep_apply_launch_choice_and_gradient_on_card(cuda_device):
     assert givens_mesh.LAUNCHES == before
     assert out.shape == (0, 8) and dx.shape == (0, 8)
     assert not (dcv.any() or dcu.any() or dg.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,batches", [
+    ((4, 1, 1, 8), (7, 8, 9, 10, 63, 64, 65, 1024)),   # one tile, 8 rows a warp
+    ((2, 1, 1, 32), (1, 2, 3, 16, 17, 130)),           # 2 rows a warp
+    ((1, 4, 4, 16), (7, 8, 9, 1024, 1025)),            # 8 rows a block
+    ((2, 2, 2, 4), (1, 8, 9, 131)),
+])
+def test_deepgrid_backward_plan_edges_on_card(cuda_device, shape, batches):
+    """B8 at batches around its plan's rows a warp and a block and its
+    one-block limit (one kernel a call there, two above): against its plain
+    version, bit-identical twice (its own generator)."""
+    rng = np.random.default_rng(1900 + sum(shape))
+    depth, to, ti, n = shape
+    for b in batches:
+        inputs = [t.to(cuda_device) for t in _grid_inputs(
+            rng, *shape, mixed=True, b=b)]
+        inputs[5][::5] = 0
+        _check_kernels_on_card(inputs, detect_last=bool(b % 2))
+        plan = givens_mesh.deepgrid_bwd_plan(b, n, depth, to, ti,
+                                             inputs[0].shape[3], b % 2)
+        assert plan["register_path"] == 1
+        assert plan["kernels"] == (1 if plan["blocks"] == 1 else 2)
+        assert (plan["blocks"] == 1) == (b <= plan["rows"])

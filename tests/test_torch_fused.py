@@ -485,6 +485,77 @@ def test_analog_linear_init_defaults_to_cuda_and_raises_without_it():
 
 
 # ---------------------------------------------------------------------------
+# launch plans of B5 (computed on the host)
+# ---------------------------------------------------------------------------
+
+def _two_per_sm(reg, n, lanes, threads, smem):
+    return 2
+
+
+@pytest.mark.parametrize("n,b,cv,cu,path,rows,lanes,blocks,kernels", [
+    (8, 10, 8, 8, 1, 32, 1, 1, 1),        # a batch in one warp: one kernel
+    (8, 256, 13, 13, 1, 256, 1, 1, 1),    # the most one block holds
+    (8, 257, 8, 8, 1, 8, 4, 33, 2),       # lanes a row, spread, summed
+    (8, 1000, 8, 8, 1, 8, 4, 125, 2),     # the fused layer's training step
+    (16, 4096, 29, 16, 1, 16, 8, 256, 2),  # rows shrunk to fit their terms
+    (2, 31, 1, 2, 1, 32, 1, 1, 1),
+    (2, 1000, 1, 2, 1, 32, 1, 32, 2),     # n = 2: one lane is one thread
+    (4, 100, 5, 4, 1, 128, 1, 1, 1),
+    (16, 33, 29, 16, 1, 64, 1, 1, 1),
+    (32, 100, 61, 61, 1, 32, 1, 4, 2),    # one warp's accumulator fits
+    (32, 1000, 61, 61, 1, 32, 1, 32, 2),  # two rows' terms would not
+    (64, 7, 64, 64, 0, 4, 1, 2, 2),       # n = 64 keeps the general path
+    (6, 130, 6, 6, 0, 42, 1, 4, 2),       # no register path at n = 6
+])
+def test_rfnn_bwd_layouts_choose_path_rows_and_blocks(n, b, cv, cu, path,
+                                                       rows, lanes, blocks,
+                                                       kernels):
+    plan = givens_mesh.rfnn_bwd_layout(b, n, cv, cu, 132, _two_per_sm)
+    assert plan["register_path"] == path
+    assert plan["rows"] == rows and plan["blocks"] == blocks
+    assert plan["lanes"] == lanes and plan["kernels"] == kernels
+    assert plan["threads"] == (rows * lanes if path else 128)
+    assert plan["shared_bytes"] <= 232448
+    if path:  # whole warps, blocks no more than the batch's row tiles
+        assert plan["threads"] % 32 == 0 and blocks <= -(-b // rows)
+
+
+def test_rfnn_bwd_layout_fits_shared_memory_and_refuses_no_rows():
+    """Wide Reck meshes take fewer warps, then the general path: never a
+    launch that the card refuses."""
+    narrow = givens_mesh.rfnn_bwd_layout(256, 32, 61, 61, 132, _two_per_sm)
+    assert narrow["register_path"] == 1 and narrow["rows"] == 32
+    assert narrow["kernels"] == 2
+    wide = givens_mesh.rfnn_bwd_layout(10, 32, 200, 200, 132, _two_per_sm)
+    assert wide["register_path"] == 0
+    with pytest.raises(ValueError):
+        givens_mesh.rfnn_bwd_layout(0, 8, 8, 8, 132, _two_per_sm)
+
+
+def test_rfnn_bwd_plans_are_cached_per_card_and_shape(monkeypatch):
+    calls = []
+
+    def occupancy(*args):
+        calls.append(args)
+        return 3
+
+    monkeypatch.setattr(givens_mesh, "_PLANS", {})
+    monkeypatch.setattr(givens_mesh, "_SMS", {0: 132, 1: 66})
+    monkeypatch.setattr(givens_mesh, "_rfnn_occupancy", occupancy)
+    first = givens_mesh._cached_plan("rfnn_bwd", 0, 1000, 8, 8, 8)
+    assert givens_mesh._cached_plan("rfnn_bwd", 0, 1000, 8, 8, 8) is first
+    assert len(calls) == 1
+    assert givens_mesh._cached_plan("rfnn_bwd", 1, 1000, 8, 8, 8)["rows"] \
+        == 16                                 # ceil(1000 / 66) rows a block
+    assert givens_mesh._cached_plan("rfnn_bwd", 0, 1000, 8, 13, 13) \
+        is not first
+    assert givens_mesh._cached_plan("rfnn_bwd", 0, 10, 8, 8, 8)["kernels"] \
+        == 1
+    assert len(calls) == 3                    # one block needs no wave
+    assert len(givens_mesh._PLANS) == 4
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -576,3 +647,38 @@ def test_rfnn_launch_choice_and_gradient_on_card(cuda_device):
     assert givens_mesh.LAUNCHES == before
     assert out.shape == (0, 8) and dx.shape == (0, 8)
     assert not (dcv.any() or dcu.any() or dg.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", list(givens_mesh.REG_WIDTHS))
+def test_rfnn_backward_register_path_edges_on_card(cuda_device, n):
+    """B5's register path at every width and at batches around a warp (31,
+    32, 33) and one block (255, 256, 257) and at the training step's 1000:
+    against its plain version, bit-identical twice, exact zeros in the wrap
+    slots and one kernel a call where one block covers the batch (up to 256
+    rows for n <= 16; its own generator)."""
+    rng = np.random.default_rng(190 + n)
+    inputs = [t.to(cuda_device) for t in _kernel_inputs(
+        rng, n, PROTOTYPE, reck=n > 2, zero_gain=True)]
+    for b in (1, 31, 32, 33, 255, 256, 257, 1000):
+        x = torch.from_numpy(_x(rng, b, n)).to(cuda_device)
+        x[::7] = 0
+        g = torch.from_numpy(rng.normal(size=(b, n)).astype(np.float32)) \
+            .to(cuda_device)
+        _, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
+        grads = givens_mesh.launch_rfnn_backward(*inputs, v, u, g)
+        grads2 = givens_mesh.launch_rfnn_backward(*inputs, v, u, g)
+        torch.cuda.synchronize()
+        for a, c in zip(grads[:3], grads2[:3]):
+            assert torch.equal(a, c)
+        for got, want in zip(grads, givens_mesh.rfnn_backward_plain(
+                *inputs, v, u, g)):
+            assert _close(got, want, n)
+        for coef, par in ((grads[0], inputs[1]), (grads[1], inputs[3])):
+            assert (coef[par == 1, :, -1] == 0).all()
+        plan = givens_mesh.rfnn_bwd_plan(b, n, inputs[0].shape[0],
+                                         inputs[2].shape[0])
+        assert plan["register_path"] == 1
+        assert (plan["kernels"] == 1) == (b <= plan["rows"])
+        if n <= 16:  # every warp's accumulator fits: 256 rows a block
+            assert plan["kernels"] == (1 if b <= 256 else 2)

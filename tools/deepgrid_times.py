@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the mesh kernels B1 and B2 at chip_smoke.py phase 9's shapes
-(``MESH_TIMED``) and the deep-grid kernels B6, B7 and B8 at phase 15's
+(``MESH_TIMED``), the fused layer's backward B5 at phase 9's training
+layer (B = 1000) and the deep-grid kernels B6, B7 and B8 at phase 15's
 (``DEEP_TIMED_BATCHES``) on one card, for this checkout's ``src/`` or
 another tree's.
 
@@ -11,13 +12,16 @@ timed (default: the one beside this script), so one call can time an older
 tree unpacked beside this one and this one in turns (older, newer, newer,
 older: one process each, on the same card).  The meshes are Clements
 meshes of chip_smoke's phases (``mesh_params(n, 3)``, ideal cells), x and
-the cotangent complex normal.  The grids are chip_smoke.py's
+the cotangent complex normal.  The fused layer is phase 9's
+``AnalogLinear(8, 8, "abs", "table1", PROTOTYPE)`` (seed 0; Clements V and
+U, 8 columns each), its cotangent uniform.  The grids are chip_smoke.py's
 (``build_deep_grid``, ``DEEP_TIMED_BATCHES``): the 4-layer 64x64 cascade
 (seed 40), the depth-4 MNIST grid (n = 8, one tile, PROTOTYPE, seed 41)
 and ``TiledAnalogLinear(64, 64, 16)`` (seed 3).  Device ms come from
 chip_smoke's ``device_ms`` (the stream held while the host queues).  Where
 the tree reports a kernel's launch plan (``givens_mesh.mesh_fwd_plan``,
-``mesh_bwd_plan``, ``deepgrid_fwd_plan``), the line carries it.  Prints one line per reading and writes them all to
+``mesh_bwd_plan``, ``rfnn_bwd_plan``, ``deepgrid_fwd_plan``,
+``deepgrid_bwd_plan``), the line carries it.  Prints one line per reading and writes them all to
 ``chiprun_out/deepgrid_times_<label>.json``.  Needs a CUDA card and
 ``nvcc``.
 """
@@ -46,7 +50,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(Path(args.src).resolve()))
     import repro_torch.core  # noqa: F401  (first: the kernels import it)
-    from repro_torch.core.analog_linear import TiledAnalogLinear
+    from repro_torch.core.analog_linear import AnalogLinear, TiledAnalogLinear
     from repro_torch.kernels import givens_mesh, ops, schedule
     from repro_torch.paper.prototype import PROTOTYPE
 
@@ -100,6 +104,25 @@ def main(argv=None) -> int:
                    f"{row['call_ms']:.5f} ms per call", f"{name}_plan", b, n,
                    coef.shape[0])
 
+    layer = AnalogLinear(8, 8, output="abs", quantize="table1",
+                         hardware=PROTOTYPE)
+    fused = chip_smoke.fused_layer_inputs(
+        layer, layer.init(torch.Generator().manual_seed(0), device=dev))
+    b = chip_smoke.FUSED_BATCH
+    _, v, u = givens_mesh.launch_rfnn(
+        *fused, torch.randn(b, 8, dtype=torch.complex64, device=dev,
+                            generator=gen), save_stages=True)
+    g = torch.rand(b, 8, device=dev, generator=gen)
+    fn = lambda: givens_mesh.launch_rfnn_backward(*fused, v, u, g)  # noqa: E731
+    cv, cu = fused[0].shape[0], fused[2].shape[0]
+    row = {"label": args.label, "card": card, "kernel": "rfnn_bwd",
+           "shape": "training", "n": 8, "B": b, "columns": [cv, cu],
+           "device_ms": chip_smoke.device_ms(torch, fn, 200),
+           "call_ms": chip_smoke.cuda_ms(torch, fn, 200)}
+    report(row, f"[{args.label}] {card} | rfnn_bwd training n=8 B={b} (Cv, "
+           f"Cu = {cv}, {cu}): {row['device_ms']:.5f} ms on the device, "
+           f"{row['call_ms']:.5f} ms per call", "rfnn_bwd_plan", b, 8, cv, cu)
+
     for shape_name, batches in chip_smoke.DEEP_TIMED_BATCHES.items():
         (deep, (cv, cu, gains)), detect = packs[shape_name]
         pv, pu = schedule.deep_grid_parity_arrays(deep, dev)
@@ -132,8 +155,8 @@ def main(argv=None) -> int:
                         f"(C={c}): {row['device_ms']:.5f} ms on the device, "
                         f"{row['call_ms']:.5f} ms per call")
                 if name == "deepgrid_bwd":
-                    rows.append(row)
-                    print(line, flush=True)
+                    report(row, line, "deepgrid_bwd_plan", b, n, depth, to,
+                           ti, c, detect)
                 else:
                     report(row, line, "deepgrid_fwd_plan", b, n, depth, to,
                            ti, c, save)
