@@ -14,9 +14,9 @@ exits non-zero):
    ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
    started together, beside one more ``nvcc -Xptxas -v`` each of
    ``flash_attn_fwd.cu``, ``deepgrid_fwd.cu``, ``mesh_fwd.cu``,
-   ``mesh_bwd.cu``, ``rfnn_bwd.cu`` and ``deepgrid_bwd.cu`` (registers and
-   spill bytes of every B1, B2, B5, B6, B7 and B8 instantiation printed;
-   no kernel of B9, B1, B2, B5, B6, B7 or B8 may spill registers);
+   ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu`` and
+   ``deepgrid_bwd.cu`` (registers and spill bytes of every B1-B8
+   instantiation printed; no kernel of B1-B9 may spill registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -37,7 +37,14 @@ exits non-zero):
    register path at n in {2, 4, 8, 16, 32} and B in {1, 31, 32, 33, 255,
    256, 257, 1000} (Reck V, PROTOTYPE, zero attenuations, zero rows with
    exactly zero dx), the same checks, its plan printed (one kernel a call
-   up to B = 256) and n = 64 on the general path;
+   up to B = 256) and n = 64 on the general path; B3/B4's register path
+   at n in {2, 4, 8, 16, 32} and B in {1, 31, 32, 33, 255, 256, 257, 1000,
+   4096} and around the lane layout's switch point
+   (``RFNN_FWD_LANES_BELOW`` - 1 and itself), Clements meshes, a Reck V
+   over a Clements U and two Reck meshes, PROTOTYPE, zero attenuations and
+   zero input rows, against the plain versions, B3's ``out`` B4's bits and,
+   with Clements meshes (no slot skipped), ``out``, ``v`` and ``u`` the
+   general kernel's bits, its plan printed; B3-B5 at n = 6 (general path);
 3. ``MnistRFNN`` (8x8 analog mesh, PROTOTYPE hardware, Table-I phases) at
    full width on 1000 procedural digits: kernel-path logits against the
    reference backend on the card and the plain path on the CPU;
@@ -67,9 +74,11 @@ exits non-zero):
    before the register paths (``MESH_PARENT_MS``, PERF.md), and B2 one
    kernel a call at n = 8, B = 10 and n = 2, B = 160 (every device event
    the profiler records over 20 calls is B2's, none ``reduce_partials``);
-   B5's plan beside its time before the register path
-   (``FUSED_PARENT_MS``), and the profiled fused SGD step at B = 1000
-   launching B5 once and ``reduce_partials`` as often as its plan says;
+   B3, B4 and B5 at ``FUSED_TIMED``'s shapes with their plans beside their
+   times before the register paths (``FUSED_PARENT_MS``), and the profiled
+   fused SGD step at B = 1000 launching B4 once (on the kernel its plan
+   picks), B3 never, B5 once and ``reduce_partials`` as often as its plan
+   says;
 10. the deep-grid kernels B6, B7 and B8 against their plain versions for
     (L, To, Ti, n) in {(1, 1, 1, 8), (4, 1, 1, 8), (1, 4, 4, 16),
     (4, 4, 4, 16), (1, 2, 3, 4), (1, 1, 1, 2), (2, 2, 2, 32)} (B6/B7's
@@ -237,11 +246,25 @@ DEEP_PARENT_MS = {
     ("deepgrid_fwd", "tiled_64x64", 1024): 0.04085,
     ("deepgrid_fwd_res", "tiled_64x64", 1024): 0.03906,
     ("deepgrid_bwd", "tiled_64x64", 1024): 0.164505}
-# B5's device ms before its register path (the shared-memory sweep), at
-# phase 9's training layer: tools/deepgrid_times.py on that tree, the mean
-# of its two runs in the call of PERF.md §6's parent-versus-change table
-# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-FUSED_PARENT_MS = {("rfnn_bwd", "training", FUSED_BATCH): 0.021475}
+# phase 9's fused-layer readings: (kernel, layer, B): B3 on the programmed
+# processor (Reck V and U) at three batches and on the trained layer
+# (Clements), B4 and B5 at the training step
+FUSED_TIMED = (("rfnn_fwd", "processor", 1000),
+               ("rfnn_fwd", "processor", PROC_BATCH),
+               ("rfnn_fwd", "processor", 65536),
+               ("rfnn_fwd", "training", FUSED_BATCH),
+               ("rfnn_fwd_res", "training", FUSED_BATCH),
+               ("rfnn_bwd", "training", FUSED_BATCH))
+# B3/B4/B5's device ms before their register paths (the shared-memory
+# sweeps), at phase 9's shapes: tools/deepgrid_times.py on those trees, the
+# mean of its two runs in the calls of PERF.md §6's parent-versus-change
+# tables (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+FUSED_PARENT_MS = {("rfnn_fwd", "processor", 1000): 0.012514,
+                   ("rfnn_fwd", "processor", PROC_BATCH): 0.012651,
+                   ("rfnn_fwd", "processor", 65536): 0.035317,
+                   ("rfnn_fwd", "training", FUSED_BATCH): 0.008998,
+                   ("rfnn_fwd_res", "training", FUSED_BATCH): 0.008994,
+                   ("rfnn_bwd", "training", FUSED_BATCH): 0.021475}
 # B1/B2's device ms before their register paths (the shared-memory
 # sweeps), at phase 9's shapes: tools/deepgrid_times.py on that tree, the
 # mean of its two runs in the call of PERF.md §6's parent-versus-change
@@ -398,7 +421,8 @@ def device_ms(torch, fn, iters: int, warmup: int = 5) -> float:
 def profile_steps(torch, run, steps: int, names) -> tuple:
     """``run(steps)`` under ``torch.profiler``: device events per step,
     device-busy us per step, and the us and the launches per step of the
-    kernels whose names contain each of ``names``."""
+    kernels whose names contain each of ``names`` (or, for a dict of labels
+    to predicates, whose names each predicate accepts)."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -407,11 +431,33 @@ def profile_steps(torch, run, steps: int, names) -> tuple:
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     check(len(dev_events) > 0, "the profiler recorded no device events")
+    match = names if isinstance(names, dict) else {
+        k: (lambda s, k=k: k in s) for k in names}
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events) / steps
     ours_us = {k: sum(e.time_range.elapsed_us() for e in dev_events
-                      if k in e.name) / steps for k in names}
-    ours_n = {k: sum(k in e.name for e in dev_events) / steps for k in names}
+                      if f(e.name)) / steps for k, f in match.items()}
+    ours_n = {k: sum(bool(f(e.name)) for e in dev_events) / steps
+              for k, f in match.items()}
     return len(dev_events) / steps, busy_us, ours_us, ours_n
+
+
+def fused_fwd_kernel(plan: dict) -> str:
+    """The name of the B3/B4 kernel that an ``rfnn_fwd_plan`` launches."""
+    if not plan["register_path"]:
+        return "rfnn_fwd_kernel"
+    return "rfnn_fwd_lane_kernel" if plan["lanes"] > 1 else "rfnn_fwd_reg_kernel"
+
+
+def is_fused_fwd(event_name: str, save: bool) -> bool:
+    """Whether a device event is B4 (``save``) or B3, on any path: the
+    kernel's template argument kSaveStages, demangled (``true``) or
+    mangled (``Lb1``)."""
+    m = re.search(r"rfnn_fwd_(?:reg_|lane_)?kernel(?:<([^>]*)>|I(\w*?)EE)",
+                  event_name)
+    if m is None:
+        return False
+    args = m.group(1) or m.group(2)
+    return ("true" in args or "Lb1" in args) == save
 
 
 def tree_map(fn, tree):
@@ -664,15 +710,16 @@ def main(argv=None) -> int:
                 "per_kernel": per}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 6) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 7) as pool:
         usage = {k: pool.submit(ptxas_usage, k)
                  for k in ("flash_attn_fwd", "deepgrid_fwd", "mesh_fwd",
-                           "mesh_bwd", "rfnn_bwd", "deepgrid_bwd")}
+                           "mesh_bwd", "rfnn_fwd", "rfnn_bwd",
+                           "deepgrid_bwd")}
         build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
         b9_usage = usage["flash_attn_fwd"].result()
         b67_usage = usage["deepgrid_fwd"].result()
         sweep_usage = {k: usage[k].result() for k in ("mesh_fwd", "mesh_bwd",
-                                                    "rfnn_bwd",
+                                                    "rfnn_fwd", "rfnn_bwd",
                                                     "deepgrid_bwd")}
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
@@ -699,7 +746,7 @@ def main(argv=None) -> int:
     report["build_s"] = build_s
     report["b9_ptxas"] = b9_usage
     report["b67_ptxas"] = b67_usage
-    report["b12_b5_b8_ptxas"] = sweep_usage
+    report["b1_b5_b8_ptxas"] = sweep_usage
 
     def reset_launches():
         for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
@@ -1036,6 +1083,74 @@ def main(argv=None) -> int:
           "B5 at n=64 must take the general path")
     report["rfnn_bwd_plans"] = {f"n{n}_B{b}": v
                                 for (n, b), v in plans_b5.items()}
+
+    # B3/B4's register path at every width: Clements meshes, a Reck V over a
+    # Clements U (Cv != Cu) and two Reck meshes (the programmed processor's
+    # plans), PROTOTYPE cells and zero attenuations on the first two; batches
+    # around a warp and one block, the main path's 1000 and 4096 and the
+    # lane layout's switch point; zero input rows at B = 33 and 1000.  Where
+    # no slot is skipped (Clements: no identity cell) out, v and u are the
+    # general kernel's bits.  A generator of its own.
+    def bits(t):
+        t = torch.view_as_real(t) if t.is_complex() else t
+        return t.contiguous().view(torch.int32)
+
+    rng_b34 = np.random.default_rng(20)
+    switch = givens_mesh.RFNN_FWD_LANES_BELOW
+    plans_b34 = {}
+    for n in givens_mesh.REG_WIDTHS:
+        for k, (plans, hw, zero) in enumerate((
+                ("clements", PROTOTYPE, True), ("reck_v", PROTOTYPE, True),
+                ("reck", None, False))):
+            inputs = fused_inputs(n, hw, plans, zero, seed=n + 20 + k)
+            cv, cu = inputs[0].shape[0], inputs[2].shape[0]
+            for b in (1, 31, 32, 33, 255, 256, 257, 1000, PROC_BATCH,
+                      switch - 1, switch):
+                x = rand_x(rng_b34, b, n)
+                if b in (33, 1000):
+                    x[::9] = 0
+                out3 = givens_mesh.launch_rfnn(*inputs, x)
+                out4, v, u = givens_mesh.launch_rfnn(*inputs, x,
+                                                     save_stages=True)
+                torch.cuda.synchronize()
+                pout, pv, pu = givens_mesh.rfnn_forward_plain(*inputs, x)
+                tag = f"register path n={n} B={b} {plans} Cv={cv} Cu={cu}"
+                max_rel_check(f"rfnn_fwd {tag}", out3, pout, n)
+                max_rel_check(f"rfnn_fwd_res out {tag}", out4, pout, n)
+                max_rel_check(f"rfnn_fwd_res post-V {tag}", v, pv, n)
+                max_rel_check(f"rfnn_fwd_res post-U {tag}", u, pu, n)
+                check(torch.equal(bits(out3), bits(out4)),
+                      f"B3 and B4 differ: {tag}")
+                plan = givens_mesh.rfnn_fwd_plan(b, n, cv, cu)
+                check(plan["register_path"] == 1 and plan["lanes"] == (
+                    n // 2 if n >= 4 and b < switch else 1),
+                      f"rfnn_fwd {tag}: plan {plan}")
+                if plans == "clements":
+                    gout, gv, gu = givens_mesh.launch_rfnn(
+                        *inputs, x, save_stages=True,
+                        plan=givens_mesh.rfnn_fwd_general_plan(b, n))
+                    check(all(torch.equal(bits(a), bits(c)) for a, c in (
+                        (out4, gout), (v, gv), (u, gu))),
+                          f"the register path is not the general kernel's "
+                          f"bits: {tag}, plan {plan}")
+                plans_b34[(n, plans, b)] = plan
+            print(f"[2] n={n} {plans} (Cv, Cu = {cv}, {cu}): B3/B4's register "
+                  f"path == plain at B 1..{switch}"
+                  + (", out/v/u the general kernel's bits" if plans
+                     == "clements" else "") + "; plans (lanes/rows/blocks) "
+                  + ", ".join(f"B={b}: {p['lanes']}/{p['rows']}/{p['blocks']}"
+                              for (nn, pl, b), p in plans_b34.items()
+                              if nn == n and pl == plans), flush=True)
+    for n in (6, 64):
+        check(givens_mesh.rfnn_fwd_plan(130, n, n, n)["register_path"] == 0,
+              f"B3/B4 at n={n} must take the general path")
+    inputs = fused_inputs(6, PROTOTYPE, "reck_v", True, seed=26)
+    fused_vs_plain(inputs, rand_x(rng_b34, 130, 6),
+                   torch.from_numpy(rng_b34.normal(size=(130, 6)).astype(
+                       np.float32)).to(dev))
+    print("[2] n=6: B3/B4/B5's general path == plain", flush=True)
+    report["rfnn_fwd_plans"] = {f"n{n}_{pl}_B{b}": v
+                                for (n, pl, b), v in plans_b34.items()}
 
     launches: dict[str, dict] = {}
 
@@ -1609,62 +1724,56 @@ def main(argv=None) -> int:
     train_in = layer_inputs(layer_t, p_card)
     mats = {"processor": realized(proc, proc_params),
             "training": realized(layer_t, p_card)}
+    layers_in = {"processor": proc_in, "training": train_in}
     rows_fused = []
-    for name, layer_name, inputs, batches in (
-            ("rfnn_fwd", "processor", proc_in, (1000, PROC_BATCH, 65536)),
-            ("rfnn_fwd", "training", train_in, (FUSED_BATCH,)),
-            ("rfnn_fwd_res", "training", train_in, (FUSED_BATCH,)),
-            ("rfnn_bwd", "training", train_in, (FUSED_BATCH,))):
-        for b in batches:
-            x = rand_x(rng, b, n)
-            iters = 200 if b < 65536 else 100
-            if name == "rfnn_bwd":
-                _, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
-                g = torch.rand(b, n, device=dev)
-                gc = rand_x(rng, b, n)
-                mat = mats["training"]
-                call = lambda: givens_mesh.launch_rfnn_backward(  # noqa: E731
-                    *inputs, v, u, g)
-                plain = lambda: givens_mesh.rfnn_backward_plain(  # noqa: E731
-                    *inputs, v, u, g)
-                lib = lambda: torch.matmul(gc, mat.conj())  # noqa: E731
-            else:
-                save = name == "rfnn_fwd_res"
-                mat = mats[layer_name]
-                call = lambda: givens_mesh.launch_rfnn(  # noqa: E731
-                    *inputs, x, save_stages=save)
-                plain = lambda: givens_mesh.rfnn_forward_plain(  # noqa: E731
-                    *inputs, x)
-                lib = lambda: torch.matmul(x, mat.T)  # noqa: E731
-            k_ms = cuda_ms(torch, call, iters)
-            kd_ms = device_ms(torch, call, 100)
-            p_ms = cuda_ms(torch, plain, 10)
-            l_ms = cuda_ms(torch, lib, iters)
-            ld_ms = device_ms(torch, lib, 100)
-            bound_ms, bound_by, nbytes, flops = fused_bound(name, inputs, b)
-            rows_fused.append({"kernel": name, "layer": layer_name, "B": b,
-                               "kernel_ms": k_ms,
-                               "kernel_device_ms": kd_ms, "plain_ms": p_ms,
-                               "matmul_ms": l_ms, "matmul_device_ms": ld_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "bytes": nbytes, "flops": flops,
-                               "columns": [inputs[0].shape[0],
-                                           inputs[2].shape[0]]})
-            half = "the dx half" if name == "rfnn_bwd" else "the linear half"
-            extra = ""
-            if name == "rfnn_bwd":
-                plan_ = givens_mesh.rfnn_bwd_plan(b, n, inputs[0].shape[0],
-                                                  inputs[2].shape[0])
-                parent = FUSED_PARENT_MS.get((name, layer_name, b))
-                rows_fused[-1].update(plan=plan_, parent_device_ms=parent)
-                extra = (f"; plan {plan_}; before the register path {parent} "
-                         f"ms on the device (PERF.md)")
-            print(f"[9] {card} | {name} n=8 B={b} ({layer_name}; Cv, Cu = "
-                  f"{inputs[0].shape[0]}, {inputs[2].shape[0]}): kernel "
-                  f"{k_ms:.5f} ms per call, {kd_ms:.5f} ms on the device; bound "
-                  f"{bound_ms:.6f} ms ({bound_by}); plain {p_ms:.4f} ms per "
-                  f"call; matmul for {half} alone {l_ms:.5f} ms per call, "
-                  f"{ld_ms:.5f} ms on the device{extra}", flush=True)
+    for name, layer_name, b in FUSED_TIMED:
+        inputs = layers_in[layer_name]
+        cv, cu = inputs[0].shape[0], inputs[2].shape[0]
+        x = rand_x(rng, b, n)
+        iters = 200 if b < 65536 else 100
+        if name == "rfnn_bwd":
+            _, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
+            g = torch.rand(b, n, device=dev)
+            gc = rand_x(rng, b, n)
+            mat = mats["training"]
+            call = lambda: givens_mesh.launch_rfnn_backward(  # noqa: E731
+                *inputs, v, u, g)
+            plain = lambda: givens_mesh.rfnn_backward_plain(  # noqa: E731
+                *inputs, v, u, g)
+            lib = lambda: torch.matmul(gc, mat.conj())  # noqa: E731
+            plan_ = givens_mesh.rfnn_bwd_plan(b, n, cv, cu)
+        else:
+            save = name == "rfnn_fwd_res"
+            mat = mats[layer_name]
+            call = lambda: givens_mesh.launch_rfnn(  # noqa: E731
+                *inputs, x, save_stages=save)
+            plain = lambda: givens_mesh.rfnn_forward_plain(  # noqa: E731
+                *inputs, x)
+            lib = lambda: torch.matmul(x, mat.T)  # noqa: E731
+            plan_ = givens_mesh.rfnn_fwd_plan(b, n, cv, cu)
+        k_ms = cuda_ms(torch, call, iters)
+        kd_ms = device_ms(torch, call, 100)
+        p_ms = cuda_ms(torch, plain, 10)
+        l_ms = cuda_ms(torch, lib, iters)
+        ld_ms = device_ms(torch, lib, 100)
+        bound_ms, bound_by, nbytes, flops = fused_bound(name, inputs, b)
+        parent = FUSED_PARENT_MS.get((name, layer_name, b))
+        rows_fused.append({"kernel": name, "layer": layer_name, "B": b,
+                           "kernel_ms": k_ms,
+                           "kernel_device_ms": kd_ms, "plain_ms": p_ms,
+                           "matmul_ms": l_ms, "matmul_device_ms": ld_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "bytes": nbytes, "flops": flops,
+                           "columns": [cv, cu], "plan": plan_,
+                           "parent_device_ms": parent})
+        half = "the dx half" if name == "rfnn_bwd" else "the linear half"
+        print(f"[9] {card} | {name} n=8 B={b} ({layer_name}; Cv, Cu = "
+              f"{cv}, {cu}): kernel {k_ms:.5f} ms per call, {kd_ms:.5f} ms "
+              f"on the device (before the register path {parent} ms, "
+              f"PERF.md); bound {bound_ms:.6f} ms ({bound_by}); plain "
+              f"{p_ms:.4f} ms per call; matmul for {half} alone {l_ms:.5f} "
+              f"ms per call, {ld_ms:.5f} ms on the device; plan {plan_}",
+              flush=True)
     report["timings_fused_n8"] = rows_fused
 
     fused_step = make_sgd_step(lambda p, xx, yy: (
@@ -1687,17 +1796,28 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     fused_step_ms = (time.perf_counter() - t0) * 1e3 / 50
     check(bool(torch.isfinite(loss)), "non-finite fused SGD loss")
-    # B5 once a step on its register path (n / 2 lanes a row at this
-    # batch), and reduce_partials only where its plan has two kernels
+    # B4 once a step on the kernel its plan picks (n / 2 lanes a row at
+    # this batch) and B3 never; B5 once a step on its register path (n / 2
+    # lanes a row), and reduce_partials only where its plan has two kernels
+    fwd_plan = givens_mesh.rfnn_fwd_plan(FUSED_BATCH, 8, train_in[0].shape[0],
+                                         train_in[2].shape[0])
+    b4_name = fused_fwd_kernel(fwd_plan)
     fused_plan = givens_mesh.rfnn_bwd_plan(FUSED_BATCH, 8, train_in[0].shape[0],
                                            train_in[2].shape[0])
     b5_name = ("rfnn_bwd_lane_kernel" if fused_plan["lanes"] > 1
                else "rfnn_bwd_reg_kernel")
     per_step, busy_us, ours_us, ours_n = profile_steps(
-        torch, fused_steps, 20, ("rfnn_fwd_kernel", b5_name,
-                                 "reduce_partials"))
-    check(ours_us["rfnn_fwd_kernel"] > 0 and ours_us[b5_name] > 0,
+        torch, fused_steps, 20, {
+            b4_name: lambda s: b4_name in s and is_fused_fwd(s, True),
+            "rfnn_fwd (B3)": lambda s: is_fused_fwd(s, False),
+            "rfnn_fwd (B4)": lambda s: is_fused_fwd(s, True),
+            b5_name: lambda s: b5_name in s,
+            "reduce_partials": lambda s: "reduce_partials" in s})
+    check(ours_us[b4_name] > 0 and ours_us[b5_name] > 0,
           f"the profiled fused SGD steps show no fused kernel: {ours_us}")
+    check(fwd_plan["register_path"] == 1 and ours_n[b4_name] == 1
+          and ours_n["rfnn_fwd (B4)"] == 1 and ours_n["rfnn_fwd (B3)"] == 0,
+          f"B4 a fused SGD step: {ours_n} (plan {fwd_plan})")
     check(fused_plan["register_path"] == 1 and ours_n[b5_name] == 1
           and ours_n["reduce_partials"] == fused_plan["kernels"] - 1,
           f"B5 a fused SGD step: {ours_n} (plan {fused_plan})")
@@ -1707,12 +1827,13 @@ def main(argv=None) -> int:
           f"{per_step:.0f} device events and {busy_us:.1f} us of device time "
           f"per step ({100 * busy_us / (fused_step_ms * 1e3):.1f}%), fused "
           f"kernels per step (us) {ours_us}, launches per step {ours_n}; "
-          f"B5's plan {fused_plan}", flush=True)
+          f"B4's plan {fwd_plan}, B5's plan {fused_plan}", flush=True)
     report["fused_sgd_step"] = {"ms": fused_step_ms,
                                 "device_events_per_step": per_step,
                                 "device_busy_us_per_step": busy_us,
                                 "fused_kernels_us_per_step": ours_us,
                                 "fused_kernels_per_step": ours_n,
+                                "rfnn_fwd_plan": fwd_plan,
                                 "rfnn_bwd_plan": fused_plan}
 
 

@@ -928,6 +928,17 @@ __device__ __forceinline__ void load_pair(float2& a, float2& b,
   }
 }
 
+// ... and back to memory.
+__device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b,
+                                           bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+
 
 // Column `cc` (its P cells and inverses, W = 4; mark word w) reversed at
 // lane j of a row spread over P = N / 2 lanes, lane j holding channels 2 j

@@ -50,7 +50,11 @@ where one block covers the batch; one thread a row (B5 up to 256 rows) or
 a (row, tile) (B8 on a grid), n / 2 lanes a row for B5 above 256 rows and
 for B8 on one tile.  :func:`rfnn_bwd_plan` / :func:`deepgrid_bwd_plan`
 report their launches, :func:`rfnn_bwd_layout` /
-:func:`deepgrid_bwd_layout` compute them.
+:func:`deepgrid_bwd_layout` compute them.  B3 and B4 take a register path
+for the same widths too: both meshes' cells staged once a block with their
+identity slots marked and skipped, n / 2 lanes a row up to
+:data:`RFNN_FWD_LANES_BELOW` rows and one thread a row from there
+(:func:`rfnn_fwd_plan`, :func:`rfnn_fwd_layout`).
 
 ``rfnn_forward(coef_v, par_v, coef_u, par_u, gains, x)`` is the fused
 analog linear layer ``|g2 * U (g1 * V x)|`` (paper Eq. 31): two meshes
@@ -303,15 +307,17 @@ def _deep_occupancy(reg: int, n: int, tiles: int, detect_last: int,
 
 
 def _cached_plan(kind: str, index: int, batch: int, n: int, *shape) -> dict:
-    """The plan of B1 (``kind`` "fwd"), B2 ("bwd"; ``shape`` (C,)), B5
-    ("rfnn_bwd"; (Cv, Cu)) or B8 ("deep_bwd"; (L, To, Ti, C,
-    detect_last)) on card ``index``, computed once per kind, card, batch
-    and shape."""
+    """The plan of B1 (``kind`` "fwd"), B2 ("bwd"; ``shape`` (C,)), B3/B4
+    ("rfnn_fwd"; (Cv, Cu)), B5 ("rfnn_bwd"; (Cv, Cu)) or B8 ("deep_bwd";
+    (L, To, Ti, C, detect_last)) on card ``index``, computed once per kind,
+    card, batch and shape."""
     key = (kind, index, batch, n, *shape)
     if key not in _PLANS:
         sms = _sms(index)
         if kind == "fwd":
             _PLANS[key] = mesh_fwd_layout(batch, n, *shape, sms)
+        elif kind == "rfnn_fwd":
+            _PLANS[key] = rfnn_fwd_layout(batch, n, *shape, sms)
         elif kind == "bwd":
             _PLANS[key] = mesh_bwd_layout(batch, n, *shape, sms, _occupancy)
         elif kind == "rfnn_bwd":
@@ -479,13 +485,85 @@ def rfnn_backward_plain(coef_v, par_v, coef_u, par_u, gains, v, u, g):
                                       v, u, g)
 
 
-_RFNN_FWD_ARGS = {"rfnn_fwd_launch": [_P, _P, _P, _P, _I, _P, _P, _I, _P,
-                                      _I, _I, _P],
-                  "rfnn_fwd_res_launch": [_P] * 6 + [_I, _P, _P, _I, _P, _I,
-                                                     _I, _P]}
+_RFNN_FWD_ARGS = {"rfnn_fwd_launch": [_P] * 4 + [_I, _P, _P, _I, _P]
+                  + [_I] * 5 + [_L, _P],
+                  "rfnn_fwd_res_launch": [_P] * 6 + [_I, _P, _P, _I, _P]
+                  + [_I] * 5 + [_L, _P]}
 _RFNN_BWD_ARGS = {"rfnn_bwd_occupancy": [_I] * 4 + [_L],
                   "rfnn_bwd_launch": [_P] * 5 + [_I, _P, _P, _I] + [_P] * 4
                   + [_I] * 6 + [_L, _P]}
+
+
+def _rfnn_fwd_smem(n: int, cv: int, cu: int) -> int:
+    """csrc/rfnn_fwd.cu: reg_shared_bytes: both meshes' cells, the gains,
+    the mark words."""
+    p, cols = n // 2, cv + cu
+    return cols * p * 32 + 32 * p + _ceil_div(cols, 4) * 16
+
+
+#: B3/B4 take n / 2 lanes a row below this batch, one thread a row from it
+#: (tools/deepgrid_times.py: both layouts at phase 9's batches, PERF.md §6).
+RFNN_FWD_LANES_BELOW = 16384
+
+
+def rfnn_fwd_register_plan(batch: int, n: int, cv: int, cu: int, sms: int,
+                           lanes: int) -> dict:
+    """B3/B4's register-path launch with ``lanes`` a row (1, or n / 2 for
+    n >= 4): keys as :func:`rfnn_fwd_layout`'s.  One thread a row takes
+    B1's rows a block; n / 2 lanes a row take ceil(B / SMs) rows a block,
+    rounded up to a warp's rows, at least 128 threads (they stage the
+    paper's meshes in one round) and at most 256."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    if n not in REG_WIDTHS or lanes not in (1, n // 2) \
+            or (lanes > 1 and n < 4):
+        raise ValueError(f"no register path at n={n} with {lanes} lanes a "
+                         "row")
+    if lanes == 1:
+        rows = _reg_rows(batch, sms)
+    else:
+        per_warp = 32 // lanes
+        rows = min(_REG_ROWS_MAX // lanes, max(
+            128 // lanes,
+            per_warp * _ceil_div(_ceil_div(batch, sms), per_warp)))
+    return {"register_path": 1, "rows": rows, "lanes": lanes,
+            "threads": rows * lanes, "blocks": _ceil_div(batch, rows),
+            "shared_bytes": _rfnn_fwd_smem(n, cv, cu)}
+
+
+def rfnn_fwd_layout(batch: int, n: int, cv: int, cu: int, sms: int) -> dict:
+    """How B3/B4 launch for ``batch`` rows of an n-channel layer with
+    ``cv``/``cu`` V/U columns on a card of ``sms`` SMs: ``register_path``
+    (1 for n in :data:`REG_WIDTHS` when both meshes' staged cells fit a
+    block), ``rows`` a block, ``lanes`` a row, ``threads`` a block,
+    ``blocks`` and dynamic ``shared_bytes`` a block (one kernel a call).
+    The register path spreads a row over n / 2 lanes below
+    :data:`RFNN_FWD_LANES_BELOW` rows (n >= 4) and takes one thread a row
+    from there (:func:`rfnn_fwd_register_plan`)."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    if n in REG_WIDTHS and _rfnn_fwd_smem(n, cv, cu) <= _MAX_SHARED:
+        lanes = n // 2 if n >= 4 and batch < RFNN_FWD_LANES_BELOW else 1
+        return rfnn_fwd_register_plan(batch, n, cv, cu, sms, lanes)
+    return rfnn_fwd_general_plan(batch, n)
+
+
+def rfnn_fwd_general_plan(batch: int, n: int) -> dict:
+    """B3/B4's general-path launch (any even n; keys as
+    :func:`rfnn_fwd_layout`'s): a tile of 128 / P rows a block in shared
+    memory."""
+    if batch < 1:
+        raise ValueError(f"a plan needs batch >= 1, got {batch}")
+    rows = max(1, 128 // (n // 2))   # mesh_sweep.cuh: rows_per_tile
+    return {"register_path": 0, "rows": rows, "lanes": 1, "threads": 128,
+            "blocks": _ceil_div(batch, rows), "shared_bytes": rows * n * 8}
+
+
+def rfnn_fwd_plan(batch: int, n: int, cv: int, cu: int) -> dict:
+    """B3/B4's launch for ``batch`` rows on the current card
+    (:func:`rfnn_fwd_layout`)."""
+    return dict(_cached_plan("rfnn_fwd", torch.cuda.current_device(), batch,
+                             n, cv, cu))
 
 
 def _rfnn_bwd_smem(n: int, cv: int, cu: int, warps: int) -> int:
@@ -562,9 +640,11 @@ def rfnn_bwd_plan(batch: int, n: int, cv: int, cu: int) -> dict:
 
 
 def launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x, *,
-                save_stages: bool = False):
+                save_stages: bool = False, plan: dict | None = None):
     """Launch kernel B3 (``out``) or, with ``save_stages``, kernel B4
-    (``(out, v, u)``) on the current stream (no autograd)."""
+    (``(out, v, u)``) on the current stream (no autograd).  ``plan``: the
+    launch, by default :func:`rfnn_fwd_plan`'s for this shape; the kernel
+    refuses one it cannot run."""
     _check_rfnn(coef_v, par_v, coef_u, par_u, gains, x)
     _on_card("rfnn", x)
     b, n = x.shape
@@ -578,9 +658,13 @@ def launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x, *,
     if b > 0:  # a grid of 0 blocks is an invalid launch
         lib = _lib("rfnn_fwd", _RFNN_FWD_ARGS)
         with torch.cuda.device(x.device):
+            if plan is None:
+                plan = _cached_plan("rfnn_fwd", x.device.index, b, n, cv, cu)
             stream = torch.cuda.current_stream(x.device).cuda_stream
             tail = (coef_v.data_ptr(), par_v.data_ptr(), cv, coef_u.data_ptr(),
-                    par_u.data_ptr(), cu, gains.data_ptr(), b, n, stream)
+                    par_u.data_ptr(), cu, gains.data_ptr(), b, n,
+                    plan["register_path"], plan["rows"], plan["lanes"],
+                    plan["shared_bytes"], stream)
             if save_stages:
                 err = lib.rfnn_fwd_res_launch(x.data_ptr(), out.data_ptr(),
                                               v.data_ptr(), u.data_ptr(), *tail)
@@ -589,7 +673,7 @@ def launch_rfnn(coef_v, par_v, coef_u, par_u, gains, x, *,
         name = "rfnn_fwd_res" if save_stages else "rfnn_fwd"
         if err != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                               f"(B={b}, n={n}, Cv={cv}, Cu={cu})")
+                               f"(B={b}, n={n}, Cv={cv}, Cu={cu}, plan {plan})")
         LAUNCHES[name] += 1
     return (out, v, u) if save_stages else out
 

@@ -98,11 +98,12 @@ def _torch(p, grad=False):
 # ---------------------------------------------------------------------------
 
 @needs_jax
-@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32])
 @pytest.mark.parametrize("plans", ["clements", "reck"])
 def test_rfnn_linear_matches_jax(n, plans):
     """Forward, with and without the screens, ideal and PROTOTYPE cells
-    (noiseless): within 1e-5 * n of each output's largest magnitude."""
+    (noiseless): within 1e-5 * n of each output's largest magnitude.  n =
+    16 and 32 are widths of B3/B4's register path."""
     rng = np.random.default_rng(10 * n + (plans == "reck"))
     x = _x(rng, 7, n)
     calls = ops.KERNEL_PATH_CALLS["rfnn_linear"]
@@ -556,6 +557,81 @@ def test_rfnn_bwd_plans_are_cached_per_card_and_shape(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# launch plans of B3/B4 (computed on the host)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,b,cv,cu,path,rows,lanes,blocks,smem", [
+    (8, 1, 13, 13, 1, 32, 4, 1, 3568),        # at least 128 threads
+    (8, 1000, 8, 8, 1, 32, 4, 32, 2240),      # the fused layer's training step
+    (8, 4096, 13, 13, 1, 32, 4, 128, 3568),   # the programmed processor
+    (8, 16383, 13, 13, 1, 64, 4, 256, 3568),  # lanes: at most 256 threads
+    (8, 16384, 13, 13, 1, 128, 1, 128, 3568),  # one thread a row from here
+    (8, 65536, 13, 13, 1, 256, 1, 256, 3568),
+    (2, 1000, 1, 2, 1, 32, 1, 32, 144),       # n = 2: one lane is one thread
+    (4, 100, 5, 4, 1, 64, 2, 2, 688),
+    (16, 33, 29, 16, 1, 16, 8, 3, 11968),
+    (16, 4096, 29, 16, 1, 32, 8, 128, 11968),  # ceil(B / SMs) rows a block
+    (32, 10, 61, 61, 1, 8, 16, 2, 63472),     # Reck's 61 + 61 columns fit
+    (64, 7, 64, 64, 0, 4, 1, 2, 2048),        # n = 64 keeps the general path
+    (6, 130, 6, 6, 0, 42, 1, 4, 2016),        # no register path at n = 6
+])
+def test_rfnn_fwd_layouts_choose_path_rows_lanes_and_blocks(
+        n, b, cv, cu, path, rows, lanes, blocks, smem):
+    plan = givens_mesh.rfnn_fwd_layout(b, n, cv, cu, 132)
+    assert plan == {"register_path": path, "rows": rows, "lanes": lanes,
+                    "threads": rows * lanes if path else 128,
+                    "blocks": blocks, "shared_bytes": smem}
+    if path:  # whole warps; every row in a block
+        assert plan["threads"] % 32 == 0 and plan["threads"] <= 256
+        assert (blocks - 1) * rows < b <= blocks * rows
+        assert lanes == (n // 2 if n >= 4 and b < givens_mesh
+                         .RFNN_FWD_LANES_BELOW else 1)
+
+
+def test_rfnn_fwd_layout_fits_shared_memory_and_refuses_no_rows():
+    """Reck's 61 + 61 columns at n = 32 stage in one block; meshes whose
+    cells would not fit take the general path; no batch, no plan."""
+    reck = givens_mesh.rfnn_fwd_layout(4096, 32, 61, 61, 132)
+    assert reck["register_path"] == 1 and reck["lanes"] == 16
+    assert reck["shared_bytes"] == givens_mesh._rfnn_fwd_smem(32, 61, 61) \
+        <= givens_mesh._MAX_SHARED
+    wide = givens_mesh.rfnn_fwd_layout(10, 32, 400, 400, 132)
+    assert wide["register_path"] == 0
+    for b in (0, -1):
+        with pytest.raises(ValueError):
+            givens_mesh.rfnn_fwd_layout(b, 8, 8, 8, 132)
+    for n, lanes in ((2, 2), (8, 2), (6, 1)):
+        with pytest.raises(ValueError):
+            givens_mesh.rfnn_fwd_register_plan(10, n, 8, 8, 132, lanes)
+    assert givens_mesh.rfnn_fwd_general_plan(130, 8) == {
+        "register_path": 0, "rows": 32, "lanes": 1, "threads": 128,
+        "blocks": 5, "shared_bytes": 2048}
+    with pytest.raises(ValueError):
+        givens_mesh.rfnn_fwd_general_plan(0, 8)
+
+
+def test_rfnn_fwd_plans_are_cached_per_card_and_shape(monkeypatch):
+    monkeypatch.setattr(givens_mesh, "_PLANS", {})
+    monkeypatch.setattr(givens_mesh, "_SMS", {0: 132, 1: 66})
+    first = givens_mesh._cached_plan("rfnn_fwd", 0, 4096, 8, 8, 8)
+    assert givens_mesh._cached_plan("rfnn_fwd", 0, 4096, 8, 8, 8) is first
+    assert first == givens_mesh.rfnn_fwd_layout(4096, 8, 8, 8, 132)
+    assert first["rows"] == 32
+    assert givens_mesh._cached_plan("rfnn_fwd", 1, 4096, 8, 8, 8)["rows"] \
+        == 64                                 # ceil(4096 / 66) rows a block
+    other = givens_mesh._cached_plan("rfnn_fwd", 0, 4096, 8, 13, 13)
+    assert other is not first and other["shared_bytes"] == 3568
+    monkeypatch.setattr(givens_mesh, "_rfnn_occupancy", lambda *args: 2)
+    givens_mesh._cached_plan("rfnn_bwd", 0, 4096, 8, 8, 8)
+    assert len(givens_mesh._PLANS) == 4       # B5's plan is kept apart
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    plan = givens_mesh.rfnn_fwd_plan(4096, 8, 8, 8)
+    assert plan["rows"] == 64 and len(givens_mesh._PLANS) == 4
+    plan["rows"] = 0                          # a copy: the cache is intact
+    assert givens_mesh.rfnn_fwd_plan(4096, 8, 8, 8)["rows"] == 64
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels on the card
 # ---------------------------------------------------------------------------
 
@@ -682,3 +758,52 @@ def test_rfnn_backward_register_path_edges_on_card(cuda_device, n):
         assert (plan["kernels"] == 1) == (b <= plan["rows"])
         if n <= 16:  # every warp's accumulator fits: 256 rows a block
             assert plan["kernels"] == (1 if b <= 256 else 2)
+
+
+def _bits(t):
+    t = torch.view_as_real(t) if t.is_complex() else t
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", list(givens_mesh.REG_WIDTHS))
+def test_rfnn_forward_register_path_edges_on_card(cuda_device, n):
+    """B3/B4's register path at every width and at batches around a warp
+    and one block, the main path's 1000 and 4096 and the lane layout's
+    switch point, with a Clements and a Reck V (Cv != Cu), zero rows and
+    zeros in g1: against the plain version, B3's out B4's bits, and with
+    Clements meshes (no slot skipped) out, v and u the general kernel's
+    bits; a plan the kernel cannot run raises (its own generator)."""
+    rng = np.random.default_rng(200 + n)
+    switch = givens_mesh.RFNN_FWD_LANES_BELOW
+    for reck in (False, True):
+        inputs = [t.to(cuda_device) for t in _kernel_inputs(
+            rng, n, PROTOTYPE, reck=reck, zero_gain=True)]
+        cv, cu = inputs[0].shape[0], inputs[2].shape[0]
+        for b in (1, 31, 32, 33, 255, 256, 257, 1000, 4096, switch - 1,
+                  switch):
+            x = torch.from_numpy(_x(rng, b, n)).to(cuda_device)
+            x[::7] = 0
+            before = dict(givens_mesh.LAUNCHES)
+            out3 = givens_mesh.launch_rfnn(*inputs, x)
+            out4, v, u = givens_mesh.launch_rfnn(*inputs, x, save_stages=True)
+            torch.cuda.synchronize()
+            for k in ("rfnn_fwd", "rfnn_fwd_res"):
+                assert givens_mesh.LAUNCHES[k] == before[k] + 1
+            assert torch.equal(_bits(out3), _bits(out4))
+            pout, pv, pu = givens_mesh.rfnn_forward_plain(*inputs, x)
+            for got, want in ((out3, pout), (v, pv), (u, pu)):
+                assert _close(got, want, n)
+            plan = givens_mesh.rfnn_fwd_plan(b, n, cv, cu)
+            assert plan["register_path"] == 1
+            assert plan["lanes"] == (n // 2 if n >= 4 and b < switch else 1)
+            if not reck:
+                got = givens_mesh.launch_rfnn(
+                    *inputs, x, save_stages=True,
+                    plan=givens_mesh.rfnn_fwd_general_plan(b, n))
+                for a, c in zip((out4, v, u), got):
+                    assert torch.equal(_bits(a), _bits(c))
+    for bad in (dict(plan, lanes=3), dict(plan, shared_bytes=16),
+                dict(plan, register_path=0)):
+        with pytest.raises(RuntimeError, match="rfnn_fwd"):
+            givens_mesh.launch_rfnn(*inputs, x, plan=bad)
