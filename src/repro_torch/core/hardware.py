@@ -14,7 +14,9 @@ Models the measured non-idealities the paper reports:
 The model composes structurally: Phi_err . H_err . Theta_err . H_err with a
 scalar loss factor.  Random draws (phase noise, detector noise) come from a
 CPU ``torch.Generator`` and are moved to the data's device, so one seed
-gives the same draws on every device.
+gives the same draws on every device.  A calibrated device binds its phase
+noise as *frozen* draws instead (:func:`frozen_draws`): standard normals
+made once and passed as ``draws``, so every apply sees the same device.
 """
 
 from __future__ import annotations
@@ -78,20 +80,49 @@ def imperfect_hybrid(hw: HardwareModel, device=None) -> torch.Tensor:
 
 
 def imperfect_cell_matrix(theta, phi, hw: HardwareModel,
-                          generator: torch.Generator | None = None
-                          ) -> torch.Tensor:
+                          generator: torch.Generator | None = None,
+                          draws: dict | None = None) -> torch.Tensor:
     """t(theta, phi) under the hardware model; broadcasts like cell_matrix.
 
     With a ``generator``, theta then phi get rms ``hw.phase_sigma`` noise.
+    With ``draws`` (``{"theta": z, "phi": z}``, standard normals of theta's
+    and phi's shapes: a device's frozen draw) they get ``hw.phase_sigma *
+    z`` instead.
     """
+    if generator is not None and draws is not None:
+        raise ValueError("pass a generator or frozen draws, not both")
     theta, phi = _f32(theta), _f32(phi)
     if generator is not None:
         theta = theta + hw.phase_sigma * normal_like(theta, generator)
         phi = phi + hw.phase_sigma * normal_like(phi, generator)
+    elif draws is not None:
+        theta = theta + hw.phase_sigma * draws["theta"].to(theta.device)
+        phi = phi + hw.phase_sigma * draws["phi"].to(phi.device)
     h = imperfect_hybrid(hw, theta.device)
     t = cmatmul(cmatmul(cmatmul(phase_shifter(phi), h),
                         phase_shifter(theta)), h)
     return hw.cell_gain * t
+
+
+def frozen_draws(key: int, mesh_params, *, layer: int,
+                 position: int | None = None) -> tuple[dict, ...]:
+    """The frozen phase-noise draws of one device, deterministic in
+    ``(key, position, layer)``.
+
+    ``mesh_params``: the device's mesh param dicts in order (V then U).
+    Returns one ``{"theta": z, "phi": z}`` per dict, standard normals of its
+    theta's and phi's shapes on its device, all from one CPU generator
+    seeded from ``key`` (an integer), the physical grid ``position`` (None
+    for a layer outside a grid) and the ``layer`` index, so the same
+    arguments give the same draws on every device and in every call.  The
+    calibrate passes and the yield probes all derive their draws here.
+    """
+    spawn = (layer,) if position is None else (position, layer)
+    seed = np.random.SeedSequence(int(key), spawn_key=spawn).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator().manual_seed(int(seed))
+    return tuple({k: normal_like(p[k], gen) for k in ("theta", "phi")}
+                 for p in mesh_params)
 
 
 def apply_mesh_hw(plan: mesh_lib.MeshPlan, params: dict, x: torch.Tensor,

@@ -27,11 +27,13 @@ def table_i_codebook(device=None) -> torch.Tensor:
 
 def uniform_codebook(bits: int, lo: float = 0.0, hi: float = 2 * math.pi,
                      device=None) -> torch.Tensor:
-    """2**bits uniformly spaced phases in [lo, hi)."""
+    """2**bits uniformly spaced phases in [lo, hi), computed in float32 as
+    ``lo (1 - i / k) + hi (i / k)`` (the JAX package's ``jnp.linspace``
+    arithmetic, so both packages snap to the same float32 phases)."""
     k = 2**bits
-    step = (hi - lo) / k
-    return (lo + step * torch.arange(k, dtype=torch.float64)).to(
-        torch.float32).to(device)
+    step = torch.arange(k, dtype=torch.float32) / k
+    lo32, hi32 = (torch.tensor(v, dtype=torch.float32) for v in (lo, hi))
+    return (lo32 * (1 - step) + hi32 * step).to(device)
 
 
 def nearest_code(phase: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

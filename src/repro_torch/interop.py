@@ -9,7 +9,10 @@ b3, mesh{theta, phi, alpha}``), the 2x2 RFNN's (``w, b``),
 ``AnalogSequence``'s (``{"layers": (dict, ...)}``) and
 ``TiledAnalogLinear``'s stacked ``[To, Ti, ...]`` leaves and the LM's
 ``Model.init`` trees (float32 leaves stacked over the super-blocks, nested
-dicts) round-trip exactly.
+dicts) round-trip exactly.  ``program_layer_from_numpy`` and
+``tiled_program_from_numpy`` carry a compiler program's fields (the JAX
+package's, read as numpy) into the port's ``ProgramLayer`` and
+``TiledAnalogProgram``.
 """
 
 from __future__ import annotations
@@ -48,3 +51,80 @@ def params_to_numpy(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(params_to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()
+
+
+def _plan(plan):
+    from repro_torch.core.mesh import MeshPlan
+
+    return MeshPlan(int(plan.n), *(np.asarray(getattr(plan, k)) for k in
+                                   ("top", "active", "slot", "role")))
+
+
+def _hardware(hw):
+    import dataclasses
+
+    from repro_torch.core.hardware import HardwareModel
+
+    if hw is None:
+        return None
+    return HardwareModel(**{f.name: float(getattr(hw, f.name))
+                            for f in dataclasses.fields(HardwareModel)})
+
+
+def program_layer_from_numpy(la, device=None, draws=None):
+    """A ``ProgramLayer`` of another package (the JAX package's, any object
+    with the same field names and array-like values) -> the port's, on
+    ``device``.
+
+    Carries the targets, attenuation, scale, plans, params, codebook, quant
+    mode, codes and hardware model.  A noise binding held as PRNG keys does
+    not carry: pass the draws the keys stand for as ``draws`` (a
+    ``(draws_v, draws_u)`` pair of ``{"theta": z, "phi": z}`` arrays).
+    """
+    from repro_torch.compile.program import ProgramLayer
+
+    def opt(value, fn):
+        return None if value is None else fn(value)
+
+    dv, du = (None, None) if draws is None else draws
+    return ProgramLayer(
+        n=int(la.n), out_dim=int(la.out_dim), in_dim=int(la.in_dim),
+        target=np.asarray(la.target), target_u=np.asarray(la.target_u),
+        target_vh=np.asarray(la.target_vh),
+        attenuation=params_from_numpy(np.asarray(la.attenuation, np.float32),
+                                      device),
+        scale=params_from_numpy(np.asarray(la.scale, np.float32), device),
+        v_plan=opt(la.v_plan, _plan), u_plan=opt(la.u_plan, _plan),
+        v_params=opt(la.v_params, lambda p: params_from_numpy(
+            {k: np.asarray(v) for k, v in p.items()}, device)),
+        u_params=opt(la.u_params, lambda p: params_from_numpy(
+            {k: np.asarray(v) for k, v in p.items()}, device)),
+        codebook=opt(la.codebook, lambda c: params_from_numpy(
+            np.asarray(c, np.float32), device)),
+        quant_mode=la.quant_mode,
+        v_codes=opt(la.v_codes, lambda c: params_from_numpy(
+            {k: np.asarray(v) for k, v in c.items()}, device)),
+        u_codes=opt(la.u_codes, lambda c: params_from_numpy(
+            {k: np.asarray(v) for k, v in c.items()}, device)),
+        hardware=_hardware(la.hardware),
+        draws_v=opt(dv, lambda d: params_from_numpy(d, device)),
+        draws_u=opt(du, lambda d: params_from_numpy(d, device)))
+
+
+def tiled_program_from_numpy(tp, device=None, draws=None):
+    """A ``TiledAnalogProgram`` of another package -> the port's: every
+    tile through :func:`program_layer_from_numpy` (``draws``: a ``[To][Ti]``
+    nesting of pairs by physical position, or None) and the placement's
+    permutations."""
+    from repro_torch.compile.placement import TilePlacement
+    from repro_torch.compile.program import TiledAnalogProgram
+
+    pl = tp.placement
+    return TiledAnalogProgram(
+        out_dim=int(tp.out_dim), in_dim=int(tp.in_dim), tile=int(tp.tile),
+        grid=tuple(tuple(program_layer_from_numpy(
+            la, device, None if draws is None else draws[o][i])
+            for i, la in enumerate(row)) for o, row in enumerate(tp.grid)),
+        placement=None if pl is None else TilePlacement(
+            tuple(int(v) for v in pl.row_perm),
+            tuple(int(v) for v in pl.col_perm)))

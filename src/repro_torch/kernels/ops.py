@@ -64,18 +64,20 @@ PACK_EVENTS = {"rfnn_network": 0, "tiled_apply": 0, "deep_apply": 0}
 
 def _mesh_coefficients(sched: MeshSchedule, params: dict,
                        hardware: hw_lib.HardwareModel | None,
-                       generator: torch.Generator | None) -> torch.Tensor:
+                       generator: torch.Generator | None,
+                       draws: dict | None = None) -> torch.Tensor:
     """Packed [C', 8, P] coefficients from mesh params.
 
     With a hardware model, cells come from ``imperfect_cell_matrix`` — the
-    same function (and the same generator draws) as the reference
-    ``apply_mesh_hw`` path.
+    same function (and the same generator draws, or the same frozen
+    ``draws``) as the reference ``apply_mesh_hw`` path.
     """
     theta, phi = params["theta"], params["phi"]
     if hardware is None:
         t_all = cell_matrix(theta, phi)
     else:
-        t_all = hw_lib.imperfect_cell_matrix(theta, phi, hardware, generator)
+        t_all = hw_lib.imperfect_cell_matrix(theta, phi, hardware, generator,
+                                             draws)
     return pack_cells(sched, t_all)
 
 
@@ -94,18 +96,20 @@ def _sweep(sched: MeshSchedule, coef: torch.Tensor, x: torch.Tensor,
 def mesh_apply(params: dict, x: torch.Tensor, *, n: int,
                plan: mesh_lib.MeshPlan | None = None,
                hardware: hw_lib.HardwareModel | None = None,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               draws: dict | None = None) -> torch.Tensor:
     """Apply a mesh to ``x[..., n]`` through the kernel path.
 
     Semantics match ``repro_torch.core.mesh.apply_mesh`` on the given plan
     (``None`` = the Clements rectangle), including the optional phase
     screens ``alpha_in`` / ``alpha``; with ``hardware`` they match
     ``repro_torch.core.hardware.apply_mesh_hw`` (imperfect hybrids, per-cell
-    insertion loss, and ``generator``-sampled phase-shifter noise).
+    insertion loss, and phase-shifter noise sampled from ``generator`` or
+    taken from the frozen ``draws``).
     """
     sched = clements_schedule(n) if plan is None else schedule_from_plan(plan)
     KERNEL_PATH_CALLS["mesh_apply"] += 1
-    coef = _mesh_coefficients(sched, params, hardware, generator)
+    coef = _mesh_coefficients(sched, params, hardware, generator, draws)
     return _sweep(sched, coef, x, params.get("alpha_in"), params.get("alpha"))
 
 
@@ -198,7 +202,8 @@ def _pack_deep_grid_impl(deep, hardware, layers) -> tuple[torch.Tensor, ...]:
     """Stacked ``[L, To, Ti, C, 8, P]`` coefficients and ``[L, To, Ti, 12,
     P]`` gains, every mesh identity-padded to the grid's column count.
     Tiles are built in order (layer, row, tile; V then U): a tile's
-    ``generator`` draws its V noise, then its U noise."""
+    ``generator`` draws its V noise, then its U noise; a calibrated tile's
+    frozen ``draws_v``/``draws_u`` are used as they are."""
     c = deep.n_columns
     coef_v, coef_u, gains = [], [], []
     for slayer, tlayer in zip(deep.layers, layers):
@@ -206,9 +211,9 @@ def _pack_deep_grid_impl(deep, hardware, layers) -> tuple[torch.Tensor, ...]:
             for (sv, su), ta in zip(srow, trow):
                 gen = ta.get("generator")
                 coef_v.append(pad_columns(_mesh_coefficients(
-                    sv, ta["v"], hardware, gen), c))
+                    sv, ta["v"], hardware, gen, ta.get("draws_v")), c))
                 coef_u.append(pad_columns(_mesh_coefficients(
-                    su, ta["u"], hardware, gen), c))
+                    su, ta["u"], hardware, gen, ta.get("draws_u")), c))
                 gains.append(_layer_gains(deep.n, ta, coef_v[-1].device))
     lead = (deep.n_layers, deep.to, deep.ti)
     return tuple(torch.stack(t).reshape(lead + t[0].shape)
@@ -289,7 +294,9 @@ def pack_deep_grid(layers, *, n: int, plans=None,
     ``layers``: nested ``[L][To][Ti]`` sequence of per-tile dicts with keys
     ``v``/``u`` (mesh params, optional ``alpha_in``/``alpha`` screens),
     ``atten`` ([n] diagonal), optional ``scale`` (the digital gamma) and,
-    with ``hardware``, an optional ``generator`` for phase noise.
+    with ``hardware``, an optional ``generator`` for phase noise or the
+    frozen ``draws_v``/``draws_u`` of a calibrated tile (``{"theta": z,
+    "phi": z}`` each; ordinary leaves, so the pack cache keys them exactly).
     ``plans``: a matching ``[L][To][Ti]`` nesting of ``(v_plan, u_plan)``
     pairs (``None`` for Clements).
 

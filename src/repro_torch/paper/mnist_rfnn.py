@@ -12,8 +12,9 @@ codebook, or by the paper's two-stage Algorithm I (:func:`train_mnist`).
 ``analog=False`` swaps the mesh for an unconstrained 8x8 dense matrix — the
 paper's "digital" baseline of Fig. 15.  ``analog_depth > 1`` stacks the
 analog section into the Sec.-V multi-layer network (:class:`AnalogSequence`,
-on the deep-grid kernels).  The port of the JAX package's
-``paper/mnist_rfnn.py`` without ``digital_to_analog_transfer``.
+on the deep-grid kernels).  :func:`digital_to_analog_transfer` compiles
+the digital twin onto the mesh processor (Fig. 11).  The port of the JAX
+package's ``paper/mnist_rfnn.py``.
 
 Offline note: the real MNIST files are unavailable, so the procedural
 digits dataset (:mod:`repro_torch.data.digits`) stands in.
@@ -261,6 +262,87 @@ def _eval(model: MnistRFNN, params: dict, x, y) -> torch.Tensor:
     """Accuracy of ``model`` on ``(x, y)``, without gradients."""
     with torch.no_grad():
         return model.loss(params, x, y)[1]
+
+
+def digital_to_analog_transfer(
+        x_tr, y_tr, x_te, y_te, *, depth=4, epochs=40, batch=10, lr=0.02,
+        seed=0, hardware=PROTOTYPE,
+        settings=("float", "table1", "uniform6", "hardware",
+                  "hardware+calibrated"),
+        program_method="reck", program_steps=1500, calibrate_steps=200,
+        calibrate_lr=0.02, device=None):
+    """The paper's Fig. 11/14 digital->analog transfer, end to end.
+
+    Trains the digital source network (784 -> 8 digital front-end, then a
+    ``depth``-layer stack of free 8x8 matrices with |.| detection between
+    layers: the multi-layer microwave ANN's digital twin), compiles every
+    8x8 weight matrix onto the mesh processor through the analog program
+    compiler (:mod:`repro_torch.compile`), and reports the digital->analog
+    test accuracy drop per deployment ``setting``.
+
+    Settings are ``+``-joined tokens: a codebook name (``table1`` /
+    ``uniform<bits>``) turns on the quantize pass (STE masters),
+    ``hardware`` binds the imperfection model (with frozen phase-noise
+    draws of the integer key ``seed + 7``), ``calibrated`` runs the
+    hardware-in-the-loop residual fit; ``float`` is the ideal
+    continuous-phase deployment.  Every compiled program serves through
+    ``ops.rfnn_network`` (kernel B6 on the card).  Runs on ``device`` (CUDA
+    when None; raises when CUDA is absent).
+    """
+    from repro_torch import compile as compile_mod
+
+    digital = train_mnist(x_tr, y_tr, x_te, y_te, analog=False,
+                          epochs=epochs, batch=batch, lr=lr, seed=seed,
+                          quantize=None, schedule="ste",
+                          analog_depth=depth, device=device)
+    params = digital["params"]
+    dev = params["w1"].device
+    w2 = params["w2"].cpu().numpy()
+    mats = ([w2[l].T for l in range(depth)] if w2.ndim == 3 else [w2.T])
+    base = compile_mod.program(compile_mod.synthesize(mats, device=dev),
+                               method=program_method, steps=program_steps,
+                               seed=seed)
+    key = seed + 7
+
+    def compile_setting(setting):
+        prog = base
+        toks = setting.split("+")
+        for t in toks:
+            if t not in ("float", "hardware", "calibrated"):
+                prog = compile_mod.quantize(prog, t, mode="ste")
+        hw = hardware if "hardware" in toks else None
+        if "calibrated" in toks:
+            prog = compile_mod.calibrate(prog, hw, key=key,
+                                         steps=calibrate_steps,
+                                         lr=calibrate_lr)
+        elif hw is not None:
+            # bind the device (and its frozen noise draw) without trimming
+            prog = compile_mod.calibrate(prog, hw, key=key, steps=0)
+        return prog, compile_mod.lower(prog)
+
+    def eval_acc(compiled, x, y):
+        with torch.no_grad():
+            x = torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                device=dev)
+            h1 = F.leaky_relu(x @ params["w1"] + params["b1"], 0.01)
+            h2 = compiled.apply(h1)   # one deep-grid launch: the whole stack
+            logits = h2 @ params["w3"] + params["b3"]
+            y = torch.as_tensor(np.asarray(y), dtype=torch.long, device=dev)
+            return float((logits.argmax(-1) == y).float().mean())
+
+    results = {"digital_test_acc": digital["test_acc"], "depth": depth,
+               "params": params, "program": base, "settings": {},
+               "compiled": {}}
+    for setting in settings:
+        prog, compiled = compile_setting(setting)
+        acc = eval_acc(compiled, x_te, y_te)
+        results["settings"][setting] = {
+            "test_acc": acc,
+            "acc_drop": digital["test_acc"] - acc,
+            "synthesis_error": compile_mod.program_error(prog),
+        }
+        results["compiled"][setting] = compiled
+    return results
 
 
 def confusion_matrix(model: MnistRFNN, params: dict, x, y,

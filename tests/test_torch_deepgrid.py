@@ -666,3 +666,38 @@ def test_deepgrid_backward_plan_edges_on_card(cuda_device, shape, batches):
         assert plan["register_path"] == 1
         assert plan["kernels"] == (1 if plan["blocks"] == 1 else 2)
         assert (plan["blocks"] == 1) == (b <= plan["rows"])
+
+
+@pytest.mark.gpu
+def test_compiled_apply_launches_one_b6_kernel_on_card(cuda_device):
+    """A calibrated, placed ``CompiledTiledProgram`` (64x64 in tiles of 16,
+    PROTOTYPE draws) applies through one B6 launch per call, no B7 or B8 and
+    no packing, and agrees with the same program carried to the CPU within
+    1e-5 of its largest output."""
+    import dataclasses
+
+    from repro_torch import compile as t_compile
+    from repro_torch.paper.prototype import PROTOTYPE
+
+    w = np.random.default_rng(21).normal(size=(64, 64)) / 8.0
+    tp = t_compile.program_tiled(t_compile.synthesize_tiled(
+        w, tile=16, device=cuda_device))
+    tp = t_compile.apply_placement(tp, t_compile.TilePlacement(
+        (2, 0, 3, 1), (1, 3, 0, 2)))
+    tp = t_compile.calibrate_tiled(tp, PROTOTYPE, key=3, steps=2)
+    comp = t_compile.lower_tiled(tp)
+    x = torch.randn(1024, 64, device=cuda_device)
+    packs = dict(ops.PACK_EVENTS)
+    before = dict(givens_mesh.LAUNCHES)
+    with torch.enable_grad():
+        y = comp.apply(x)
+    torch.cuda.synchronize()
+    assert {k: givens_mesh.LAUNCHES[k] - before[k] for k in (
+        "deepgrid_fwd", "deepgrid_fwd_res", "deepgrid_bwd")} == {
+        "deepgrid_fwd": 1, "deepgrid_fwd_res": 0, "deepgrid_bwd": 0}
+    assert ops.PACK_EVENTS == packs and y.grad_fn is None
+
+    # the same packed tensors on the CPU: the plain B6
+    cpu = dataclasses.replace(comp, packed=tuple(t.cpu() for t in comp.packed))
+    want = cpu.apply(x.cpu())
+    assert _rel(y.cpu(), want) <= 1e-5

@@ -197,6 +197,38 @@ def test_failure_injector_swaps_program_mid_stream(deployed):
                            "dead_tiles": ((0, 0),)}]
 
 
+def test_compiled_tiled_program_recovers_mid_stream():
+    """The real ``FailureInjector`` kills physical tile row 0 at tick 1; the
+    engine swaps in the program's own ``recover(dead)`` and every request is
+    answered by the program bound at its tick."""
+    from repro_torch import compile as t_compile
+    from repro_torch.runtime import FailureInjector, tile_row_failures
+
+    w = np.zeros((8, 8), np.float32)
+    w[:4] = np.random.default_rng(5).normal(size=(4, 8))  # mass in row 0
+    tp = t_compile.program_tiled(t_compile.synthesize_tiled(
+        w, tile=4, device="cpu"))
+    comp = t_compile.lower_tiled(t_compile.calibrate_tiled(
+        tp, PROTOTYPE, key=2, steps=0))
+    inj = FailureInjector(tile_row_failures(step=1, row=0, ti=2))
+    eng = ServingEngine(comp, slots=2, device="cpu", failure_injector=inj)
+    feats = _features(6, seed=3)
+    reqs = [Request(i, features=f) for i, f in enumerate(feats)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    assert eng.events == [{"tick": 1, "kind": "tile_recovery",
+                           "dead_tiles": ((0, 0), (0, 1))}]
+    assert eng.stats["recovered"] == 1 and eng.stats["served"] == 6
+    recovered = eng._impl.servable
+    assert recovered is not comp and recovered.placement.row_perm == (1, 0)
+    for r in reqs:
+        prog = comp if r.completed_tick == 1 else recovered
+        want = prog.apply(torch.from_numpy(r.payload[None]))[0].numpy()
+        np.testing.assert_allclose(r.result, want, rtol=0, atol=1e-6)
+    assert [r.completed_tick for r in reqs] == [1, 1, 2, 2, 3, 3]
+
+
 def test_unported_engine_modes_raise(deployed):
     _, _, tmodel, tparams = deployed
 
