@@ -180,12 +180,38 @@ exits non-zero):
     counted, (b)'s applies are timed (CUDA events and the profiler: each
     call one B6, no packing) and (c)'s calibration step (host clock,
     device-busy share);
-23. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
+23. the Sec.-V efficiency model and the moe, ssm, hybrid and encdec serve
+    paths: (a) ``table2_rows`` (the RFNN row at 1/(2N) fJ/FLOP) and
+    ``monte_carlo_yield(n=8, n_draws=32)`` on the card (one B1 launch a
+    draw and one for the ideal baseline) against the CPU within 1e-5; (b)
+    qwen2-moe-a2.7b (full width, cut to 4 of its 24 layers), mamba2-780m,
+    zamba2-1.2b and whisper-large-v3 (full depth) through
+    ``launch.serve.serve`` (``attn_impl="pallas"``, bf16 activations, batch
+    4, prompt 256, 16 tokens, after a warm-up call): tokens in range,
+    logits finite, prefill ms and decode p50/p99, and B9's launches over
+    both calls equal to two prefills' attention calls (moe 2 x 4, ssm 0,
+    hybrid 2 x 19 shared-attention invocations, encdec 2 x (32 non-causal
+    encoder launches at S = 1500 + 32 decoder self-attention)), each
+    family's first B9 call at each shape held against the plain version
+    (bf16 3e-2 and one bf16 step per element), then B9 and
+    ``scaled_dot_product_attention`` timed at each of those shapes and one
+    mamba2 decode step profiled (device events, busy share, top kernels);
+    (c) each
+    family's reduced config in float32, card against CPU: a 32-token
+    prefill and 8 decode steps within 1e-4 of the logits' scale; (d)
+    ``ServingEngine`` at 2 slots over the moe, ssm and hybrid models (float32,
+    widths as (b)), four staggered requests, each request's logits against
+    itself served alone at ``slots=1`` on the same tokens within 1e-4 of
+    scale; (e) the deprecated ``AnalogTickBatcher``, ``AnalogRequest`` and
+    ``ContinuousBatcher`` warn and serve (a compiled 8x8 program within
+    1e-4 of |W x|, the old ``stats`` keys; the reduced TinyLlama's tokens
+    equal to the engine's);
+24. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
     line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
-to 14, 17 to 20, 22) and read just after; launches made in phases 2, 9,
-10, 15, 16 and 21 do not count.  Timings are also written to
+to 14, 17 to 20, 22, and each part of 23) and read just after; launches
+made in phases 2, 9, 10, 15, 16 and 21 do not count.  Timings are also written to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -345,6 +371,15 @@ DEEP_TIMED_BATCHES = {
                      "deepgrid_bwd": (SGD_BATCH,)},
     "tiled_64x64": {"deepgrid_fwd": (256, 1024), "deepgrid_fwd_res": (1024,),
                     "deepgrid_bwd": (1024,)}}
+# phase 23: the yield sweep's size, and the four families' serve shapes (the
+# MoE cut to 4 of its 24 layers: full width, 60 of 64 experts routed top-4)
+YIELD_N, YIELD_DRAWS = 8, 32
+FAM_ARCHS = ("qwen2-moe-a2.7b", "mamba2-780m", "zamba2-1.2b",
+             "whisper-large-v3")
+FAM_MOE_LAYERS = 4
+FAM_BATCH, FAM_PROMPT, FAM_GEN = 4, 256, 16
+FAM_ENGINE_LENS, FAM_ENGINE_NEW = (6, 13, 3, 19), (5, 4, 6, 3)
+FAM_ENGINE_SUBMIT = {0: (0, 1), 2: (2,), 4: (3,)}  # tick -> requests
 # tests/test_rfnn_lm.py's CFG, the LM with the paper's analog MLP
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
@@ -485,6 +520,27 @@ def is_save_kernel(event_name: str, kernel: str, save: bool) -> bool:
              else ["true" if b == "1" else "false"
                    for b in re.findall(r"Lb([01])", m.group(2))])
     return bool(flags) and flags[0] == ("true" if save else "false")
+
+
+def bf16_close(got, want) -> bool:
+    """Each element of B9's output within one bfloat16 step of ``want`` plus
+    the float32 bound: both sides round float32 results that agree to that
+    bound."""
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs()
+                 <= want.abs() * 2.0**-7 + FLASH_F32_TOL).all())
+
+
+def flash_bound(b, h, sq, skv, hd, causal) -> tuple:
+    """B9's least time on the card (ms) and what bounds it: bf16 q, k, v
+    and o moved once, against QK^T and PV on the bf16 tensor cores (half
+    the score block under a causal mask); also the flops and bytes."""
+    flops = 4 * b * h * sq * skv * hd * (0.5 if causal else 1.0)
+    nbytes = 2 * b * h * hd * (2 * sq + 2 * skv)
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes",
+            flops, nbytes)
 
 
 def tree_map(fn, tree):
@@ -931,6 +987,462 @@ def compiler_phase(torch, dev, card: str, seed: int, reset_launches) -> dict:
                                launches_per_step=ours_n)
     report["seconds"] = time.perf_counter() - t_phase
     print(f"[22] phase 22 in {report['seconds']:.1f} s", flush=True)
+    return report
+
+
+def families_phase(torch, dev, card: str, seed: int, reset_launches,
+                   all_launches) -> dict:
+    """Phase 23: the Sec.-V efficiency model (A5) and the moe, ssm, hybrid
+    and encdec serve paths on the card.  Returns its report; under
+    ``"launches"`` each part's launches, each counted from zero just before
+    the part and read just after."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch import compile as C
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import superblock_layout
+    from repro_torch.paper import efficiency
+    from repro_torch.serving import Request, ServingEngine
+
+    report: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+
+    def rel(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).abs().max()
+                     / want.abs().max().clamp_min(1e-30))
+
+    def add_launches(name, counts):
+        old = report["launches"].setdefault(name, {})
+        for k, v in counts.items():
+            old[k] = old.get(k, 0) + v
+
+    # (a) A5: Table II and the yield sweep, one B1 launch a draw
+    rows = efficiency.table2_rows()
+    rfnn = rows[-1]
+    check(rfnn["platform"] == "RFNN (this work)"
+          and abs(rfnn["fj_per_flop"] - 1 / 40) <= 1e-12 / 40
+          and abs(rfnn["length_cm"] - 39 * efficiency.RFNNPlatform()
+                  .wavelength_m * 100) <= 1e-12 * rfnn["length_cm"],
+          f"Table II's RFNN row: {rfnn}")
+    reset_launches()
+    t0 = time.perf_counter()
+    on_card = efficiency.monte_carlo_yield(n=YIELD_N, n_draws=YIELD_DRAWS,
+                                           seed=seed, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = all_launches()
+    add_launches("efficiency", counts)
+    check(counts["mesh_fwd"] == YIELD_DRAWS + 1,
+          f"the yield sweep launched B1 {counts['mesh_fwd']} times, not "
+          f"{YIELD_DRAWS + 1} (the ideal baseline and one a draw)")
+    on_cpu = efficiency.monte_carlo_yield(n=YIELD_N, n_draws=YIELD_DRAWS,
+                                          seed=seed, device="cpu")
+    yield_err = float((on_card["errors"].cpu() - on_cpu["errors"]).abs().max())
+    check(yield_err <= 1e-5 and on_card["yield"] == on_cpu["yield"],
+          f"the yield sweep, card against CPU: {yield_err}, "
+          f"{on_card['yield']} against {on_cpu['yield']}")
+    check(efficiency.table2_rows() == rows, "table2_rows changed")
+    report["efficiency"] = {
+        "table2_rfnn": rfnn, "yield": on_card["yield"],
+        "mean_error": on_card["mean_error"],
+        "worst_error": on_card["worst_error"], "card_vs_cpu": yield_err,
+        "b1_launches": counts["mesh_fwd"], "sweep_s": sweep_s}
+    print(f"[23] (a) Table II (N = 20): RFNN {rfnn['length_cm']:.3f} cm, "
+          f"{rfnn['fj_per_flop']:.4f} fJ/FLOP, delay "
+          f"{efficiency.rfnn_delay_ns(20):.3f} ns; monte_carlo_yield(n="
+          f"{YIELD_N}, n_draws={YIELD_DRAWS}) on the card: yield "
+          f"{on_card['yield']:.4f}, mean error {on_card['mean_error']:.4f}, "
+          f"worst {on_card['worst_error']:.4f}, {counts['mesh_fwd']} B1 "
+          f"launches, {sweep_s * 1e3:.1f} ms; card against CPU "
+          f"{yield_err:.3e} (bound 1e-5)", flush=True)
+
+    # (b) each family at full width through serve(), B9 counted and each
+    # call's (S, causal) recorded; the first call at each shape (in the
+    # warm-up) is held against B9's plain version on the same q, k, v
+    flash_calls: list = []
+    b9_shapes: dict = {}   # (arch, q shape, causal) -> q, k, v, error, calls
+    launch_b9 = attn_mod.flash_attention
+    arch_now = [None]
+
+    def recorded(q, k, v, **kw):
+        causal = bool(kw.get("causal", True))
+        flash_calls.append((int(q.shape[2]), causal))
+        out = launch_b9(q, k, v, **kw)
+        key = (arch_now[0], tuple(q.shape), causal)
+        if key not in b9_shapes:
+            want = flash.flash_attention_plain(q, k, v, causal=causal)
+            err = float((out.float() - want.float()).abs().max())
+            check(err <= FLASH_BF16_TOL and bf16_close(out, want),
+                  f"{key[0]}: B9 at q {key[1]} causal={causal} against its "
+                  f"plain version: {err}")
+            b9_shapes[key] = {"qkv": (q, k, v), "max_abs_err": err,
+                              "calls": 0}
+            del want
+        b9_shapes[key]["calls"] += 1
+        return out
+
+    def attention_calls(cfg):
+        """B9 launches a prefill: every self-attention invocation."""
+        if cfg.family == "encdec":
+            return cfg.n_enc_layers + cfg.n_layers
+        n_super, kinds = superblock_layout(cfg)
+        return n_super * sum(kind != "ssm" for kind in kinds)
+
+    def full_config(arch, **over):
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  attn_impl="pallas", **over)
+        if cfg.family == "moe":
+            cfg = dataclasses.replace(cfg, n_layers=FAM_MOE_LAYERS)
+        return cfg
+
+    serve_rows = {}
+    attn_mod.flash_attention = recorded
+    try:
+        for arch in FAM_ARCHS:
+            cfg = full_config(arch)
+            per_prefill = attention_calls(cfg)
+            cut = (f"cut to {FAM_MOE_LAYERS} of "
+                   f"{configs.get_config(arch).n_layers} layers"
+                   if cfg.family == "moe" else "full depth")
+            flash_calls.clear()
+            arch_now[0] = arch
+            torch.cuda.empty_cache()
+            reset_launches()
+            t0 = time.perf_counter()
+            serve(cfg, batch=FAM_BATCH, prompt_len=FAM_PROMPT, gen=2,
+                  seed=seed, device=dev)
+            warm_s = time.perf_counter() - t0
+            res = serve(cfg, batch=FAM_BATCH, prompt_len=FAM_PROMPT,
+                        gen=FAM_GEN, seed=seed, device=dev)
+            counts = all_launches()
+            add_launches(f"family_{arch}", counts)
+            b9 = counts["flash_attn_fwd"]
+            check(b9 == 2 * per_prefill and len(flash_calls) == b9,
+                  f"{arch}: {b9} B9 launches ({len(flash_calls)} recorded) "
+                  f"for two prefills of {per_prefill} attention calls")
+            if cfg.family == "encdec":
+                enc = sum(1 for s, causal in flash_calls
+                          if s == cfg.enc_seq and not causal)
+                check(enc == 2 * cfg.n_enc_layers,
+                      f"{arch}: {enc} non-causal B9 launches at S = "
+                      f"{cfg.enc_seq}, not {2 * cfg.n_enc_layers}")
+            toks = res["tokens"]
+            check(toks.shape == (FAM_BATCH, FAM_GEN + 1)
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_size,
+                  f"{arch}: tokens out of range")
+            check(res["logits_finite"], f"{arch}: non-finite logits")
+            dec_ms = np.asarray(res["decode_s"]) * 1e3
+            row = {"prefill_ms": res["prefill_s"] * 1e3,
+                   "decode_p50_ms": float(np.median(dec_ms)),
+                   "decode_p99_ms": float(np.percentile(dec_ms, 99)),
+                   "b9_launches_per_prefill": per_prefill,
+                   "b9_launches": b9,
+                   "b9_shapes": sorted(set(flash_calls)),
+                   "params": cfg.param_count(), "depth": cut,
+                   "warmup_s": warm_s}
+            serve_rows[arch] = row
+            print(f"[23] (b) {card} | {arch} ({cfg.family}, d "
+                  f"{cfg.d_model}, {cfg.n_layers} layers"
+                  + (f" + {cfg.n_enc_layers} encoder layers over "
+                     f"{cfg.enc_seq} frames" if cfg.family == "encdec"
+                     else "")
+                  + f", {cut}; {cfg.param_count() / 1e9:.3f}e9 params, bf16 "
+                  f"activations): prefill {FAM_BATCH}x{FAM_PROMPT} "
+                  f"{row['prefill_ms']:.2f} ms; decode {FAM_GEN} steps p50 "
+                  f"{row['decode_p50_ms']:.3f} ms, p99 "
+                  f"{row['decode_p99_ms']:.3f} ms per token step; B9 {b9} "
+                  f"launches over the warm-up and the measured serve() "
+                  f"(predicted 2 x {per_prefill}; (S, causal) "
+                  f"{row['b9_shapes']}); warm-up {warm_s:.2f} s",
+                  flush=True)
+    finally:
+        attn_mod.flash_attention = launch_b9
+    report["serve"] = serve_rows
+    print(f"[23] (b) B9 against its plain version at the first call of each "
+          f"shape (bf16, bound {FLASH_BF16_TOL} and one bf16 step per "
+          f"element): " + ", ".join(
+              f"{a} q {list(shape)} {'causal' if c else 'non-causal'} "
+              f"{r['max_abs_err']:.3e}"
+              for (a, shape, c), r in b9_shapes.items()), flush=True)
+
+    # (b) B9 timed at each of those shapes, on the q, k, v views the model
+    # gave it, beside scaled_dot_product_attention and the plain version;
+    # these launches fall outside every counted window.  launches x (device
+    # - bound) over the two serve() calls of each family
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b9_rows = []
+    for (arch, shape, causal), rec in b9_shapes.items():
+        q, k, v = rec.pop("qkv")
+        b, h, sq, hd = shape
+        bound_ms, bound_by, flops, nbytes = flash_bound(
+            b, h, sq, int(k.shape[2]), hd, causal)
+        k_ms = cuda_ms(torch, lambda: flash.launch(q, k, v, causal=causal),
+                       20)
+        kd_ms = device_ms(torch, lambda: flash.launch(q, k, v, causal=causal),
+                          20)
+        ld_ms = device_ms(torch, lambda: sdpa(q, k, v, is_causal=causal), 20)
+        p_ms = cuda_ms(torch, lambda: flash.flash_attention_plain(
+            q, k, v, causal=causal), 3, warmup=1)
+        row = {"arch": arch, "q_shape": list(shape), "skv": int(k.shape[2]),
+               "causal": causal, "launches": rec["calls"],
+               "kernel_ms": k_ms, "kernel_device_ms": kd_ms, "sdpa_device_ms": ld_ms,
+               "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+               "flops": flops, "bytes": nbytes,
+               "max_abs_err": rec["max_abs_err"],
+               "launches_x_gap_ms": rec["calls"] * (kd_ms - bound_ms)}
+        b9_rows.append(row)
+        print(f"[23] (b) {card} | B9 {arch} q {list(shape)} "
+              f"{'causal' if causal else 'non-causal'} bf16: {k_ms:.5f} ms "
+              f"per call, {kd_ms:.5f} ms on the device ({flops / kd_ms / 1e9:.1f} TFLOP/s); bound "
+              f"{bound_ms:.6f} ms ({bound_by}); scaled_dot_product_attention "
+              f"{ld_ms:.5f} ms; plain {p_ms:.3f} ms; {rec['calls']} launches "
+              f"x (device - bound) = {row['launches_x_gap_ms']:.3f} ms",
+              flush=True)
+        del q, k, v
+    b9_shapes.clear()
+    report["b9_by_shape"] = b9_rows
+    print(f"[23] (b) B9 over phase 23 (b): {sum(r['launches'] for r in b9_rows)}"
+          f" launches, launches x (device - bound) "
+          f"{sum(r['launches_x_gap_ms'] for r in b9_rows):.3f} ms", flush=True)
+
+    # (b) where a mamba2 decode step's time goes: its wall time without the
+    # profiler, then torch.profiler's device events, busy share and top
+    # kernels by device time (no kernel of the port runs here)
+    cfg = full_config("mamba2-780m")
+    model = Model(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    steps = 8
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (FAM_BATCH, FAM_PROMPT + 2 * steps))).to(dev)
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": toks[:, :FAM_PROMPT]},
+                                 max_len=FAM_PROMPT + 2 * steps + 1)
+        walls = []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decode_step(params, toks[:, FAM_PROMPT + i], cache,
+                              FAM_PROMPT + i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in range(steps, 2 * steps):
+                model.decode_step(params, toks[:, FAM_PROMPT + i], cache,
+                                  FAM_PROMPT + i)
+            torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(dev_events) > 0, "the profiler recorded no device events")
+    by_name: dict = {}
+    for e in dev_events:
+        us_n = by_name.setdefault(e.name, [0.0, 0])
+        us_n[0] += e.time_range.elapsed_us() / steps
+        us_n[1] += 1 / steps
+    busy_us = sum(us for us, _ in by_name.values())
+    wall_ms = float(np.median(walls))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    events = len(dev_events) / steps
+    report["mamba2_decode_profile"] = {
+        "wall_ms": walls, "wall_p50_ms": wall_ms, "device_events": events,
+        "device_busy_us": busy_us, "busy_share": busy_us / 1e3 / wall_ms,
+        "events_per_layer": events / cfg.n_layers,
+        "host_us_per_event": wall_ms * 1e3 / events,
+        "top": [[name, us, n] for name, (us, n) in top]}
+    print(f"[23] (b) {card} | mamba2-780m decode step at batch "
+          f"{FAM_BATCH}: wall p50 {wall_ms:.2f} ms over {steps} steps "
+          f"(min {min(walls):.2f}, max {max(walls):.2f}); under "
+          f"torch.profiler {events:.0f} device events a step "
+          f"({events / cfg.n_layers:.1f} a layer, {wall_ms * 1e3 / events:.1f}"
+          f" us of wall time each), {busy_us:.1f} us of device work (busy "
+          f"{100 * busy_us / 1e3 / wall_ms:.1f}%); top by device time: "
+          + "; ".join(f"{name[:60]} {us:.1f} us x {n:.0f}"
+                      for name, (us, n) in top), flush=True)
+    del params, cache, prof, dev_events
+
+    # (c) each family's reduced config in float32, card against CPU: a
+    # prefill and 8 decode steps within 1e-4 of the logits' scale
+    card_cpu = {}
+    for arch in FAM_ARCHS:
+        cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32",
+                                  attn_impl="pallas")
+        model = Model(cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(seed), device="cpu")
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+        frames = torch.from_numpy(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)) \
+            if cfg.family == "encdec" else None
+        outs = {}
+        for where, params in (("cpu", p_cpu), ("card", p_dev)):
+            at = dev if where == "card" else torch.device("cpu")
+            if where == "card":
+                reset_launches()
+            batch = {"tokens": toks[:, :32].to(at)}
+            if frames is not None:
+                batch["frames"] = frames.to(at)
+            with torch.no_grad():
+                logits, cache = model.prefill(params, batch, max_len=48)
+                seq = [logits.cpu()]
+                for t in range(32, 40):
+                    logits, cache = model.decode_step(params, toks[:, t].to(at),
+                                                      cache, t)
+                    seq.append(logits.cpu())
+            outs[where] = seq
+        counts = all_launches()
+        add_launches("family_card_cpu", counts)
+        check(counts["flash_attn_fwd"] == attention_calls(cfg),
+              f"{arch} reduced: {counts['flash_attn_fwd']} B9 launches for "
+              f"one prefill of {attention_calls(cfg)} attention calls")
+        errs = [rel(g, w) for g, w in zip(outs["card"], outs["cpu"])]
+        check(max(errs) <= 1e-4, f"{arch} reduced, card against CPU: {errs}")
+        card_cpu[arch] = errs
+    report["card_vs_cpu"] = card_cpu
+    print("[23] (c) reduced configs in float32, card against CPU (32-token "
+          "prefill, 8 decode steps; bound 1e-4 of the logits' scale): "
+          + ", ".join(f"{a} {max(e):.3e}" for a, e in card_cpu.items()),
+          flush=True)
+
+    # (d) the engine at 2 slots, staggered, each request against itself
+    # served alone at slots=1 on the same tokens (float32, full width)
+    engine_rows = {}
+    for arch in FAM_ARCHS[:3]:
+        cfg = full_config(arch, dtype="float32")
+        model = Model(cfg)
+        torch.cuda.empty_cache()
+        params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+        prompts = [rng.integers(0, cfg.vocab_size, n)
+                   for n in FAM_ENGINE_LENS]
+        reqs = [Request(i, prompt=p, max_new=m)
+                for i, (p, m) in enumerate(zip(prompts, FAM_ENGINE_NEW))]
+        seen: dict = {}
+        engine = None
+
+        def record(logits):
+            for i, slot in enumerate(engine._impl.slots):
+                if slot.req is not None:
+                    seen.setdefault(slot.req.rid, []).append(
+                        logits[i].float().clone())
+            return torch.argmax(logits, -1)
+
+        engine = ServingEngine(model, params, slots=2, max_len=48,
+                               device=dev, sample=record)
+        reset_launches()
+        busy = []
+        t0 = time.perf_counter()
+        for tick in range(200):
+            for i in FAM_ENGINE_SUBMIT.get(tick, ()):
+                engine.submit(reqs[i])
+            engine.tick()
+            busy.append(engine._impl.n_active())
+            if tick > max(FAM_ENGINE_SUBMIT) and not engine._has_work():
+                break
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        add_launches("family_engine", all_launches())
+        check(max(busy) == 2 and all(r.done and not r.failed for r in reqs),
+              f"{arch} engine: busy {max(busy)}, {[r.failed for r in reqs]}")
+        worst = 0.0
+        for r in reqs:
+            alone: list = []
+
+            def forced(logits, r=r, alone=alone):
+                alone.append(logits[0].float().clone())
+                return torch.tensor([int(r.result[len(alone) - 1])])
+
+            solo = ServingEngine(model, params, slots=1, max_len=48,
+                                 device=dev, sample=forced)
+            solo.submit(Request(0, prompt=r.prompt, max_new=len(r.result)))
+            solo.run()
+            check(len(alone) == len(seen[r.rid]) == len(r.result),
+                  f"{arch} engine: request {r.rid} decoded {len(alone)} "
+                  f"steps alone, {len(seen[r.rid])} beside others")
+            worst = max(worst, max(rel(g, w) for g, w in
+                                   zip(seen[r.rid], alone)))
+        check(worst <= 1e-4, f"{arch} engine at 2 slots against each "
+              f"request alone: {worst} of the logits' scale")
+        engine_rows[arch] = {"worst_rel": worst, "seconds": engine_s,
+                             "ticks": engine.ticks,
+                             "stats": engine.stats}
+        del params, engine
+    report["engine"] = engine_rows
+    print(f"[23] (d) {card} | engine at 2 slots, {len(FAM_ENGINE_LENS)} "
+          f"staggered requests of {FAM_ENGINE_LENS} prompt tokens (float32, "
+          f"full width, the MoE cut as in (b)), each request's logits "
+          f"against itself alone at slots=1 fed the same tokens (bound 1e-4 "
+          f"of scale): " + ", ".join(
+              f"{a} {r['worst_rel']:.3e} in {r['ticks']} ticks, "
+              f"{r['seconds']:.2f} s" for a, r in engine_rows.items()),
+          flush=True)
+
+    # (e) the deprecated shims warn and serve
+    from repro_torch.serving.batcher import (AnalogRequest, AnalogTickBatcher,
+                                             ContinuousBatcher)
+
+    w = rng.normal(size=(8, 8)) / np.sqrt(8)
+    comp = C.lower_tiled(C.program_tiled(C.synthesize_tiled(
+        w, tile=4, device=dev), method="reck"))
+    red = dataclasses.replace(configs.get_reduced("tinyllama-1.1b"),
+                              dtype="float32", attn_impl="pallas")
+    red_model = Model(red)
+    red_params = red_model.init(torch.Generator(device=dev).manual_seed(seed),
+                                device=dev)
+    feats = rng.normal(size=(6, 8)).astype(np.float32)
+    lm_prompts = rng.integers(0, red.vocab_size, (3, 5))
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        tick_b = AnalogTickBatcher(comp, slots=4, device=dev)
+        areqs = [AnalogRequest(i, features=f) for i, f in enumerate(feats)]
+        lm_b = ContinuousBatcher(red_model, red_params, slots=2, max_len=32,
+                                 device=dev)
+    for r in areqs:
+        tick_b.submit(r)
+    tick_b.run()
+    lreqs = [Request(i, prompt=p, max_new=3) for i, p in enumerate(lm_prompts)]
+    for r in lreqs:
+        lm_b.submit(r)
+    lm_b.run()
+    add_launches("family_shims", all_launches())
+    n_warn = sum(1 for c in caught if c.category is DeprecationWarning)
+    check(n_warn >= 2 + len(areqs), f"the shims warned {n_warn} times")
+    shim_err = max(float(np.abs(r.result - np.abs(r.features @ w.T)).max())
+                   for r in areqs)
+    check(shim_err <= 1e-4, f"AnalogTickBatcher: {shim_err} from |W x|")
+    check(tick_b.stats == {"served": 6, "dropped": 0, "recovered": 0},
+          f"AnalogTickBatcher stats: {tick_b.stats}")
+    plain = ServingEngine(red_model, red_params, slots=2, max_len=32,
+                          device=dev)
+    preqs = [Request(i, prompt=p, max_new=3) for i, p in enumerate(lm_prompts)]
+    for r in preqs:
+        plain.submit(r)
+    plain.run()
+    check(all(np.array_equal(a.result, b.result) for a, b in zip(lreqs, preqs)),
+          "ContinuousBatcher's tokens differ from the engine's")
+    report["shims"] = {"deprecation_warnings": n_warn,
+                       "analog_err": shim_err}
+    print(f"[23] (e) the shims: {n_warn} DeprecationWarnings; "
+          f"AnalogTickBatcher over a compiled 8x8 program (tiles of 4) "
+          f"served 6 requests within {shim_err:.2e} of |W x|, stats "
+          f"{tick_b.stats}; ContinuousBatcher over the reduced TinyLlama "
+          f"gave the engine's tokens", flush=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[23] phase 23 in {report['seconds']:.1f} s; its launches "
+          + json.dumps({k: {n: c for n, c in v.items() if c}
+                        for k, v in report["launches"].items()}), flush=True)
     return report
 
 
@@ -2748,13 +3260,6 @@ def main(argv=None) -> int:
         return float((got - want).abs().max() / want.abs().max().clamp_min(
             1e-30))
 
-    def bf16_close(got, want):
-        """Each element within one bfloat16 step of ``want`` plus the float32
-        bound: both sides round float32 results that agree to that bound."""
-        got, want = got.float(), want.float()
-        return bool(((got - want).abs()
-                     <= want.abs() * 2.0**-7 + FLASH_F32_TOL).all())
-
     def unit_normal(*shape, dtype=torch.float32):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
             dev, dtype)
@@ -3262,16 +3767,22 @@ def main(argv=None) -> int:
                                         reset_launches)
     launches["compiler"] = report["compiler"]["launches"]
 
+    # -- phase 23: A5 and the moe, ssm, hybrid and encdec serve paths ---------
+    report["families"] = families_phase(torch, dev, card, args.seed,
+                                        reset_launches, all_launches)
+    launches.update(report["families"]["launches"])
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 23: the kernels line and the device line ------------------------
+    # -- phase 24: the kernels line and the device line ------------------------
     main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
                  "processor_apply", "processor_program", "train_fused",
                  "mnist_deep", "train_mnist_deep", "tiled_apply", "tiled_train",
                  "cascade", "serving_deep", "lm_serve", "lm_teacher",
-                 "lm_paths", "lm_card_cpu", "lm_engine", "lm_rfnn", "compiler")
+                 "lm_paths", "lm_card_cpu", "lm_engine", "lm_rfnn", "compiler",
+                 *report["families"]["launches"])
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{

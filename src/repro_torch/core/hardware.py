@@ -67,7 +67,11 @@ def normal_like(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 def imperfect_hybrid(hw: HardwareModel, device=None) -> torch.Tensor:
-    """Forward block of a lossy, imbalanced quadrature hybrid."""
+    """Forward block of a lossy, imbalanced quadrature hybrid.
+
+    ``hw``'s hybrid fields may be tensors of one shape ``L`` (one device
+    each); the result is then ``L + (2, 2)``.
+    """
     e = _f32(hw.hybrid_imbalance, device)
     thru = (1.0 + e) * torch.exp(1j * _f32(hw.hybrid_phase_err, device)
                                  .to(torch.complex64)) * 1j
@@ -75,8 +79,8 @@ def imperfect_hybrid(hw: HardwareModel, device=None) -> torch.Tensor:
     m = torch.stack([torch.stack([thru, coup], -1),
                      torch.stack([coup, thru], -1)], -2).to(torch.complex64)
     # keep passive: renormalize worst-case row power to <= 1, then 3-dB split
-    scale = torch.sqrt((m.abs() ** 2).sum(1).max())
-    return -m / scale
+    scale = torch.sqrt((m.abs() ** 2).sum(-1).amax(-1))
+    return -m / scale[..., None, None]
 
 
 def imperfect_cell_matrix(theta, phi, hw: HardwareModel,
@@ -87,7 +91,11 @@ def imperfect_cell_matrix(theta, phi, hw: HardwareModel,
     With a ``generator``, theta then phi get rms ``hw.phase_sigma`` noise.
     With ``draws`` (``{"theta": z, "phi": z}``, standard normals of theta's
     and phi's shapes: a device's frozen draw) they get ``hw.phase_sigma *
-    z`` instead.
+    z`` instead.  Where ``hw``'s hybrid and loss fields are tensors of shape
+    ``L`` (several devices), theta and phi lead with ``L`` once the noise
+    is added (as draws of shape ``L + theta.shape`` give them) and the
+    cells are ``L + theta.shape[len(L):] + (2, 2)``: every device in one
+    pass.
     """
     if generator is not None and draws is not None:
         raise ValueError("pass a generator or frozen draws, not both")
@@ -99,9 +107,15 @@ def imperfect_cell_matrix(theta, phi, hw: HardwareModel,
         theta = theta + hw.phase_sigma * draws["theta"].to(theta.device)
         phi = phi + hw.phase_sigma * draws["phi"].to(phi.device)
     h = imperfect_hybrid(hw, theta.device)
+    gain = hw.cell_gain
+    lead = h.shape[:-2]
+    if lead:  # one device per leading index: align with theta's lead
+        ones = (1,) * (theta.dim() - len(lead))
+        h = h.reshape(*lead, *ones, 2, 2)
+        gain = _f32(gain, theta.device).reshape(*lead, *ones, 1, 1)
     t = cmatmul(cmatmul(cmatmul(phase_shifter(phi), h),
                         phase_shifter(theta)), h)
-    return hw.cell_gain * t
+    return gain * t
 
 
 def frozen_draws(key: int, mesh_params, *, layer: int,

@@ -8,8 +8,10 @@ containers and shapes, float32 and complex64 kept as they are.
 b3, mesh{theta, phi, alpha}``), the 2x2 RFNN's (``w, b``),
 ``AnalogSequence``'s (``{"layers": (dict, ...)}``) and
 ``TiledAnalogLinear``'s stacked ``[To, Ti, ...]`` leaves and the LM's
-``Model.init`` trees (float32 leaves stacked over the super-blocks, nested
-dicts) round-trip exactly.  ``program_layer_from_numpy`` and
+``Model.init`` trees of every family (float32 leaves stacked over the
+super-blocks, nested dicts: MoE routers and experts, SSM layers, the
+hybrid's unstacked ``shared_attn``, the encoder-decoder's ``enc_blocks``
+and ``dec_blocks``) round-trip exactly.  ``program_layer_from_numpy`` and
 ``tiled_program_from_numpy`` carry a compiler program's fields (the JAX
 package's, read as numpy) into the port's ``ProgramLayer`` and
 ``TiledAnalogProgram``.

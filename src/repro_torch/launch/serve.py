@@ -1,8 +1,9 @@
 """Serving entry point: prefill + batched decode with a KV cache.
 
-The JAX package's ``launch/serve.py`` on torch: random prompts, prefill to
-build the cache, a greedy (or temperature) decode loop and per-step latency
-stats.  The model's weights are random, drawn on the device from ``--seed``;
+The JAX package's ``launch/serve.py`` on torch: random prompts (with random
+patch embeddings for a vlm and random encoder frames for an encdec model),
+prefill to build the cache, a greedy (or temperature) decode loop and
+per-step latency stats.  The model's weights are random, drawn on the device from ``--seed``;
 prompts and sampling draw from their own generators.  Runs on the card
 unless ``--device cpu``.
 
@@ -38,7 +39,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     ``device`` (CUDA when None).
 
     Returns ``{"tokens": int64 [batch, gen + 1] (the prefill's token, then
-    one per decode step), "prefill_s": float, "decode_s": [gen floats]}``.
+    one per decode step), "prefill_s": float, "decode_s": [gen floats],
+    "logits_finite": bool (every logit of the prefill and of each step)}``.
     Times are host clock around work that ends in a device synchronize.
     """
     dev = resolve_device(device)
@@ -54,6 +56,9 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     if vis:
         inputs["vis_embed"] = 0.02 * torch.randn(
             (b, vis, cfg.d_model), generator=data, device=dev)
+    if cfg.family == "encdec":
+        inputs["frames"] = 0.02 * torch.randn(
+            (b, cfg.enc_seq, cfg.d_model), generator=data, device=dev)
     max_len = s + vis + gen + 1
 
     def sample(logits):
@@ -68,6 +73,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
         logits, cache = model.prefill(params, inputs, max_len=max_len)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
         tok = sample(logits)
         out = [tok]
         lat = []
@@ -76,10 +82,11 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
             logits, cache = model.decode_step(params, tok, cache, s + vis + i)
             _sync(dev)
             lat.append(time.perf_counter() - t0)
+            finite = finite & torch.isfinite(logits).all()
             tok = sample(logits)
             out.append(tok)
     return {"tokens": torch.stack(out, 1).cpu(), "prefill_s": prefill_s,
-            "decode_s": lat}
+            "decode_s": lat, "logits_finite": bool(finite)}
 
 
 def main(argv=None) -> int:
@@ -108,8 +115,9 @@ def main(argv=None) -> int:
               f"ms/tok, p99 {np.percentile(lat_ms, 99):.2f} ms")
     gen = res["tokens"].numpy()
     print(f"generated[{gen.shape[0]}x{gen.shape[1]}]: row0 = {gen[0][:16]}...")
-    if not (np.isfinite(lat_ms).all() and (gen >= 0).all()):
-        raise RuntimeError("non-finite latency or negative token")
+    if not (np.isfinite(lat_ms).all() and (gen >= 0).all()
+            and res["logits_finite"]):
+        raise RuntimeError("non-finite latency or logits, or negative token")
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Model stack: configs, layers, the dense/VLM decoder, unified facade."""
+"""Model stack: configs, layers, the decoder-LM families (dense, moe, ssm,
+hybrid, vlm), the encoder-decoder, unified facade."""
 
 from repro_torch.models.api import Model, cross_entropy
 from repro_torch.models.config import ModelConfig

@@ -1,6 +1,8 @@
 """Unified model facade: one object per architecture config.
 
-The JAX package's ``models/api.py`` on torch, for the decoder-LM stack:
+The JAX package's ``models/api.py`` on torch: dispatches to the decoder-LM
+stack (dense, moe, ssm, hybrid, vlm) or the encoder-decoder stack (encdec)
+and owns the loss, so serve steps are family-agnostic:
 
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -12,9 +14,9 @@ The JAX package's ``models/api.py`` on torch, for the decoder-LM stack:
 row at its own position, as the serving engine's slots are).
 
 ``batch`` keys: tokens [B,S] int; labels [B,S] int (-1 = masked, already
-shifted by the data pipeline); vis_embed [B,n_vis,D] (vlm).  Params live on
-the generator's device (CUDA unless the caller gives a CPU generator with
-``device="cpu"``).  The encoder-decoder family raises.
+shifted by the data pipeline); vis_embed [B,n_vis,D] (vlm); frames
+[B,enc_seq,D] (encdec).  Params live on the generator's device (CUDA unless
+the caller gives a CPU generator with ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.config import ModelConfig
 
@@ -48,10 +51,12 @@ class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.family == "encdec":
-            raise NotImplementedError(
-                "the encoder-decoder family is not ported yet: see ROADMAP A10")
-        lm_lib.superblock_layout(self.cfg)  # raises for moe / ssm / hybrid
+        if self.cfg.family != "encdec":
+            lm_lib.superblock_layout(self.cfg)  # raises for a bad layout
+
+    @property
+    def _encdec(self) -> bool:
+        return self.cfg.family == "encdec"
 
     # ---------------- init ----------------
     def init(self, generator: torch.Generator, *, device=None) -> dict:
@@ -62,10 +67,15 @@ class Model:
         if generator.device.type != dev.type:
             raise ValueError(f"the generator lives on {generator.device}, the "
                              f"params go to {dev}: pass a generator there")
+        if self._encdec:
+            return encdec_lib.init_encdec(generator, self.cfg)
         return lm_lib.init_lm(generator, self.cfg)
 
     # ---------------- evaluation ----------------
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        if self._encdec:
+            return encdec_lib.forward(params, self.cfg, batch["tokens"],
+                                      batch["frames"])
         return lm_lib.forward(params, self.cfg, batch["tokens"],
                               batch.get("vis_embed"))
 
@@ -79,10 +89,36 @@ class Model:
 
     # ---------------- serve ----------------
     def prefill(self, params, batch, max_len: int | None = None):
+        if self._encdec:
+            return encdec_lib.prefill(params, self.cfg, batch["tokens"],
+                                      batch["frames"], max_len)
         return lm_lib.prefill(params, self.cfg, batch["tokens"],
                               batch.get("vis_embed"), max_len)
 
+    def prefill_len(self, n: int) -> int:
+        """How many of a prompt head's ``n`` tokens the serving engine's
+        batch-1 ``prefill`` takes; it feeds the rest by decode steps, with
+        the same result as a decode step per token:
+
+        * vlm and encdec: none (their prefill needs patch embeddings or
+          encoder frames, which a request does not carry; an encdec request
+          is decoded against an empty cross cache, as the JAX engine does);
+        * moe: none, as the JAX engine admits every prompt, since a prefill
+          can drop expert choices that token-by-token decode keeps;
+        * ssm and hybrid: ``n`` up to ``ssm_chunk``, above it the largest
+          multiple of the chunk (``ssm_block`` takes no ragged last chunk);
+        * dense: all ``n``.
+        """
+        fam = self.cfg.family
+        if fam in ("vlm", "encdec", "moe"):
+            return 0
+        if fam in ("ssm", "hybrid") and n > self.cfg.ssm_chunk:
+            return n - n % self.cfg.ssm_chunk
+        return n
+
     def decode_step(self, params, token, cache, pos):
+        if self._encdec:
+            return encdec_lib.decode_step(params, self.cfg, token, cache, pos)
         return lm_lib.decode_step(params, self.cfg, token, cache, pos)
 
     def bind_decode(self, params):
@@ -101,9 +137,12 @@ class Model:
         return run
 
     def init_cache(self, batch: int, max_len: int, *, device=None) -> dict:
-        """A zero KV cache on ``device`` (CUDA when None)."""
-        return lm_lib.init_lm_cache(self.cfg, batch, max_len,
-                                    device=resolve_device(device))
+        """A zero decode cache on ``device`` (CUDA when None)."""
+        dev = resolve_device(device)
+        if self._encdec:
+            return encdec_lib.init_dec_cache(self.cfg, batch, max_len,
+                                             device=dev)
+        return lm_lib.init_lm_cache(self.cfg, batch, max_len, device=dev)
 
     # ---------------- info ----------------
     def param_count(self) -> int:

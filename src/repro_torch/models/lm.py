@@ -1,15 +1,22 @@
-"""Decoder-only language models: the dense and VLM families.
+"""Decoder-only language models: dense / MoE / SSM / hybrid / VLM.
 
-The JAX package's ``models/lm.py`` on torch, for the families whose
-super-block is one attention-plus-MLP layer (``dense``; ``vlm`` prepends
-precomputed patch embeddings).  Parameters are stacked over a leading
-super-block axis, as in the JAX package, and a Python loop over the layers
-indexes each leaf (the JAX package scans).  Caches are stacked the same
-way and written in place.
+The JAX package's ``models/lm.py`` on torch.  Parameters are stacked over a
+leading super-block axis, as in the JAX package, and a Python loop over the
+super-blocks indexes each leaf (the JAX package scans).  A super-block is
+the family's repeating pattern:
+
+  dense/vlm    1 layer  (attn + mlp; vlm prepends patch embeddings)
+  moe          ``moe_interleave`` layers (dense..., moe)
+  ssm          1 mamba2 layer
+  hybrid       ``attn_every`` mamba2 layers + one invocation of the *shared*
+               attention block (one parameter set outside the stack, reused
+               by every invocation, each with its own KV cache: zamba2's
+               weight tying)
 
 Modes: ``forward`` (evaluation over a full sequence), ``prefill`` (forward
-plus cache) and ``decode_step`` (one token).  The ``moe``, ``ssm`` and
-``hybrid`` families raise; ``remat`` is a training knob and is ignored.
+plus cache) and ``decode_step`` (one token).  Caches are stacked over the
+same super-block axis and written in place.  ``remat`` is a training knob
+and is ignored.
 """
 
 from __future__ import annotations
@@ -18,36 +25,65 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-
-_NOT_PORTED = ("the {} family is not ported yet (moe, ssm and hybrid layers): "
-               "see ROADMAP A10")
 
 
 def superblock_layout(cfg: ModelConfig) -> tuple[int, list[str]]:
     """(number of super-blocks, layer kinds inside one super-block)."""
     if cfg.family in ("dense", "vlm"):
         return cfg.n_layers, ["dense"]
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(_NOT_PORTED.format(cfg.family))
+    if cfg.family == "moe":
+        il = cfg.moe_interleave
+        if cfg.n_layers % il:
+            raise ValueError(f"n_layers {cfg.n_layers} is no multiple of "
+                             f"moe_interleave {il}")
+        return cfg.n_layers // il, ["dense"] * (il - 1) + ["moe"]
+    if cfg.family == "ssm":
+        return cfg.n_layers, ["ssm"]
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        if not k or cfg.n_layers % k:
+            raise ValueError(f"n_layers {cfg.n_layers} is no multiple of "
+                             f"attn_every {k}")
+        return cfg.n_layers // k, ["ssm"] * k + ["shared_attn"]
     raise ValueError(cfg.family)
+
+
+def _init_attn_layer(generator, cfg, stack, ffn):
+    dev = generator.device
+    p = {"ln1": L.init_rmsnorm(cfg.d_model, dev, stack=stack),
+         "attn": attn_lib.init_attention(generator, cfg, stack=stack),
+         "ln2": L.init_rmsnorm(cfg.d_model, dev, stack=stack)}
+    if ffn == "moe":
+        p["moe"] = moe_lib.init_moe(generator, cfg, stack=stack)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg, stack=stack)
+    return p
+
+
+def _init_layer(kind, generator, cfg, stack):
+    if kind in ("dense", "moe"):
+        return _init_attn_layer(generator, cfg, stack,
+                                "moe" if kind == "moe" else "mlp")
+    return {"ln": L.init_rmsnorm(cfg.d_model, generator.device, stack=stack),
+            "ssm": ssm_lib.init_ssm(generator, cfg, stack=stack)}
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random params on the generator's device, every block leaf stacked
-    over the super-block axis."""
+    over the super-block axis (the hybrid's shared block unstacked)."""
     n_super, kinds = superblock_layout(cfg)
-    dev = generator.device
     stack = (n_super,)
-    blocks = {f"l{i}_{kind}": {
-        "ln1": L.init_rmsnorm(cfg.d_model, dev, stack=stack),
-        "attn": attn_lib.init_attention(generator, cfg, stack=stack),
-        "ln2": L.init_rmsnorm(cfg.d_model, dev, stack=stack),
-        "mlp": L.init_mlp(generator, cfg, stack=stack)}
-        for i, kind in enumerate(kinds)}
-    return {"embed": L.init_embed(generator, cfg),
-            "final_norm": L.init_rmsnorm(cfg.d_model, dev),
-            "blocks": blocks}
+    blocks = {f"l{i}_{kind}": _init_layer(kind, generator, cfg, stack)
+              for i, kind in enumerate(kinds) if kind != "shared_attn"}
+    params = {"embed": L.init_embed(generator, cfg),
+              "final_norm": L.init_rmsnorm(cfg.d_model, generator.device),
+              "blocks": blocks}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_attn_layer(generator, cfg, (), "mlp")
+    return params
 
 
 def _layer(tree, i: int):
@@ -66,7 +102,9 @@ def _embed_input(params, cfg, tokens, vis_embed):
     return x
 
 
-def _dense_layer(lp, cfg, x, positions, *, return_kv=False):
+def _attn_layer(lp, cfg, x, positions, *, return_kv=False):
+    """An attention + MLP (or MoE) layer over a full sequence:
+    (x, moe aux, (k, v) or None)."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     y = attn_lib.attention(lp["attn"], cfg, h, positions, return_kv=return_kv)
     kv = None
@@ -74,32 +112,66 @@ def _dense_layer(lp, cfg, x, positions, *, return_kv=False):
         y, kv = y
     x = x + y
     h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(lp["mlp"], cfg, h), kv
+    if "moe" in lp:
+        y, aux = moe_lib.moe_block(lp["moe"], cfg, h)
+    else:
+        y, aux = L.mlp(lp["mlp"], cfg, h), None
+    return x + y, aux, kv
+
+
+def _ssm_layer(lp, cfg, x, *, return_cache=False):
+    h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+    if not return_cache:
+        return x + ssm_lib.ssm_block(lp["ssm"], cfg, h), None
+    y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
+    return x + y, c
+
+
+def _layers(params, cfg):
+    """(name, kind, that layer's params) of every layer in order, super-block
+    by super-block; the hybrid's shared block at each invocation."""
+    n_super, kinds = superblock_layout(cfg)
+    for l in range(n_super):
+        bp = _layer(params["blocks"], l)
+        for i, kind in enumerate(kinds):
+            name = f"l{i}_{kind}"
+            yield l, name, kind, (params["shared_attn"]
+                                  if kind == "shared_attn" else bp[name])
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vis_embed: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits, moe_aux_loss = 0)."""
-    n_super, kinds = superblock_layout(cfg)
+    """Full-sequence forward.  Returns (logits, moe_aux_loss)."""
     x = _embed_input(params, cfg, tokens, vis_embed)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for l in range(n_super):
-        bp = _layer(params["blocks"], l)
-        for i, kind in enumerate(kinds):
-            x, _ = _dense_layer(bp[f"l{i}_{kind}"], cfg, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, _, kind, lp in _layers(params, cfg):
+        if kind == "ssm":
+            x, _ = _ssm_layer(lp, cfg, x)
+        else:
+            x, a, _ = _attn_layer(lp, cfg, x, positions)
+            if a is not None:
+                aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], cfg, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params["embed"], cfg, x), aux
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                   device=None) -> dict:
-    """Decode cache stacked over super-blocks (mirrors params['blocks'])."""
+    """Decode cache stacked over super-blocks (mirrors params['blocks'],
+    plus one KV cache per shared-attention invocation)."""
     n_super, kinds = superblock_layout(cfg)
-    return {f"l{i}_{kind}": attn_lib.init_cache(
-        cfg, batch, max_len, cfg.activation_dtype(), device=device,
-        stack=(n_super,)) for i, kind in enumerate(kinds)}
+    dt = cfg.activation_dtype()
+    cache = {}
+    for i, kind in enumerate(kinds):
+        if kind == "ssm":
+            cache[f"l{i}_{kind}"] = ssm_lib.init_ssm_cache(
+                cfg, batch, dt, device=device, stack=(n_super,))
+        else:
+            cache[f"l{i}_{kind}"] = attn_lib.init_cache(
+                cfg, batch, max_len, dt, device=device, stack=(n_super,))
+    return cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -107,20 +179,24 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     """One decode step.  token: [B] int; pos: int or 0-d tensor (every row
     at that position) or an int tensor [B] (row b at ``pos[b]``).
     -> (logits [B, V], cache), the cache updated in place."""
-    n_super, kinds = superblock_layout(cfg)
     x = L.embed_tokens(params["embed"], cfg, token[:, None])
     pos = attn_lib.row_positions(pos, x.shape[0], x.device)
-    for l in range(n_super):
-        bp = _layer(params["blocks"], l)
-        for i, kind in enumerate(kinds):
-            name = f"l{i}_{kind}"
-            lp = bp[name]
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            y, _ = attn_lib.decode_attention(lp["attn"], cfg, h,
-                                             _layer(cache[name], l), pos)
+    for l, name, kind, lp in _layers(params, cfg):
+        lc = _layer(cache[name], l)
+        if kind == "ssm":
+            h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+            y, _ = ssm_lib.ssm_decode_step(lp["ssm"], cfg, h, lc)
             x = x + y
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp(lp["mlp"], cfg, h)
+            continue
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _ = attn_lib.decode_attention(lp["attn"], cfg, h, lc, pos)
+        x = x + y
+        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        if "moe" in lp:
+            y, _ = moe_lib.moe_block(lp["moe"], cfg, h)
+        else:
+            y = L.mlp(lp["mlp"], cfg, h)
+        x = x + y
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], cfg, x)[:, 0], cache
 
@@ -128,19 +204,22 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vis_embed: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
-    """Prefill: full-sequence pass producing last-position logits + cache."""
-    n_super, kinds = superblock_layout(cfg)
+    """Prefill: full-sequence pass producing last-position logits + cache.
+    An ``ssm``/``hybrid`` prompt longer than ``ssm_chunk`` must be a
+    multiple of it (``ssm_block`` raises otherwise)."""
     x = _embed_input(params, cfg, tokens, vis_embed)
     s = x.shape[1]
     max_len = max_len or cfg.max_cache_len or s
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     cache = init_lm_cache(cfg, x.shape[0], max_len, device=x.device)
-    for l in range(n_super):
-        bp = _layer(params["blocks"], l)
-        for i, kind in enumerate(kinds):
-            name = f"l{i}_{kind}"
-            x, (k, v) = _dense_layer(bp[name], cfg, x, positions,
-                                     return_kv=True)
-            attn_lib.prefill_into_cache(_layer(cache[name], l), k, v)
+    for l, name, kind, lp in _layers(params, cfg):
+        lc = _layer(cache[name], l)
+        if kind == "ssm":
+            x, c = _ssm_layer(lp, cfg, x, return_cache=True)
+            for key, t in c.items():
+                lc[key].copy_(t)
+        else:
+            x, _, (k, v) = _attn_layer(lp, cfg, x, positions, return_kv=True)
+            attn_lib.prefill_into_cache(lc, k, v)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], cfg, x[:, -1:])[:, 0], cache

@@ -1,0 +1,125 @@
+"""Mixture-of-Experts block: top-k routing and capacity dispatch.
+
+The JAX package's ``models/moe.py`` on torch: a GShard-style dropping MoE.
+Tokens are grouped ``[G, T, D]``; a float32 router picks each token's top-k
+experts (padded experts, e.g. qwen's 60 -> 64, are masked out of the
+router, so routing behaves exactly like the unpadded model) and renormalises
+their gates; each choice takes the next position in its expert's queue in
+token-major order, and choices at or past the expert's capacity are dropped
+(they fall through on the residual).  Dispatch and combine are gathers over
+a per-group ``[G, E * C]`` slot table, as in the JAX package, whose
+``custom_vjp`` forms exist for GSPMD's locality and are not needed here;
+the expert-parallel sharding waits for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import truncated_normal
+
+
+def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
+             stack: tuple = ()) -> dict:
+    """MoE params, each leaf with the leading ``stack`` axes."""
+    d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(fe)
+    p = {"router": truncated_normal(generator, stack + (d, e), s_in),
+         "wi": truncated_normal(generator, stack + (e, d, fe), s_in),
+         "wg": truncated_normal(generator, stack + (e, d, fe), s_in),
+         "wo": truncated_normal(generator, stack + (e, fe, d), s_out)}
+    if cfg.n_shared_experts:
+        f_sh = cfg.n_shared_experts * cfg.d_ff_shared
+        p["shared"] = {
+            "wi": truncated_normal(generator, stack + (d, f_sh), s_in),
+            "wg": truncated_normal(generator, stack + (d, f_sh), s_in),
+            "wo": truncated_normal(generator, stack + (f_sh, d),
+                                   1.0 / math.sqrt(f_sh))}
+    return p
+
+
+def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    """Slots per expert in a group of ``tokens_per_group`` tokens: the
+    capacity factor's share, rounded up to a multiple of 4, at least 4."""
+    c = math.ceil(tokens_per_group * cfg.top_k * cfg.capacity_factor
+                  / cfg.n_experts)
+    return max(4, -(-c // 4) * 4)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` [G, N, D] at ``idx`` [G, M], an index N reading zeros."""
+    pad = torch.cat([x, x.new_zeros(x.shape[0], 1, x.shape[2])], dim=1)
+    return torch.gather(pad, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+def moe_block(params: dict, cfg: ModelConfig,
+              x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (y, aux_loss)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    g = min(cfg.expert_groups, b)
+    t = (b // g) * s
+    cap = capacity(cfg, t)
+    dt = x.dtype
+    xg = x.reshape(g, t, d)
+
+    # ---- router (float32) ----
+    logits = torch.matmul(xg.float(), params["router"].float())   # [G,T,E]
+    if cfg.n_experts_active < e:  # padded experts never receive tokens
+        pad = torch.arange(e, device=x.device) >= cfg.n_experts_active
+        logits = logits.masked_fill(pad, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k's order: largest first, equal values by lower index (a
+    # stable descending sort; torch.topk leaves ties unordered)
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_idx = gate_vals[..., :k], expert_idx[..., :k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # ---- positions within each expert queue (dropping beyond capacity) ----
+    flat_idx = expert_idx.reshape(g, t * k)
+    onehot = F.one_hot(flat_idx, e)                                 # [G,T*k,E]
+    pos = torch.gather(torch.cumsum(onehot, dim=1) - 1, 2,
+                       flat_idx[..., None])[..., 0]
+    keep = pos < cap
+
+    # ---- dispatch: each kept choice owns one slot of its expert ----
+    n_slots = e * cap
+    slot_of_choice = torch.where(keep, flat_idx * cap + pos,
+                                 torch.full_like(pos, n_slots))
+    tok_of_choice = torch.arange(t, device=x.device).repeat_interleave(k)
+    tok_of_slot = torch.full((g, n_slots + 1), t, dtype=torch.long,
+                             device=x.device)
+    tok_of_slot.scatter_(1, slot_of_choice, tok_of_choice.expand(g, -1))
+    buf = _gather_rows(xg, tok_of_slot[:, :n_slots]).reshape(g, e, cap, d)
+
+    # ---- expert FFNs ----
+    h = torch.einsum("gecd,edf->gecf", buf, params["wi"].to(dt))
+    gt = torch.einsum("gecd,edf->gecf", buf, params["wg"].to(dt))
+    h = h * F.silu(gt)
+    out = torch.einsum("gecf,efd->gecd", h, params["wo"].to(dt))
+
+    # ---- combine with gates (dropped choices read the zero row) ----
+    picked = _gather_rows(out.reshape(g, n_slots, d), slot_of_choice)
+    w = (gate_vals.reshape(g, t * k) * keep).to(dt)
+    picked = picked * w[..., None]
+    y = picked.reshape(g, t, k, d).sum(dim=2).reshape(b, s, d)
+
+    # ---- shared experts (plain dense MLP path) ----
+    if cfg.n_shared_experts:
+        sh = params["shared"]
+        hs = torch.matmul(x, sh["wi"].to(dt))
+        gs = torch.matmul(x, sh["wg"].to(dt))
+        y = y + torch.matmul(hs * F.silu(gs), sh["wo"].to(dt))
+
+    # ---- load-balance aux (switch-style), over real experts only ----
+    n_act = cfg.n_experts_active
+    frac = onehot[..., :n_act].float().mean(dim=(0, 1))
+    prob = probs[..., :n_act].mean(dim=(0, 1))
+    aux = n_act * torch.sum(frac * prob)
+    return y, aux.float()

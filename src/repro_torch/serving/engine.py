@@ -179,20 +179,33 @@ class _LMSlot:
         self.pending = 0            # last token, fed on the next tick
 
 
+def _write_row(cache, row, i: int) -> None:
+    """Copy a batch-1 cache ``row`` into slot ``i`` of ``cache``, leaf by
+    leaf (each leaf stacked over layers, then slots)."""
+    if isinstance(cache, dict):
+        for k, v in cache.items():
+            _write_row(v, row[k], i)
+    else:
+        cache[:, i] = row[:, 0]
+
+
 class _DecodeSlots:
     """Fixed-slot continuous batching over the LM decode step.
 
     Slot state (request, next position, pending token) lives host-side; the
-    device state is the shared KV cache on ``device``, one row per slot.
-    Admission prefills a prompt's first ``len - 1`` tokens with one batch-1
-    ``Model.prefill`` (at most ``max_len`` of them; the rest, and a vlm's
-    whole prompt, through batch-1 decode steps) and copies its cache into the
-    slot's row only; the last prompt token is fed on the next tick.  A tick
-    decodes one token for every slot, each at its own position (free slots
-    feed token 0 into their own row), and finished requests (eos, max tokens,
-    cache full) free their slot immediately.  A request's tokens are
-    therefore those of a batch-1 prefill and greedy decode of its prompt,
-    whatever shares the slots.
+    device state is the shared decode cache on ``device`` (KV caches, SSM
+    states, an encdec's cross cache), one row per slot.  Admission feeds a
+    prompt's first ``len - 1`` tokens into a batch-1 cache, by one
+    ``Model.prefill`` of as many as ``Model.prefill_len`` allows (at most
+    ``max_len``) and batch-1 decode steps for the rest, and copies that
+    cache into the slot's row only; the last prompt token is fed on the next
+    tick.  A tick decodes one token for every slot, each at its own
+    position (free slots feed token 0 into their own row), and finished
+    requests (eos, max tokens, cache full) free their slot immediately.  A
+    request's tokens are therefore those of a batch-1 prefill and greedy
+    decode of its prompt, whatever shares the slots (an MoE's decode tick
+    excepted, whose capacity drops depend on the other slots' routes, as in
+    the JAX package).
     """
 
     def __init__(self, model, params, n_slots: int, max_len: int,
@@ -228,28 +241,24 @@ class _DecodeSlots:
                              "least one token")
         i = next(j for j, s in enumerate(self.slots) if s.req is None)
         head = prompt[:-1]
-        # a batch-1 prefill of as much of the head as the cache holds (none
-        # for a vlm, whose prefill needs patch embeddings a Request does not
-        # carry); the rest is fed one decode step at a time into this row
-        # alone, a write past the end landing in the last slot, as the JAX
-        # engine feeds a whole prompt.  Decode masks the positions past a
-        # slot's own, so what an earlier request left in the row adds nothing
-        n_pre = (0 if self.model.cfg.family == "vlm"
-                 else min(len(head), self.max_len))
-        if len(head):
-            with torch.no_grad():
-                if n_pre:
-                    toks = {"tokens": self._tokens(head[None, :n_pre])}
-                    _, row = self.model.prefill(self.params, toks,
-                                                max_len=self.max_len)
-                else:
-                    row = self.model.init_cache(1, self.max_len,
-                                                device=self.device)
-                for p in range(n_pre, len(head)):
-                    _, row = self._decode(self._tokens(head[p:p + 1]), row, p)
-            for name, layer in self.cache.items():  # [n_super, slots, S, ..]
-                for kv, t in layer.items():
-                    t[:, i] = row[name][kv][:, 0]
+        # a batch-1 prefill of as much of the head as it can take (see
+        # Model.prefill_len); the rest is fed one decode step at a time into
+        # this row alone, a write past the end landing in the last slot, as
+        # the JAX engine feeds a whole prompt.  The row is then written whole:
+        # an SSM state starts from this prompt, and decode masks the KV
+        # positions past a slot's own
+        n_pre = self.model.prefill_len(min(len(head), self.max_len))
+        with torch.no_grad():
+            if n_pre:
+                toks = {"tokens": self._tokens(head[None, :n_pre])}
+                _, row = self.model.prefill(self.params, toks,
+                                            max_len=self.max_len)
+            else:
+                row = self.model.init_cache(1, self.max_len,
+                                            device=self.device)
+            for p in range(n_pre, len(head)):
+                _, row = self._decode(self._tokens(head[p:p + 1]), row, p)
+        _write_row(self.cache, row, i)  # every leaf [n_super, slots, ...]
         slot = self.slots[i]
         slot.req, slot.pos = req, len(head)
         # the last prompt token is fed on the next engine tick

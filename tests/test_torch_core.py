@@ -346,14 +346,20 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_importing_port_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops,"
-            " repro_torch.paper, repro_torch.serving, repro_torch.data,"
-            " repro_torch.runtime, repro_torch.interop, repro_torch.paper.rfnn2x2,"
-            " repro_torch.compile, repro_torch.optim, repro_torch.core.decompose,"
-            " repro_torch.compile.placement, repro_torch.runtime.failures,"
-            " repro_torch.runtime.elastic;"
+    """Every module of the port, found by walking the package (so a new
+    module is covered without being listed), imports without loading
+    ``jax``, ``jaxlib`` or ``repro``."""
+    code = ("import importlib, pkgutil, sys, repro_torch;"
+            " names = [m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')];"
+            " [importlib.import_module(n) for n in names];"
+            " must = {'repro_torch.paper.efficiency', 'repro_torch.models.moe',"
+            " 'repro_torch.models.ssm', 'repro_torch.models.encdec',"
+            " 'repro_torch.serving.batcher', 'repro_torch.launch.serve'};"
+            " assert must <= set(sys.modules), must - set(sys.modules);"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(1 if bad else 0)")
+            " ('jax', 'jaxlib', 'repro')]; print(len(names), bad);"
+            " sys.exit(1 if bad else 0)")
     env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu"}
     r = subprocess.run([sys.executable, "-c", code], env=env,

@@ -169,6 +169,103 @@ def test_rfnn_linear_grads_match_jax(n, plans, hw):
                                rtol=0, atol=1e-4)
 
 
+# tests/test_hw_kernels.py::test_fused_rfnn_linear_differential's example
+# that Hypothesis stored and replays (ROADMAP C-ref9): at it the JAX fused
+# kernel's gradient reads 1.0048e-5 against the composite reference
+CREF9_SEED, CREF9_N = 1_891_098_766, 16
+
+
+@needs_jax
+def test_rfnn_linear_matches_jax_at_cref9_input(capsys):
+    """ROADMAP C-ref9's input, exactly as the JAX test draws it (non-ideal
+    hardware from ``default_rng(seed)``, params, attenuation, x and the
+    noise keys from ``PRNGKey(seed + i)``): the port's fused layer (B3/B5's
+    plain versions) against JAX's ``ops.rfnn_linear`` (interpret mode),
+    forward and the full gradient (both meshes' params, the attenuation and
+    x), within 1e-5 relative in norm, the JAX test's bound.  JAX's phase
+    noise is carried as the normals its keys stand for, added to the phases
+    (the port draws noise from a generator).  The port's distance to the
+    composite reference, the comparison the JAX test gates, is printed."""
+    from repro.core import hardware as j_hw
+    from repro.core import mesh as j_mesh
+
+    seed, n = CREF9_SEED, CREF9_N
+    rng = np.random.default_rng(seed)
+    jhw = j_hw.HardwareModel(
+        hybrid_imbalance=float(rng.uniform(0.0, 0.08)),
+        hybrid_phase_err=float(rng.uniform(0.0, np.deg2rad(4.0))),
+        cell_loss_db=float(rng.uniform(0.0, 0.6)),
+        phase_sigma=float(rng.uniform(0.0, np.deg2rad(2.0))),
+        detector_floor_dbm=-300.0, detector_sigma=0.0)
+    thw = t_hw.HardwareModel(**dataclasses.asdict(jhw))
+    plan = j_mesh.clements_plan(n)
+    vp = j_mesh.init_mesh_params(jax.random.PRNGKey(seed), plan)
+    up = j_mesh.init_mesh_params(jax.random.PRNGKey(seed + 1), plan)
+    atten = jax.random.uniform(jax.random.PRNGKey(seed + 2), (n,),
+                               minval=0.2, maxval=0.9)
+    x = jax.random.normal(jax.random.PRNGKey(seed + 3), (5, n))
+    w = jax.random.normal(jax.random.PRNGKey(seed + 4), (5, n))
+    kv, ku = jax.random.split(jax.random.PRNGKey(seed + 5))
+    scale = 1.3
+
+    def fwd_k(v, a, u, xx):
+        return j_ops.rfnn_linear(v, a, u, xx, n=n, scale=scale, hardware=jhw,
+                                 key_v=kv, key_u=ku, block_b=8)
+
+    def fwd_r(v, a, u, xx):
+        h = j_hw.apply_mesh_hw(plan, v, xx.astype(jnp.complex64), jhw, kv)
+        y = j_hw.apply_mesh_hw(plan, u, h * a.astype(jnp.complex64), jhw, ku)
+        return jnp.abs(scale * y)
+
+    args = (vp, atten, up, x)
+    want = {name: (np.asarray(f(*args)), jax.grad(
+        lambda *a, f=f: jnp.sum(w * f(*a)), argnums=(0, 1, 2, 3))(*args))
+        for name, f in (("kernel", fwd_k), ("reference", fwd_r))}
+
+    def noisy(p, key):
+        k1, k2 = jax.random.split(key)
+        sigma = np.float32(jhw.phase_sigma)
+        out = _torch(p, True)
+        z = {"theta": jax.random.normal(k1, p["theta"].shape),
+             "phi": jax.random.normal(k2, p["phi"].shape)}
+        moved = {k: out[k] + sigma * torch.from_numpy(np.array(z[k]))
+                 for k in z}
+        return out, dict(out, **moved)
+
+    tv, tv_noisy = noisy(vp, kv)
+    tu, tu_noisy = noisy(up, ku)
+    ta = torch.from_numpy(np.array(atten)).requires_grad_(True)
+    tx = torch.from_numpy(np.array(x)).requires_grad_(True)
+    y = ops.rfnn_linear(tv_noisy, ta, tu_noisy, tx, n=n, scale=scale,
+                        hardware=thw)
+    (torch.from_numpy(np.array(w)) * y).sum().backward()
+    got_y = y.detach().numpy()
+
+    def flat(tree):
+        return np.concatenate([np.asarray(t).ravel()
+                               for t in jax.tree.leaves(tree)])
+
+    got_g = np.concatenate([
+        flat({k: tv[k].grad.numpy() for k in vp}), ta.grad.numpy(),
+        flat({k: tu[k].grad.numpy() for k in up}), tx.grad.numpy().ravel()])
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
+
+    errs = {name: (rel(got_y, wy), rel(got_g, flat(wg)))
+            for name, (wy, wg) in want.items()}
+    jax_gap = (rel(want["kernel"][0], want["reference"][0]),
+               rel(flat(want["kernel"][1]), flat(want["reference"][1])))
+    with capsys.disabled():
+        print(f"\n[C-ref9] port vs JAX kernel: forward {errs['kernel'][0]:.3e}, "
+              f"gradient {errs['kernel'][1]:.3e}; port vs composite "
+              f"reference: forward {errs['reference'][0]:.3e}, gradient "
+              f"{errs['reference'][1]:.3e}; JAX kernel vs composite: "
+              f"forward {jax_gap[0]:.3e}, gradient {jax_gap[1]:.3e}")
+    assert errs["kernel"][0] <= 1e-5
+    assert errs["kernel"][1] <= 1e-5
+
+
 def _kernel_inputs(rng, n, hw, reck=False, zero_gain=False):
     """Coefficients, parities and gains of a fused layer in the kernels'
     layout (torch, CPU)."""

@@ -11,7 +11,10 @@ choice is clear (a top-2 logit margin above the parity tolerance): every
 request's tokens equal a batch-1 ``prefill`` and greedy ``decode_step`` of
 its prompt, in the port and in the JAX package, whatever shares the slots;
 at ``slots=1`` they also equal the JAX engine's (which shares one position
-across its slots, so only there is it right).  ``decode_step`` with a
+across its slots, so only there is it right).  The moe, ssm, hybrid and
+encdec families' reduced configs match the JAX engine serving each request
+alone at ``slots=1`` (C-ref10: the JAX engine keeps a reused slot's SSM
+state), and at two staggered slots each request gets its tokens alone.  ``decode_step`` with a
 position per row equals the JAX package's row by row at batch 1.
 """
 
@@ -565,6 +568,152 @@ def test_lm_engine_serves_what_jax_engine_serves_alone(tiny_lm, kind):
         assert r.done and not r.failed and not jr.failed
         np.testing.assert_array_equal(r.result, jr.result)
     assert engine.stats["served"] == len(reqs)
+
+
+FAMILIES = ["qwen2-moe-a2.7b", "mamba2-780m", "zamba2-1.2b",
+            "whisper-large-v3"]
+_FAMILY_LM: dict = {}
+
+
+def _family(name):
+    if name not in _FAMILY_LM:
+        _FAMILY_LM[name] = _lm_pair(name)
+    return _FAMILY_LM[name]
+
+
+# heads of 4, 11, 2 and 18 tokens and none: within and past ssm_chunk 8
+# (prefilled to 8 and 16, the rest decoded), shorter than the conv window,
+# past the MoE's no-drop prefix.  Their prompts' seeds (33, 36) give every
+# greedy choice of the four families a top-2 margin above LM_MARGIN, the
+# precondition of comparing tokens (seeds 31 and 32 have a near-tie of
+# 3.8e-4 in zamba2, where a 1e-4 difference could flip a token)
+FAMILY_LENS, FAMILY_NEW = [5, 12, 3, 19, 1], [4, 3, 5, 2, 3]
+
+
+def _serve_alone(lm, prompt, max_new, max_len, margins=None):
+    engine = _lm_engine(lm, margins, slots=1, max_len=max_len)
+    req = Request(0, prompt=prompt, max_new=max_new)
+    engine.submit(req)
+    engine.run()
+    assert req.done and not req.failed
+    return req.result
+
+
+def _jax_alone(lm, prompt, max_new, max_len):
+    jm, jp = lm[:2]
+    jeng = JServingEngine(jm, jp, slots=1, max_len=max_len)
+    jr = JRequest(0, prompt=prompt, max_new=max_new)
+    jeng.submit(jr)
+    jeng.run()
+    assert jr.done and not jr.failed
+    return jr.result
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_lm_engine_family_matches_jax_engine(name):
+    """The moe, ssm, hybrid and encdec families at ``slots=1``: each request,
+    through one port engine after the others, gets the tokens a fresh JAX
+    engine gives it alone.  The port prefills what ``Model.prefill_len``
+    allows and decodes the rest; the JAX engine decodes every prompt token
+    (an encdec request, which carries no frames, against an empty cross
+    cache in both).  A fresh JAX engine per request, because the JAX engine
+    keeps a reused slot's SSM state (ROADMAP C-ref10, pinned below)."""
+    lm = _family(name)
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in FAMILY_LENS]
+    margins: list = []
+    teng = _lm_engine(lm, margins, slots=1, max_len=24)
+    treqs = [Request(i, prompt=p, max_new=m)
+             for i, (p, m) in enumerate(zip(prompts, FAMILY_NEW))]
+    for r in treqs:
+        teng.submit(r)
+    teng.run()
+    assert min(margins) > LM_MARGIN
+    for tr, p, m in zip(treqs, prompts, FAMILY_NEW):
+        assert tr.done and not tr.failed
+        np.testing.assert_array_equal(tr.result, _jax_alone(lm, p, m, 24))
+    assert teng.stats["served"] == len(prompts)
+
+
+def test_jax_engine_keeps_a_reused_slots_ssm_state():
+    """ROADMAP C-ref10, held as the reference's behaviour: at ``slots=1`` the
+    JAX engine admits a request into the slot the last one left without
+    resetting its SSM state, so a mamba2 request served after others gets
+    other tokens than alone; the port's engine writes the whole row at
+    admission and gives every request its tokens alone."""
+    lm = _family("mamba2-780m")
+    jm, jp = lm[:2]
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in FAMILY_LENS]
+    jeng = JServingEngine(jm, jp, slots=1, max_len=24)
+    jreqs = [JRequest(i, prompt=p, max_new=m)
+             for i, (p, m) in enumerate(zip(prompts, FAMILY_NEW))]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run()
+    alone = [_jax_alone(lm, p, m, 24) for p, m in zip(prompts, FAMILY_NEW)]
+    np.testing.assert_array_equal(jreqs[0].result, alone[0])
+    assert any(not np.array_equal(r.result, a)
+               for r, a in zip(jreqs[1:], alone[1:]))
+    teng = _lm_engine(lm, slots=1, max_len=24)
+    treqs = [Request(i, prompt=p, max_new=m)
+             for i, (p, m) in enumerate(zip(prompts, FAMILY_NEW))]
+    for r in treqs:
+        teng.submit(r)
+    teng.run()
+    for r, a in zip(treqs, alone):
+        np.testing.assert_array_equal(r.result, a)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_lm_engine_family_staggered_matches_alone(name):
+    """Two slots, requests submitted at different ticks and overlapping:
+    each request's tokens equal the port engine's for it alone at
+    ``slots=1`` (which the tests above hold to the JAX engine).  An SSM
+    row's state starts from its own prompt whatever the row held before."""
+    lm = _family(name)
+    rng = np.random.default_rng(36)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in FAMILY_LENS]
+    reqs = [Request(i, prompt=p, max_new=m)
+            for i, (p, m) in enumerate(zip(prompts, FAMILY_NEW))]
+    submit_at = {0: [0, 1], 2: [2], 3: [3], 5: [4]}
+    margins: list = []
+    engine = _lm_engine(lm, margins, slots=2, max_len=24)
+    busy = []
+    for tick in range(100):
+        for i in submit_at.get(tick, []):
+            engine.submit(reqs[i])
+        engine.tick()
+        busy.append(engine._impl.n_active())
+        if tick > max(submit_at) and not engine._has_work():
+            break
+    assert max(busy) == 2
+    assert min(margins) > LM_MARGIN
+    for r, p, m in zip(reqs, prompts, FAMILY_NEW):
+        assert r.done and not r.failed
+        np.testing.assert_array_equal(r.result, _serve_alone(lm, p, m, 24))
+    assert engine.stats["served"] == len(reqs)
+
+
+def test_engine_prefill_len_per_family():
+    """How much of a prompt head the engine prefills (``Model.prefill_len``):
+    all of it (dense), up to the SSM chunk or a multiple of it, none for
+    moe (whose prefill can drop what decode keeps), vlm and encdec."""
+    from repro_torch import configs as t_configs
+    from repro_torch.models import Model
+    from repro_torch.models.moe import capacity
+
+    def plen(name, n):
+        return Model(t_configs.get_reduced(name)).prefill_len(n)
+
+    assert [plen("tinyllama-1.1b", n) for n in (0, 7, 300)] == [0, 7, 300]
+    for name in ("mamba2-780m", "zamba2-1.2b"):
+        assert [plen(name, n) for n in (0, 2, 8, 11, 16, 23)] == \
+            [0, 2, 8, 8, 16, 16]
+    for name in ("qwen2-moe-a2.7b", "internvl2-2b", "whisper-large-v3"):
+        assert [plen(name, n) for n in (1, 4, 9, 40)] == [0, 0, 0, 0]
+    moe = t_configs.get_reduced("qwen2-moe-a2.7b")
+    assert [capacity(moe, n) for n in (1, 5, 6, 12, 13)] == [4, 4, 4, 8, 12]
 
 
 @pytest.mark.parametrize("threaded", [False, True])
