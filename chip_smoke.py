@@ -206,12 +206,37 @@ exits non-zero):
     ``ContinuousBatcher`` warn and serve (a compiled 8x8 program within
     1e-4 of |W x|, the old ``stats`` keys; the reduced TinyLlama's tokens
     equal to the engine's);
-24. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
+24. LM training (``train.make_train_step``, ``remat``, the token stream,
+    the checkpoint manager and ``launch.train``): (a) TinyLlama-1.1B at
+    full width (bf16 compute, float32 params and AdamW moments,
+    ``attn_impl="xla"``, batch 8 x 512 of ``TokenStream``, AdamW on a
+    cosine schedule), 4 steps at ``remat="none"`` and, from the same init,
+    2 at ``"full"``, each mode then one step under ``torch.profiler``:
+    step ms on the host clock, tokens/s, peak allocated memory, device
+    events and busy share, the model-FLOPs share of the bf16 dense peak;
+    finite losses and gradient norms, every leaf (every super-block's)
+    changed, step 0's loss equal across the modes and step 1's within 1e-3,
+    a lower peak with ``"full"``, no kernel launched; (b) the reduced
+    TinyLlama in float32, 3 steps at ``accum_steps`` 1 and 2, card against
+    CPU: losses within 1e-5, updates within the CPU tests' AdamW rule; a
+    gradient through ``attn_impl="pallas"`` raising on the card (B9 is
+    forward-only) and a ``no_grad`` prefill launching B9 once a layer; (c)
+    the rfnn LM (phase 20's config) at batch 8 x 128: loss and every
+    gradient with B7/B8 against the reference backend within 1e-5 of scale,
+    one gradient launching 6 B7 and 6 B8 (``remat="full"``: its launches
+    printed, its gradients within 1e-6 of ``"none"``'s), 13 AdamW steps
+    lowering the loss, then B7 and B8 timed at the projections' grids (8x4
+    and 4x8 tiles of 16, 1024 rows) as phase 15; (d) ``launch.train.main``
+    on the card: 12 steps with checkpoints, a resume to 16 whose params are
+    within 1e-6 of scale of an uninterrupted run's, ``--inject-straggler 2``
+    printing a recovery plan, and a 6-step qwen2-moe run;
+25. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
     line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
-to 14, 17 to 20, 22, and each part of 23) and read just after; launches
-made in phases 2, 9, 10, 15, 16 and 21 do not count.  Timings are also written to
+to 14, 17 to 20, 22, and each part of 23 and 24) and read just after;
+launches made in phases 2, 9, 10, 15, 16, 21 and in 24's B9 check and
+timings do not count.  Timings are also written to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -381,6 +406,25 @@ FAM_BATCH, FAM_PROMPT, FAM_GEN = 4, 256, 16
 FAM_ENGINE_LENS, FAM_ENGINE_NEW = (6, 13, 3, 19), (5, 4, 6, 3)
 FAM_ENGINE_SUBMIT = {0: (0, 1), 2: (2,), 4: (3,)}  # tick -> requests
 # tests/test_rfnn_lm.py's CFG, the LM with the paper's analog MLP
+# phase 24: LM training.  (a) TinyLlama-1.1B at full width on the token
+# stream, 4 steps at remat "none" and 2 at "full" (and one profiled step
+# each); (c) the rfnn LM's B7/B8 training step (the lr set on the CPU test,
+# tests/test_torch_lm_train.py); (d) the driver's straggler run long enough
+# for the monitor to settle after the first step's outlier
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 512
+TRAIN_LM_STEPS = {"none": 4, "full": 2}
+TRAIN_LR = 3e-4
+# the profiled training step's device time by kernel name (cuBLAS's Hopper
+# matmuls are "nvjet" kernels)
+TRAIN_KERNEL_CLASSES = {
+    "matmul": lambda n: "nvjet" in n or "gemm" in n,
+    "elementwise": lambda n: "elementwise" in n,
+    "reduce": lambda n: "reduce" in n,
+    "copy": lambda n: "copy" in n.lower() or "cat" in n.lower()}
+TRAIN_RFNN_BATCH, TRAIN_RFNN_SEQ = 8, 128
+TRAIN_RFNN_LR = 0.01
+TRAIN_RFNN_STEPS = 12
+DRIVER_STRAGGLER_STEPS = 80
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
                attn_chunk=16, dtype="float32", linear_impl="rfnn",
@@ -1443,6 +1487,423 @@ def families_phase(torch, dev, card: str, seed: int, reset_launches,
     print(f"[23] phase 23 in {report['seconds']:.1f} s; its launches "
           + json.dumps({k: {n: c for n, c in v.items() if c}
                         for k, v in report["launches"].items()}), flush=True)
+    return report
+
+
+def adamw_rule(states, got_params, lr: float) -> tuple:
+    """The CPU tests' AdamW rule (``tests/test_torch_lm_train.py``): each
+    leaf's update ``got_params - states[0].params`` against the reference
+    run's ``states[-1].params - states[0].params``, elementwise, in units of
+    1e-3 x steps x lr, over the elements whose reference gradient is zero or
+    at least 1e-4 of its leaf's largest at every step (AdamW's m / sqrt(v)
+    turns float32 noise in a near-zero gradient into a full +-lr step).
+    ``states``: the reference run's ``TrainState`` before each step and
+    after the last, on the CPU; its clipped gradients are read back from
+    the first moments, an exact zero where both moments only decayed.
+    Returns (worst ratio, elements exempted, elements)."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    def leaves(tree):
+        return [t.detach().cpu() for t in pytree.tree_leaves(tree)]
+
+    b1, b2 = 0.9, 0.95
+    steps = len(states) - 1
+    ms = [leaves(s.opt.m) for s in states]
+    vs = [leaves(s.opt.v) for s in states]
+    p0, pt, pg = (leaves(states[0].params), leaves(states[-1].params),
+                  leaves(got_params))
+    worst, exempt, total = 0.0, 0, 0
+    for i in range(len(p0)):
+        noisy = torch.zeros(p0[i].shape, dtype=torch.bool)
+        for t in range(1, steps + 1):
+            zero = (ms[t][i] == ms[t - 1][i] * b1) & (
+                vs[t][i] == vs[t - 1][i] * b2)
+            g = ((ms[t][i].double() - b1 * ms[t - 1][i].double())
+                 / (1 - b1)).abs()
+            noisy |= ~zero & (g < 1e-4 * g.max())
+        err = ((pg[i].double() - p0[i].double())
+               - (pt[i].double() - p0[i].double())).abs()[~noisy]
+        if err.numel():
+            worst = max(worst, float(err.max()) / (1e-3 * steps * lr))
+        exempt += int(noisy.sum())
+        total += noisy.numel()
+    return worst, exempt, total
+
+
+def training_phase(torch, dev, card: str, seed: int, reset_launches,
+                   all_launches, time_deep_shape) -> dict:
+    """Phase 24: LM training on the card (``train.make_train_step``,
+    ``models`` with ``remat``, ``data.TokenStream``, ``optim``,
+    ``checkpoint`` and ``launch.train``).  Returns its report; under
+    ``"launches"`` each part's launches, each counted from zero just before
+    the part and read just after.  ``time_deep_shape`` is phase 15's timer
+    of one grid's deep-grid kernels."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.analog_linear import TiledAnalogLinear
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import Model, ModelConfig
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import (TrainState, init_state, loss_and_grads,
+                                   make_train_step)
+
+    report: dict = {"launches": {}}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+
+    def on(batch):
+        return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+    def leaf_samples(params):
+        """Each super-block's first 4096 elements of each leaf (the whole
+        leaf for an unstacked one), copied: what "every leaf changes" is
+        read on."""
+        out = {}
+        for path, t in pytree.tree_flatten_with_path(params)[0]:
+            key = pytree.keystr(path)
+            rows = t if "['blocks']" in key else t[None]
+            out[key] = [r.flatten()[:4096].clone() for r in rows]
+        return out
+
+    # (a) TinyLlama-1.1B at full width: bf16 compute, float32 params and
+    # moments, the plain attention path, remat "none" then "full"
+    cfg = dataclasses.replace(configs.get_config("tinyllama-1.1b"),
+                              attn_impl="xla")
+    stream = TokenStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_LM_SEQ,
+                         global_batch=TRAIN_LM_BATCH, seed=0)
+    batches = [on(stream.batch(i)) for i in range(TRAIN_LM_STEPS["none"] + 1)]
+    tokens = TRAIN_LM_BATCH * TRAIN_LM_SEQ
+    # model FLOPs a step: 6 N per token for the matmuls' weights (N without
+    # the input embedding, a lookup) plus attention's 12 L H hd S per token
+    n_mat = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    step_flops = tokens * (6 * n_mat + 12 * cfg.n_layers * cfg.n_heads
+                           * cfg.head_dim * TRAIN_LM_SEQ)
+    baseline = torch.cuda.memory_allocated()
+    lm = {}
+    reset_launches()
+    for remat, n_steps in TRAIN_LM_STEPS.items():
+        model = Model(dataclasses.replace(cfg, remat=remat))
+        opt = AdamW(lr=cosine_schedule(TRAIN_LR, 2, 6), weight_decay=0.01)
+        state = init_state(model, opt,
+                           torch.Generator(device=dev).manual_seed(seed),
+                           device=dev)
+        before = leaf_samples(state.params)
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, gnorms, wall = [], [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated()
+        after = leaf_samples(state.params)
+        unchanged = [k for k in before
+                     if any(torch.equal(a, b)
+                            for a, b in zip(before[k], after[k]))]
+        check(np.isfinite(losses).all() and np.isfinite(gnorms).all(),
+              f"TinyLlama training, remat {remat}: losses {losses}, "
+              f"grad norms {gnorms}")
+        check(not unchanged, f"remat {remat}: leaves (or a super-block of "
+              f"them) unchanged by {n_steps} steps: {unchanged}")
+
+        def run(k):
+            nonlocal state
+            for j in range(k):
+                state, _ = step(state, batches[n_steps + j])
+
+        events, busy_us, class_us, class_n = profile_steps(
+            torch, run, 1, TRAIN_KERNEL_CLASSES)
+        step_ms = 1e3 * float(np.mean(wall[1:]))
+        lm[remat] = {"losses": losses, "grad_norms": gnorms,
+                     "step_ms": [1e3 * w for w in wall],
+                     "steady_step_ms": step_ms,
+                     "tokens_per_s": tokens / (step_ms / 1e3),
+                     "peak_bytes": peak, "baseline_bytes": baseline,
+                     "device_events": events, "busy_us": busy_us,
+                     "class_us": class_us, "class_launches": class_n,
+                     "busy_share": busy_us / 1e3 / step_ms,
+                     "mfu_bf16": step_flops / (step_ms / 1e3)
+                     / BF16_FLOP_PER_S}
+        classes = {k: (round(v / 1e3, 2), int(class_n[k]))
+                   for k, v in class_us.items()}
+        print(f"[24] (a) {card} | TinyLlama-1.1B training, remat {remat!r}, "
+              f"batch {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}, bf16 compute: losses "
+              f"{[round(v, 5) for v in losses]}, grad norms "
+              f"{[round(v, 4) for v in gnorms]}; step {step_ms:.1f} ms "
+              f"(steps {[round(1e3 * w, 1) for w in wall]}), "
+              f"{lm[remat]['tokens_per_s']:.0f} tokens/s, peak "
+              f"{peak / 2**30:.2f} GiB allocated (before the phase "
+              f"{baseline / 2**30:.2f}); profiled step: {events:.0f} device "
+              f"events, busy {busy_us / 1e3:.1f} ms "
+              f"({100 * lm[remat]['busy_share']:.1f}% of the step; by kernel "
+              f"class, ms and launches: {classes}); model "
+              f"FLOPs {step_flops / 1e12:.2f} TFLOP a step, "
+              f"{100 * lm[remat]['mfu_bf16']:.1f}% of the bf16 dense peak",
+              flush=True)
+        del state, step, model
+        torch.cuda.empty_cache()
+    report["launches"]["train_lm"] = all_launches()
+    check(sum(report["launches"]["train_lm"].values()) == 0,
+          f"the digital LM's training launched kernels: "
+          f"{report['launches']['train_lm']}")
+    none, full = lm["none"], lm["full"]
+    check(full["losses"][0] == none["losses"][0],
+          f"step 0's loss differs between remat modes: {none['losses'][0]} "
+          f"and {full['losses'][0]}")
+    rel1 = abs(full["losses"][1] - none["losses"][1]) / abs(none["losses"][1])
+    check(rel1 <= 1e-3, f"step 1's loss across remat modes: {rel1}")
+    check(full["peak_bytes"] < none["peak_bytes"],
+          f"remat 'full' peaks at {full['peak_bytes']} bytes, 'none' at "
+          f"{none['peak_bytes']}")
+    report["lm"] = dict(lm, step1_rel=rel1, step_flops=step_flops,
+                        n_matmul_params=n_mat)
+    report["part_s"] = {"a": time.perf_counter() - t_phase}
+    print(f"[24] (a) step 0's loss equal across remat modes, step 1's within "
+          f"{rel1:.2e}; peak {none['peak_bytes'] / 2**30:.2f} -> "
+          f"{full['peak_bytes'] / 2**30:.2f} GiB with remat 'full'",
+          flush=True)
+
+    # (b) the reduced TinyLlama in float32, card against CPU, 3 steps
+    rcfg = dataclasses.replace(configs.get_reduced("tinyllama-1.1b"),
+                               dtype="float32")
+    rmodel = Model(rcfg)
+    rstream = TokenStream(vocab_size=rcfg.vocab_size, seq_len=64,
+                          global_batch=4, seed=0)
+    rbatches = [rstream.batch(i) for i in range(3)]
+    report["reduced"] = {}
+    for accum in (1, 2):
+        opt = AdamW(lr=cosine_schedule(1e-3, 2, 6), weight_decay=0.01)
+        step = make_train_step(rmodel, opt, accum_steps=accum)
+        s_cpu = init_state(rmodel, opt, torch.Generator().manual_seed(seed),
+                           device="cpu")
+        s_card = pytree.tree_map(lambda t: t.to(dev), s_cpu)
+        states, l_cpu, l_card = [s_cpu], [], []
+        reset_launches()
+        for b in rbatches:
+            s_card, m = step(s_card, on(b))
+            l_card.append(float(m["loss"]))
+        report["launches"][f"train_reduced_accum{accum}"] = all_launches()
+        for b in rbatches:
+            s_cpu, m = step(s_cpu, {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+            states.append(s_cpu)
+            l_cpu.append(float(m["loss"]))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+        worst, exempt, total = adamw_rule(states, s_card.params, 1e-3)
+        check(loss_rel <= 1e-5, f"reduced, accum {accum}: card losses "
+              f"{l_card} against CPU {l_cpu}")
+        check(worst <= 1.0, f"reduced, accum {accum}: an update is "
+              f"{worst:.3f} x (1e-3 x 3 lr) from the CPU's")
+        report["reduced"][accum] = {"loss_rel": loss_rel, "rule": worst,
+                                    "exempt": exempt, "elements": total}
+        print(f"[24] (b) reduced TinyLlama float32, accum {accum}: card vs "
+              f"CPU losses within {loss_rel:.2e} (bound 1e-5), updates within "
+              f"{worst:.4f} of the AdamW rule's 1e-3 x 3 lr ({exempt} of "
+              f"{total} elements exempt: near-zero gradients)", flush=True)
+
+    # B9 is forward-only (C-port3): under autograd it raises on the card too,
+    # and a no_grad prefill launches it once a layer (a check, not counted)
+    pmodel = Model(dataclasses.replace(rcfg, attn_impl="pallas"))
+    pparams = pmodel.init(torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    try:
+        loss_and_grads(pmodel.loss, pparams, on(rbatches[0]))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "forward-only" in refusal,
+          f"a gradient through B9 on the card did not raise: {refusal}")
+    reset_launches()
+    with torch.no_grad():
+        logits, _ = pmodel.prefill(pparams, on(rbatches[0]))
+    torch.cuda.synchronize()
+    b9 = all_launches()["flash_attn_fwd"]
+    check(b9 == rcfg.n_layers and bool(torch.isfinite(logits).all()),
+          f"no_grad prefill through B9: {b9} launches")
+    print(f"[24] (b) attn_impl='pallas' under autograd on the card raises "
+          f"ValueError ({refusal[:40]}...); a no_grad prefill launches B9 "
+          f"{b9} times", flush=True)
+    report["part_s"]["b"] = time.perf_counter() - t_phase
+    # (c) the rfnn LM at batch 8 x 128: B7 and B8 inside the train step
+    rf_cfg = ModelConfig(**RFNN_LM, rfnn_backend="pallas")
+    rf_model = Model(rf_cfg)
+    rf_params = rf_model.init(torch.Generator(device=dev).manual_seed(seed),
+                              device=dev)
+    toks = rng.integers(0, rf_cfg.vocab_size,
+                        (TRAIN_RFNN_BATCH, TRAIN_RFNN_SEQ + 1))
+    rf_batch = on({"tokens": toks[:, :-1].astype(np.int32),
+                   "labels": toks[:, 1:].astype(np.int32)})
+    reset_launches()
+    g_ker, l_ker, _ = loss_and_grads(rf_model.loss, rf_params, rf_batch)
+    torch.cuda.synchronize()
+    n_none = all_launches()
+    reset_launches()
+    g_full, l_full, _ = loss_and_grads(
+        Model(dataclasses.replace(rf_cfg, remat="full")).loss, rf_params,
+        rf_batch)
+    torch.cuda.synchronize()
+    n_full = all_launches()
+    report["launches"]["train_rfnn_grads"] = {
+        k: n_none.get(k, 0) + n_full.get(k, 0) for k in n_none}
+    g_ref, l_ref, _ = loss_and_grads(
+        Model(dataclasses.replace(rf_cfg, rfnn_backend="reference")).loss,
+        rf_params, rf_batch)
+    gk, gr, gf = (pytree.tree_leaves(t) for t in (g_ker, g_ref, g_full))
+    scale = max(float(g.abs().max()) for g in gr)
+    err_ref = max(float((a - b).abs().max()) for a, b in zip(gk, gr)) / scale
+    err_full = max(float((a - b).abs().max()) for a, b in zip(gf, gk)) / scale
+    loss_err = abs(float(l_ker) - float(l_ref))
+    layers = rf_cfg.n_layers
+    check(n_none["deepgrid_fwd_res"] == 3 * layers
+          and n_none["deepgrid_bwd"] == 3 * layers
+          and n_none["deepgrid_fwd"] == 0,
+          f"one rfnn LM gradient at remat 'none' launched {n_none}, not "
+          f"{3 * layers} B7 and {3 * layers} B8")
+    check(n_full["deepgrid_bwd"] == 3 * layers,
+          f"remat 'full' launched {n_full}")
+    check(loss_err <= 1e-5 and err_ref <= 1e-5,
+          f"rfnn LM kernel against reference backend: loss {loss_err}, "
+          f"gradients {err_ref} of scale")
+    check(float(l_full) == float(l_ker) and err_full <= 1e-6,
+          f"rfnn LM remat 'full' against 'none': {err_full} of scale")
+    print(f"[24] (c) rfnn LM (d 64, d_ff 128, tiles of 16) at batch "
+          f"{TRAIN_RFNN_BATCH} x {TRAIN_RFNN_SEQ} ({TRAIN_RFNN_BATCH * TRAIN_RFNN_SEQ}"
+          f" rows a projection): one gradient launches B7 "
+          f"{n_none['deepgrid_fwd_res']}, B8 {n_none['deepgrid_bwd']}, B6 "
+          f"{n_none['deepgrid_fwd']} (remat 'full': B7 "
+          f"{n_full['deepgrid_fwd_res']}, B8 {n_full['deepgrid_bwd']}, B6 "
+          f"{n_full['deepgrid_fwd']}); kernel vs reference backend: loss "
+          f"{loss_err:.2e}, gradients {err_ref:.2e} of scale (bound 1e-5); "
+          f"'full' vs 'none' {err_full:.2e} (bound 1e-6)", flush=True)
+    opt = AdamW(lr=TRAIN_RFNN_LR)
+    step = make_train_step(rf_model, opt)
+    state = TrainState(params=rf_params, opt=opt.init(rf_params))
+    losses = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_RFNN_STEPS + 1):
+        state, m = step(state, rf_batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    rf_s = time.perf_counter() - t0
+    n_train = all_launches()
+    report["launches"]["train_rfnn"] = n_train
+    losses = [float(v) for v in losses]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"rfnn LM training: losses {losses}")
+    check(n_train["deepgrid_fwd_res"] == 3 * layers * (TRAIN_RFNN_STEPS + 1)
+          and n_train["deepgrid_bwd"] == 3 * layers * (TRAIN_RFNN_STEPS + 1),
+          f"rfnn LM training launched {n_train}")
+    print(f"[24] (c) rfnn LM, {TRAIN_RFNN_STEPS + 1} AdamW steps (lr "
+          f"{TRAIN_RFNN_LR}) on one batch: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {1e3 * rf_s / len(losses):.2f} ms a step on "
+          f"the host clock; B7 {n_train['deepgrid_fwd_res']}, B8 "
+          f"{n_train['deepgrid_bwd']} launches", flush=True)
+    report["rfnn"] = {"loss_err": loss_err, "grad_err": err_ref,
+                      "full_err": err_full, "launches_none": n_none,
+                      "launches_full": n_full, "losses": losses,
+                      "step_ms": 1e3 * rf_s / len(losses)}
+    report["part_s"]["c"] = time.perf_counter() - t_phase
+    # B7 and B8 at the projections' grids and the step's rows (not counted)
+    rows = []
+    d, f = rf_cfg.d_model, rf_cfg.d_ff
+    for name, (i_dim, o_dim) in (("wi", (d, f)), ("wo", (f, d))):
+        tiled = TiledAnalogLinear(in_dim=i_dim, out_dim=o_dim,
+                                  tile_size=rf_cfg.rfnn_tile, output="real",
+                                  backend="kernel")
+        p0 = pytree.tree_map(lambda t: t[0],
+                             rf_params["blocks"]["l0_dense"]["mlp"][name])
+        to, ti = tiled.grid()
+        pair = (tiled.tile.v_plan, tiled.tile.u_plan)
+        with torch.no_grad():
+            packed = ops.pack_tile_grid(tiled._tile_args(p0), n=tiled.tile_size,
+                                        plans=((pair,) * ti,) * to)
+        rows += time_deep_shape(
+            f"rfnn_lm_{name}_{to}x{ti}", packed, None, False,
+            {"deepgrid_fwd_res": (TRAIN_RFNN_BATCH * TRAIN_RFNN_SEQ,),
+             "deepgrid_bwd": (TRAIN_RFNN_BATCH * TRAIN_RFNN_SEQ,)}, label="24")
+    report["timings_rfnn"] = rows
+
+    report["part_s"]["c_timings"] = time.perf_counter() - t_phase
+    # (d) the training driver on the card: resume, the straggler path, MoE
+    base = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "4", "--seq",
+            "64", "--log-every", "5"]
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = f"{tmp}/a", f"{tmp}/b"
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = [train_cli.main(base + ["--steps", "12", "--ckpt-dir", a,
+                                         "--ckpt-every", "5"]),
+                  train_cli.main(base + ["--steps", "16", "--ckpt-dir", a,
+                                         "--resume"]),
+                  train_cli.main(base + ["--steps", "16", "--ckpt-dir", b,
+                                         "--ckpt-every", "100"])]
+        resume_s = time.perf_counter() - t0
+        text = out.getvalue()
+        check(rc == [0, 0, 0] and "resumed from step 12 (data step 12)" in text,
+              f"the driver's resume: {rc}\n{text}")
+        like = init_state(Model(configs.get_reduced("tinyllama-1.1b")), AdamW(),
+                          torch.Generator(device=dev).manual_seed(1), device=dev)
+        got, meta = CheckpointManager(a).restore(None, like=like)
+        want, _ = CheckpointManager(b).restore(None, like=like)
+        resume_err = max(
+            float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+            for x, y in zip(pytree.tree_leaves(got.params),
+                            pytree.tree_leaves(want.params)))
+        check(meta["step"] == 16 and resume_err <= 1e-6,
+              f"resumed run against uninterrupted: {resume_err} of scale")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(base + ["--steps", str(DRIVER_STRAGGLER_STEPS),
+                                        "--inject-straggler", "2",
+                                        "--log-every", "20"])
+        straggler_s = time.perf_counter() - t0
+        plan = [line for line in out.getvalue().splitlines()
+                if line.startswith("[ft]")]
+        check(rc == 0 and plan, f"the straggler run printed no recovery "
+              f"plan:\n{out.getvalue()}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_cli.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                                 "--steps", "6", "--batch", "2", "--seq", "32",
+                                 "--log-every", "2"])
+        moe_s = time.perf_counter() - t0
+        moe_lines = out.getvalue().splitlines()
+        check(rc == 0 and moe_lines[-1] == "done", f"qwen2-moe driver: "
+              f"{moe_lines}")
+        report["launches"]["train_driver"] = all_launches()
+    report["driver"] = {"resume_rel": resume_err, "plan": plan,
+                        "resume_s": resume_s, "straggler_s": straggler_s,
+                        "moe_s": moe_s, "moe_log": moe_lines}
+    print(f"[24] (d) launch.train on the card: 12 steps, resume to 16 (final "
+          f"params within {resume_err:.2e} of scale of an uninterrupted run; "
+          f"three runs {resume_s:.1f} s); --inject-straggler 2 over "
+          f"{DRIVER_STRAGGLER_STEPS} steps: {plan[0]} ({len(plan)} plans, "
+          f"{straggler_s:.1f} s); qwen2-moe reduced, 6 steps: "
+          f"{moe_lines[-2]} ({moe_s:.1f} s)", flush=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[24] phase 24 in {report['seconds']:.1f} s (parts end at "
+          f"{ {k: round(v, 1) for k, v in report['part_s'].items()} } s)",
+          flush=True)
     return report
 
 
@@ -3163,13 +3624,12 @@ def main(argv=None) -> int:
             return h.abs() if detect_last else h
         return run
 
-    deep_shapes = {
-        "cascade_64x64_l4": (cascade_packed, cascade_in, True),
-        "mnist_depth4": (mnist_packed, mnist_in, True),
-        "tiled_64x64": (ops.pack_tile_grid(tiled._tile_args(tparams), n=16),
-                        None, False)}
-    rows_deep = []
-    for shape_name, (packed, inputs, detect_last) in deep_shapes.items():
+    def time_deep_shape(shape_name, packed, inputs, detect_last, batches,
+                        label="15"):
+        """Phase 15's rows of one grid: for each kernel in ``batches`` and
+        each of its batch sizes, the kernel (per call and on the device),
+        its bound, its plain version and the matmul yardstick, printed
+        under ``label``."""
         inputs = inputs or deep_inputs(packed)
         mats = layer_matrices(packed)
         lib_fwd = yardstick(mats, detect_last)
@@ -3177,7 +3637,7 @@ def main(argv=None) -> int:
         max_rel_check(f"{shape_name} yardstick is the same function",
                       lib_fwd(x_chk), givens_mesh.launch_deepgrid(
                           *inputs, x_chk, detect_last=detect_last), 64)
-        batches = DEEP_TIMED_BATCHES[shape_name]
+        rows = []
         for name, bs in batches.items():
             for b in bs:
                 width_in = inputs[0].shape[2] * 2 * inputs[0].shape[-1]
@@ -3216,41 +3676,53 @@ def main(argv=None) -> int:
                 bound_ms, bound_by, nbytes, flops = deep_bound(name, inputs, b,
                                                                detect_last)
                 parent_ms = DEEP_PARENT_MS.get((name, shape_name, b))
-                rows_deep.append({"kernel": name, "shape": shape_name, "B": b,
-                                  "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
-                                  "plain_ms": p_ms, "matmul_ms": l_ms,
-                                  "matmul_device_ms": ld_ms,
-                                  "bound_ms": bound_ms, "bound_by": bound_by,
-                                  "bytes": nbytes, "flops": flops,
-                                  "columns": inputs[0].shape[3],
-                                  "parent_device_ms": parent_ms})
+                rows.append({"kernel": name, "shape": shape_name, "B": b,
+                             "kernel_ms": k_ms, "kernel_device_ms": kd_ms,
+                             "plain_ms": p_ms, "matmul_ms": l_ms,
+                             "matmul_device_ms": ld_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "bytes": nbytes, "flops": flops,
+                             "columns": inputs[0].shape[3],
+                             "parent_device_ms": parent_ms})
                 what = ("the dx chain alone" if name == "deepgrid_bwd"
                         else "the layer matrices")
                 if name == "deepgrid_bwd":
                     plan = givens_mesh.deepgrid_bwd_plan(
                         b, 2 * inputs[0].shape[-1], *inputs[0].shape[:4],
                         detect_last)
-                    rows_deep[-1]["plan"] = plan
-                    layout = (f"; plan {plan}; before the redesign "
-                              f"{parent_ms} ms on the device (PERF.md)")
+                    rows[-1]["plan"] = plan
+                    layout = f"; plan {plan}"
                 else:
                     plan = givens_mesh.deepgrid_fwd_plan(
                         b, 2 * inputs[0].shape[-1], *inputs[0].shape[:4],
                         save_stages=name == "deepgrid_fwd_res")
-                    rows_deep[-1]["plan"] = plan
+                    rows[-1]["plan"] = plan
                     path = "register" if plan["register_path"] else "general"
                     layout = (f"; {path} path, R={plan['rows']}, "
                               f"{plan['blocks']} blocks of {plan['threads']} "
                               f"threads, {plan['shared_bytes']} shared bytes "
-                              f"a block; before the redesign {parent_ms} ms "
-                              f"on the device (PERF.md)")
-                print(f"[15] {card} | {name} {shape_name} B={b} (C="
+                              f"a block")
+                if parent_ms is not None:
+                    layout += (f"; before the redesign {parent_ms} ms on the "
+                               f"device (PERF.md)")
+                print(f"[{label}] {card} | {name} {shape_name} B={b} (C="
                       f"{inputs[0].shape[3]}): kernel {k_ms:.5f} ms per call, "
                       f"{kd_ms:.5f} ms on the device; bound {bound_ms:.6f} ms "
                       f"({bound_by}, {flops / 1e9:.4f} GFLOP, "
                       f"{nbytes / 1e6:.3f} MB); plain {p_ms:.3f} ms per call; "
                       f"matmul over {what} {l_ms:.5f} ms per call, "
                       f"{ld_ms:.5f} ms on the device{layout}", flush=True)
+        return rows
+
+    deep_shapes = {
+        "cascade_64x64_l4": (cascade_packed, cascade_in, True),
+        "mnist_depth4": (mnist_packed, mnist_in, True),
+        "tiled_64x64": (ops.pack_tile_grid(tiled._tile_args(tparams), n=16),
+                        None, False)}
+    rows_deep = []
+    for shape_name, (packed, inputs, detect_last) in deep_shapes.items():
+        rows_deep += time_deep_shape(shape_name, packed, inputs, detect_last,
+                                     DEEP_TIMED_BATCHES[shape_name])
     report["timings_deep"] = rows_deep
 
     # -- phase 16 (a): the flash attention kernel against its plain version --
@@ -3752,11 +4224,12 @@ def main(argv=None) -> int:
         sass = subprocess.run([str(cuobjdump), "-sass", str(
             cuda_build.library_path("flash_attn_fwd"))], capture_output=True,
             text=True, timeout=300, check=True).stdout
-        ops = [w for w in sass.split() if w.startswith("HMMA")]
-        hmma = len(ops)
+        hmma_ops = [w for w in sass.split() if w.startswith("HMMA")]
+        hmma = len(hmma_ops)
         check(hmma > 0, "B9's library holds no HMMA instruction")
-        print(f"[21] {hmma} HMMA instructions in B9's SASS ({sorted(set(ops))}"
-              ": mma.sync on the tensor cores)", flush=True)
+        print(f"[21] {hmma} HMMA instructions in B9's SASS "
+              f"({sorted(set(hmma_ops))}: mma.sync on the tensor cores)",
+              flush=True)
         report["b9_hmma_instructions"] = hmma
     else:
         print(f"[21] {cuobjdump} not found: HMMA count not taken", flush=True)
@@ -3772,17 +4245,24 @@ def main(argv=None) -> int:
                                         reset_launches, all_launches)
     launches.update(report["families"]["launches"])
 
+    # -- phase 24: LM training ----------------------------------------------
+    report["training"] = training_phase(torch, dev, card, args.seed,
+                                        reset_launches, all_launches,
+                                        time_deep_shape)
+    launches.update(report["training"]["launches"])
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 24: the kernels line and the device line ------------------------
+    # -- phase 25: the kernels line and the device line ------------------------
     main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
                  "processor_apply", "processor_program", "train_fused",
                  "mnist_deep", "train_mnist_deep", "tiled_apply", "tiled_train",
                  "cascade", "serving_deep", "lm_serve", "lm_teacher",
                  "lm_paths", "lm_card_cpu", "lm_engine", "lm_rfnn", "compiler",
-                 *report["families"]["launches"])
+                 *report["families"]["launches"],
+                 *report["training"]["launches"])
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{

@@ -1,0 +1,5 @@
+"""Fault-tolerant checkpointing."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

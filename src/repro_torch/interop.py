@@ -14,7 +14,10 @@ hybrid's unstacked ``shared_attn``, the encoder-decoder's ``enc_blocks``
 and ``dec_blocks``) round-trip exactly.  ``program_layer_from_numpy`` and
 ``tiled_program_from_numpy`` carry a compiler program's fields (the JAX
 package's, read as numpy) into the port's ``ProgramLayer`` and
-``TiledAnalogProgram``.
+``TiledAnalogProgram``.  ``train_state_from_numpy`` and
+``train_state_to_numpy`` carry an LM train state (params, AdamW's ``m``,
+``v`` and ``step``) between the JAX package's ``TrainState`` read as numpy
+and the port's.
 """
 
 from __future__ import annotations
@@ -130,3 +133,48 @@ def tiled_program_from_numpy(tp, device=None, draws=None):
         placement=None if pl is None else TilePlacement(
             tuple(int(v) for v in pl.row_perm),
             tuple(int(v) for v in pl.col_perm)))
+
+
+def _moment_from_numpy(tree, device):
+    """A moment tree; bfloat16 leaves (``ml_dtypes``' numpy bfloat16) kept
+    bfloat16 through their 16-bit pattern."""
+    if isinstance(tree, dict):
+        return {k: _moment_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.int16), order="C"))
+        return bits.view(torch.bfloat16).to(device)
+    return params_from_numpy(a, device)
+
+
+def train_state_from_numpy(state, device=None):
+    """A train state of another package (any object with ``.params`` and
+    ``.opt.step``, ``.opt.m``, ``.opt.v`` holding array-like leaves, e.g. the
+    JAX package's ``TrainState`` after ``jax.tree.map(np.asarray, ...)``)
+    -> the port's ``TrainState`` on ``device``: params as
+    :func:`params_from_numpy`, the moments in their dtype (float32 or
+    bfloat16), ``step`` an int32 0-d tensor."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.step import TrainState
+
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, device),
+        opt=OptState(step=torch.tensor(int(np.asarray(opt.step)),
+                                       dtype=torch.int32, device=device),
+                     m=_moment_from_numpy(opt.m, device),
+                     v=_moment_from_numpy(opt.v, device)))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` -> the same ``TrainState`` with numpy
+    leaves (host copies; bfloat16 moments widened to float32, exactly)."""
+    from torch.utils import _pytree as pytree
+
+    def host(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy().copy()
+
+    return pytree.tree_map(host, state)

@@ -16,8 +16,12 @@ On a CUDA tensor it launches the hand-written kernel ``csrc/flash_attn_fwd.cu``
 JAX package's Pallas TPU kernel ``repro/kernels/flash_attention.py: _kernel``;
 on a CPU tensor it runs :func:`flash_attention_plain`, the dense-softmax twin
 (``ref.flash_attention_ref``).  Any other device raises.  There is no fallback
-from the kernel to its plain version.  Forward only, as the TPU kernel: it is
-used for prefill and evaluation, never under autograd.
+from the kernel to its plain version.  Forward only, as the TPU kernel:
+``flash_attention`` and ``launch`` raise ``ValueError`` when grad mode is on
+and q, k or v requires grad, on either device (the kernel writes its output
+through a raw pointer, so a gradient would silently stop there).  Training
+uses ``attn_impl="xla"``; prefill, decode and evaluation run under
+``torch.no_grad()``.
 
 The kernel's design and its bound are noted in its source.
 """
@@ -60,6 +64,15 @@ def _check(q, k, v) -> None:
         raise ValueError(f"head dim must be in [1, {MAX_HEAD_DIM}], got {hd}")
 
 
+def _forward_only(q, k, v) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "the flash attention kernel B9 is forward-only, like the TPU "
+            "kernel it replaces: it has no backward.  Train with "
+            "attn_impl='xla'; run prefill, decode and evaluation under "
+            "torch.no_grad()")
+
+
 def kernel_strides(q, k, v, o) -> list[int]:
     """The batch, head and sequence strides (elements) of q, k, v and o, in
     the kernel's order.  Raises unless each one's last dim is contiguous:
@@ -85,8 +98,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool = True) -> torch.Tensor:
     """Launch kernel B9 on the current stream; q, k, v CUDA tensors with
     their last dim contiguous (raises otherwise), any other strides.  The
-    output takes q's layout (``torch.empty_like``)."""
+    output takes q's layout (``torch.empty_like``).  Raises under autograd
+    (grad mode on and q, k or v requiring grad): B9 has no backward."""
     _check(q, k, v)
+    _forward_only(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"the flash attention kernel runs on CUDA tensors, "
                          f"got {q.device}")
@@ -125,9 +140,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The kernel on a CUDA tensor, the plain version on a CPU tensor.  Raises
     ``ValueError`` when Sq or Skv does not divide ``min(bq, Sq)`` or
-    ``min(bk, Skv)``, as the JAX package's kernel does.
+    ``min(bk, Skv)``, as the JAX package's kernel does, and under autograd
+    (grad mode on and q, k or v requiring grad) on both devices: the kernel
+    is forward-only, as the JAX package's (``jax.grad`` cannot pass it).
     """
     _check(q, k, v)
+    _forward_only(q, k, v)
     sq, skv = q.shape[2], k.shape[2]
     bq_, bk_ = min(bq, sq), min(bk, skv)
     if (bq_ and sq % bq_) or (bk_ and skv % bk_):

@@ -6,7 +6,8 @@ torch (``attn_impl="xla"``) or, with ``attn_impl="pallas"``, the flash
 attention kernel B9 (``repro_torch.kernels.flash_attention``) for every
 self-attention length: B9 tiles ragged lengths itself, where the JAX
 package's TPU kernel takes the chunked loop unless the length divides
-``min(attn_chunk, S)``.  Decode reads and writes a KV
+``min(attn_chunk, S)``.  B9 is forward-only, so ``"pallas"`` raises under
+autograd (train with ``"xla"``).  Decode reads and writes a KV
 cache; the port writes the cache in place (the JAX package returns a new
 one), reproducing ``dynamic_update_slice``'s clamp of the write position to
 the cache's last slot.  Sharding constraints are dropped: without a mesh

@@ -7,7 +7,10 @@ non-causal self-attention without RoPE; the decoder runs causal RoPE
 self-attention (the JAX package's documented deviation from whisper's
 learned positions) plus cross-attention to the encoder memory.  Encoder
 and decoder layers are stacked over a leading layer axis and a Python loop
-indexes them (the JAX package scans).  With ``attn_impl="pallas"`` the
+indexes them (the JAX package scans); ``remat="full"`` or ``"dots"``
+checkpoints each decoder layer whole, as the JAX package's
+``jax.checkpoint`` of its decoder scan body (``"outputs"`` keeps
+everything, as there).  With ``attn_impl="pallas"`` the
 encoder and the decoder's self-attention run kernel B9; cross-attention,
 whose keys are the encoder's frames, runs the plain chunked loop, as in
 the JAX package.
@@ -21,6 +24,7 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.lm import checkpointed, unstack
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -69,8 +73,7 @@ def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
     pe = torch.from_numpy(sinusoids(x.shape[1], cfg.d_model)).to(x.device)
     x = x + pe.to(x.dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_enc_layers):
-        lp = _layer(params["enc_blocks"], i)
+    for lp in unstack(params["enc_blocks"], cfg.n_enc_layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         x = x + attn_lib.attention(lp["attn"], cfg, h, positions,
                                    causal=False, rope=False)
@@ -103,9 +106,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     memory = encode(params, cfg, frames)
     x = L.embed_tokens(params["embed"], cfg, tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, _, _ = _dec_layer(_layer(params["dec_blocks"], i), cfg, x,
-                             positions, memory)
+
+    def layer(lp, x):
+        return _dec_layer(lp, cfg, x, positions, memory)[0]
+
+    if cfg.remat in ("full", "dots"):
+        layer = checkpointed(layer, "full")
+    for lp in unstack(params["dec_blocks"], cfg.n_layers):
+        x = layer(lp, x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -13,15 +13,37 @@ the family's repeating pattern:
                by every invocation, each with its own KV cache: zamba2's
                weight tying)
 
-Modes: ``forward`` (evaluation over a full sequence), ``prefill`` (forward
-plus cache) and ``decode_step`` (one token).  Caches are stacked over the
-same super-block axis and written in place.  ``remat`` is a training knob
-and is ignored.
+Modes: ``forward`` (training and evaluation over a full sequence),
+``prefill`` (forward plus cache) and ``decode_step`` (one token).  Caches
+are stacked over the same super-block axis and written in place.
+
+``cfg.remat`` sets what ``forward`` keeps for the backward pass, as the
+JAX package's ``jax.checkpoint`` around its scan body:
+
+  none     everything autograd saves;
+  full     each super-block's input only: every super-block runs under
+           ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in
+           the backward pass;
+  outputs  the residual stream between sub-layers (norm + attention, norm +
+           MLP or MoE, norm + SSM), each sub-layer checkpointed on its own.
+           The JAX package saves each sub-layer's output (``attn_out``,
+           ``mlp_out``, ``ssm_out``) beside the super-block's input; the
+           stream after a sub-layer is its input plus that output, so both
+           keep one ``[B, S, D]`` tensor a sub-layer and recompute the
+           same internals;
+  dots     the outputs of matmuls without batch dims (``aten.mm``/
+           ``aten.addmm``: the projections), everything else recomputed:
+           selective checkpointing of each super-block, as JAX's
+           ``checkpoint_dots_with_no_batch_dims`` (attention's batched
+           score matmuls are recomputed in both).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -93,6 +115,18 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-super-block trees of a stacked tree, each leaf
+    ``torch.unbind``'s view: its backward stacks every super-block's
+    gradient into the stacked leaf once, where indexing each super-block
+    (``_layer``) would add a zero-filled full-size gradient per
+    super-block."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def _embed_input(params, cfg, tokens, vis_embed):
     x = L.embed_tokens(params["embed"], cfg, tokens)
     if cfg.family == "vlm":
@@ -102,29 +136,50 @@ def _embed_input(params, cfg, tokens, vis_embed):
     return x
 
 
-def _attn_layer(lp, cfg, x, positions, *, return_kv=False):
-    """An attention + MLP (or MoE) layer over a full sequence:
-    (x, moe aux, (k, v) or None)."""
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``'s policy: keep the unbatched matmuls' outputs."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_save_dots)
+
+
+def checkpointed(fn, remat: str):
+    """``fn`` run under ``remat``'s checkpointing (``"full"``: plain,
+    ``"dots"``: the matmul-saving policy) when autograd records it, else
+    ``fn`` itself."""
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if remat == "dots":
+            return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                   context_fn=_dots_context)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return run
+
+
+def _attn_sublayer(lp, cfg, x, positions):
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    y = attn_lib.attention(lp["attn"], cfg, h, positions, return_kv=return_kv)
-    kv = None
-    if return_kv:
-        y, kv = y
-    x = x + y
+    return attn_lib.attention(lp["attn"], cfg, h, positions)
+
+
+def _ffn_sublayer(lp, cfg, x):
+    """(y, moe aux or None)."""
     h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
-        y, aux = moe_lib.moe_block(lp["moe"], cfg, h)
-    else:
-        y, aux = L.mlp(lp["mlp"], cfg, h), None
-    return x + y, aux, kv
+        return moe_lib.moe_block(lp["moe"], cfg, h)
+    return L.mlp(lp["mlp"], cfg, h), None
 
 
-def _ssm_layer(lp, cfg, x, *, return_cache=False):
-    h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-    if not return_cache:
-        return x + ssm_lib.ssm_block(lp["ssm"], cfg, h), None
-    y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
-    return x + y, c
+def _ssm_sublayer(lp, cfg, x):
+    return ssm_lib.ssm_block(lp["ssm"], cfg, L.rmsnorm(lp["ln"], x,
+                                                        cfg.norm_eps))
 
 
 def _layers(params, cfg):
@@ -139,6 +194,26 @@ def _layers(params, cfg):
                                   if kind == "shared_attn" else bp[name])
 
 
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _superblock(cfg, kinds, shared, positions, bp, x, aux):
+    """One super-block (params ``bp``) over the full sequence: (x, aux)."""
+    sub = checkpointed(_call, "full") if cfg.remat == "outputs" else _call
+    for i, kind in enumerate(kinds):
+        lp = shared if kind == "shared_attn" else bp[f"l{i}_{kind}"]
+        if kind == "ssm":
+            x = x + sub(functools.partial(_ssm_sublayer, lp, cfg), x)
+            continue
+        x = x + sub(functools.partial(_attn_sublayer, lp, cfg), x, positions)
+        y, a = sub(functools.partial(_ffn_sublayer, lp, cfg), x)
+        x = x + y
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vis_embed: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -146,13 +221,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = _embed_input(params, cfg, tokens, vis_embed)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _, _, kind, lp in _layers(params, cfg):
-        if kind == "ssm":
-            x, _ = _ssm_layer(lp, cfg, x)
-        else:
-            x, a, _ = _attn_layer(lp, cfg, x, positions)
-            if a is not None:
-                aux = aux + a
+    n_super, kinds = superblock_layout(cfg)
+    run = functools.partial(_superblock, cfg, kinds,
+                            params.get("shared_attn"), positions)
+    if cfg.remat in ("full", "dots"):
+        run = checkpointed(run, cfg.remat)
+    elif cfg.remat not in ("none", "outputs"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    for bp in unstack(params["blocks"], n_super):
+        x, aux = run(bp, x, aux)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], cfg, x), aux
 
@@ -191,12 +268,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         y, _ = attn_lib.decode_attention(lp["attn"], cfg, h, lc, pos)
         x = x + y
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        if "moe" in lp:
-            y, _ = moe_lib.moe_block(lp["moe"], cfg, h)
-        else:
-            y = L.mlp(lp["mlp"], cfg, h)
-        x = x + y
+        x = x + _ffn_sublayer(lp, cfg, x)[0]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], cfg, x)[:, 0], cache
 
@@ -215,11 +287,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for l, name, kind, lp in _layers(params, cfg):
         lc = _layer(cache[name], l)
         if kind == "ssm":
-            x, c = _ssm_layer(lp, cfg, x, return_cache=True)
+            h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+            y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
+            x = x + y
             for key, t in c.items():
                 lc[key].copy_(t)
-        else:
-            x, _, (k, v) = _attn_layer(lp, cfg, x, positions, return_kv=True)
-            attn_lib.prefill_into_cache(lc, k, v)
+            continue
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
+                                       return_kv=True)
+        attn_lib.prefill_into_cache(lc, k, v)
+        x = x + y
+        x = x + _ffn_sublayer(lp, cfg, x)[0]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], cfg, x[:, -1:])[:, 0], cache

@@ -26,6 +26,11 @@ class OptState:
     v: Any
 
 
+# a pytree node (paths ``.step``, ``.m[...]``, ``.v[...]``), as the JAX
+# package registers its OptState: checkpoints and interop flatten it
+pytree.register_dataclass(OptState)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: float | Callable[[torch.Tensor], torch.Tensor] = 1e-3

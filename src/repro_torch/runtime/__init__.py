@@ -1,9 +1,18 @@
-"""Serving runtime: per-request SLO accounting, failure injection and the
-analog tile grid's recovery planning."""
+"""Fault-tolerance runtime: straggler monitor, elastic recovery planning
+(chip-level and the analog tile grid's), failure injection and per-request
+SLO accounting."""
 
-from repro_torch.runtime.elastic import TileRecoveryPlan, plan_tile_recovery
+from repro_torch.runtime.elastic import (
+    RecoveryPlan,
+    TileRecoveryPlan,
+    hosts_to_chips,
+    plan_recovery,
+    plan_tile_recovery,
+)
 from repro_torch.runtime.failures import Failure, FailureInjector, tile_row_failures
 from repro_torch.runtime.slo import SLOTracker
+from repro_torch.runtime.straggler import StragglerMonitor
 
-__all__ = ["Failure", "FailureInjector", "SLOTracker", "TileRecoveryPlan",
-           "plan_tile_recovery", "tile_row_failures"]
+__all__ = ["Failure", "FailureInjector", "RecoveryPlan", "SLOTracker",
+           "StragglerMonitor", "TileRecoveryPlan", "hosts_to_chips",
+           "plan_recovery", "plan_tile_recovery", "tile_row_failures"]

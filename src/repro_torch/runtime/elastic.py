@@ -1,9 +1,26 @@
-"""Analog tile-grid recovery: remap a (To x Ti) grid around dead tiles.
-The tile half of the JAX package's ``repro.runtime.elastic``; its
-chip-level ``RecoveryPlan``/``plan_recovery``/``hosts_to_chips`` wait for
-ROADMAP A11.
+"""Elastic recovery planning: the counterpart of the JAX package's
+``repro.runtime.elastic``, pure data and numpy.
 
-A dead tile (or a whole dead tile row) cannot shrink the kernel grid, since
+**Chip-level planner** (``RecoveryPlan``, ``plan_recovery``,
+``hosts_to_chips``).  Given the surviving chip count, choose the largest
+valid (pod, data, model) mesh and the config adjustments needed to resume:
+
+  * losing a full pod: 512 -> 256 drops the "pod" axis (DP halves,
+    grad-accum doubles to keep the global batch);
+  * losing k hosts inside a pod: the data axis shrinks to the largest
+    divisor the surviving hosts tile, the model axis kept at its width;
+  * below a floor, the plan reports non-viable for operator intervention.
+
+Its constants are the reference's fleet, not this card's: ``HOST_CHIPS``
+(4 chips a host) and ``MODEL_AXIS`` (a tensor-parallel degree of 16, fixed
+by the reference's inter-chip ring), with a 512-chip original fleet.  The
+training driver (``repro_torch.launch.train``) prints the plan when the
+straggler monitor drops a host; nothing applies it yet, since the port has
+no multi-device mesh (ROADMAP A11).
+
+**Analog tile-grid recovery** (``TileRecoveryPlan``,
+``plan_tile_recovery``): remap a (To x Ti) grid around dead tiles.  A dead
+tile (or a whole dead tile row) cannot shrink the kernel grid, since
 the matrix still needs every logical block, but the row x column
 permutation freedom of the block decomposition (``compile/placement.py``)
 can park the least important logical tiles on the dead positions, where
@@ -17,6 +34,62 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+#: the reference fleet's chips a host (not this card's)
+HOST_CHIPS = 4
+#: the reference fleet's tensor-parallel degree, fixed by its inter-chip ring
+MODEL_AXIS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryPlan:
+    mesh_shape: tuple[int, ...]
+    mesh_axes: tuple[str, ...]
+    dp_shards: int
+    accum_multiplier: int      # scale grad-accum to preserve global batch
+    dropped_chips: int
+    viable: bool
+    reason: str = ""
+
+    @property
+    def chips(self) -> int:
+        n = 1
+        for s in self.mesh_shape:
+            n *= s
+        return n
+
+
+def plan_recovery(surviving_chips: int, *, original_chips: int = 512,
+                  min_data: int = 4,
+                  model_axis: int = MODEL_AXIS) -> RecoveryPlan:
+    """Largest valid (pod, data, model) mesh within the surviving fleet.
+
+    ``model_axis`` is the fixed tensor-parallel degree (default the
+    reference's 16).
+    """
+    if surviving_chips >= original_chips:
+        pods = original_chips // (16 * model_axis)
+        return RecoveryPlan((pods, 16, model_axis),
+                            ("pod", "data", "model"), pods * 16, 1,
+                            surviving_chips - original_chips, True)
+    # single-pod meshes with a shrinking data axis
+    full_dp = original_chips // model_axis
+    for data in (16, 12, 8, 6, 4):
+        chips = data * model_axis
+        if chips <= surviving_chips and data >= min_data:
+            accum = max(1, full_dp // data)  # preserve the global batch
+            return RecoveryPlan((data, model_axis), ("data", "model"), data,
+                                accum, surviving_chips - chips, True)
+    return RecoveryPlan((), (), 0, 0, surviving_chips, False,
+                        reason=f"only {surviving_chips} chips alive; "
+                               f"need >= {min_data * model_axis}")
+
+
+def hosts_to_chips(surviving_hosts: int, *,
+                   host_chips: int = HOST_CHIPS) -> int:
+    return surviving_hosts * host_chips
+
 
 
 @dataclasses.dataclass(frozen=True)

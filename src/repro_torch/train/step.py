@@ -1,18 +1,114 @@
-"""The minibatch-SGD step shared by the paper pipelines.
+"""Training steps: the LM train step and the paper pipelines' SGD step.
 
-:func:`make_sgd_step` is the counterpart of the JAX package's
-``repro.train.step.make_sgd_step`` (without its ``mesh=`` data-parallel
-form).  It is functional like the JAX step: params in, new params out.
-Gradients flow through whatever backend the model's layers select; with
-the analog layers' ``backend="kernel"`` on CUDA tensors the backward of
-every mesh runs the CUDA kernel B2, so training and inference share one
-hot loop.
+The counterpart of the JAX package's ``repro.train.step``.  Both steps are
+functional like the JAX ones: state in, new state out, no input changed.
+
+:func:`make_train_step` is the LM step: loss -> grads -> (compressed)
+AdamW update, with microbatched gradient accumulation (``accum_steps``):
+the global batch is split along axis 0 and the micro-batches' gradients
+summed in float32 and divided by their count, as the JAX package's
+``lax.scan`` body does, which divides activation memory by the
+accumulation factor at the same global batch.  The sharding spec
+(``state_specs``) waits for the multi-device slice (ROADMAP A11).
+
+:func:`make_sgd_step` is the minibatch-SGD step shared by the paper
+pipelines (without the JAX package's ``mesh=`` data-parallel form).
+
+Gradients flow through whatever backend the model's layers select: with
+the analog layers' ``backend="kernel"`` on CUDA tensors a mesh's backward
+runs the CUDA kernel B2, a tile grid's B8 (the LM's ``linear_impl="rfnn"``
+MLP through B7 and B8), so training and inference share one hot loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.optim.adamw import AdamW, OptState
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: OptState
+
+
+# a pytree node (paths ``.params[...]``, ``.opt.m[...]``): checkpoints
+# flatten it
+pytree.register_dataclass(TrainState)
+
+
+def init_state(model, optimizer: AdamW, generator: torch.Generator, *,
+               device=None) -> TrainState:
+    """``model.init`` params drawn from ``generator`` on ``device`` (CUDA
+    when None) and a fresh optimizer state beside them."""
+    params = model.init(generator, device=device)
+    return TrainState(params=params, opt=optimizer.init(params))
+
+
+def loss_and_grads(loss_fn, params, batch):
+    """(grads, loss, metrics) of ``loss_fn(params, batch) -> (loss,
+    metrics)``, all detached; a leaf the loss does not reach gets a zero
+    gradient, as ``jax.grad`` gives it."""
+    leaves, spec = pytree.tree_flatten(params)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(pytree.tree_unflatten(live, spec), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return pytree.tree_unflatten(grads, spec), loss.detach(), metrics
+
+
+def make_train_step(model, optimizer: AdamW, accum_steps: int = 1):
+    """Build ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` is a dict of tensors whose axis 0 is the batch.  ``metrics``
+    holds the model's loss metrics (``ce``, ``acc``, ``moe_aux``; without
+    accumulation only, as in the JAX package) and ``loss``, ``grad_norm``
+    (the global float32 norm before clipping) and ``step``, all detached.
+    """
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+
+    def train_step(state: TrainState, batch: dict):
+        params = state.params
+        if accum_steps == 1:
+            grads, loss, metrics = loss_and_grads(model.loss, params, batch)
+            grads = optimizer.compress_grads(grads)
+        else:
+            b = next(iter(batch.values())).shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{accum_steps} micro-batches")
+            mb = b // accum_steps
+            gsum = pytree.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=pytree.tree_leaves(params)[0].device)
+            for i in range(accum_steps):
+                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                grads, micro_loss, _ = loss_and_grads(model.loss, params,
+                                                      micro)
+                grads = optimizer.compress_grads(grads)
+                gsum = pytree.tree_map(lambda a, g: a + g.float(), gsum, grads)
+                loss = loss + micro_loss
+            grads = pytree.tree_map(lambda g: g / accum_steps, gsum)
+            loss = loss / accum_steps
+            metrics = {}
+        new_params, new_opt, gnorm = optimizer.update(params, grads, state.opt)
+        metrics = dict(metrics)
+        metrics.update({"loss": loss, "grad_norm": gnorm,
+                        "step": new_opt.step})
+        return TrainState(params=new_params, opt=new_opt), metrics
+
+    return train_step
 
 
 def make_sgd_step(loss_fn, lr: float, freeze: tuple[str, ...] = ()):
