@@ -230,11 +230,31 @@ exits non-zero):
     on the card: 12 steps with checkpoints, a resume to 16 whose params are
     within 1e-6 of scale of an uninterrupted run's, ``--inject-straggler 2``
     printing a recovery plan, and a 6-step qwen2-moe run;
-25. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
+25. the analog processor across ranks, all on the one card (``spawn``ed
+    processes that load phase 1's libraries; a gloo group whose CUDA tensors
+    go through gloo, ``cpu:gloo,cuda:gloo``, then one rank on NCCL): (a)
+    phase 13's cascade through ``deep_apply(mesh=)`` at rows x data = 2 x 2
+    and 4 x 1 (and 1 x 1 on NCCL), the output and every gradient leaf but
+    the tiles' 0-d scales against phase 13's single-device kernel path (its
+    card-vs-CPU check), every leaf against its float64 witness
+    (``WITNESS_C``), the same bits on every rank, 4 B7 and 4
+    B8 a rank; the step ms per rank and each rank's slab B7/B8 device ms
+    (one rank at a time) beside the single-device ones; (b) phase 14's
+    engine with ``mesh=`` at data = 2, every request equal to a direct
+    apply, no packing after the first tick on every rank; (c) 5
+    ``make_sgd_step(mesh=)`` steps of the paper's (B1/B2) and the depth-4
+    (B7/B8) MNIST networks at batch 10, data = 2, within 1e-5 of the
+    single-device steps; (d) ``lower_tiled(mesh=)`` of a 64x64 matrix equal
+    to the single-device apply; (e) ``pipeline_forward`` of
+    ``AnalogSequence(8, 4)``'s layers as four stages over 8 microbatches
+    against the single-device apply; the collectives that ran on CUDA
+    tensors and those staged through host memory;
+26. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
     line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
-to 14, 17 to 20, 22, and each part of 23 and 24) and read just after;
+to 14, 17 to 20, 22, each part of 23 and 24, and, in each rank, each part
+of 25) and read just after;
 launches made in phases 2, 9, 10, 15, 16, 21 and in 24's B9 check and
 timings do not count.  Timings are also written to
 ``chiprun_out/chip_smoke.json``.
@@ -425,6 +445,14 @@ TRAIN_RFNN_BATCH, TRAIN_RFNN_SEQ = 8, 128
 TRAIN_RFNN_LR = 0.01
 TRAIN_RFNN_STEPS = 12
 DRIVER_STRAGGLER_STEPS = 80
+# phase 25: the analog processor across ranks sharing the one card
+SHARDED_BACKEND = "cpu:gloo,cuda:gloo"
+SHARDED_MESHES = ((2, 2), (4, 1))   # rows x data, four ranks
+SHARDED_TIMED_STEPS = 3
+SHARDED_STEPS = 5
+SHARDED_MICRO, SHARDED_MB = 8, 128  # the pipeline's microbatches
+SHARDED_TIMEOUT_S = 300
+SHARDED_RUNS = (("gloo", SHARDED_BACKEND, 4), ("nccl", "nccl", 1))
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
                attn_chunk=16, dtype="float32", linear_impl="rfnn",
@@ -595,6 +623,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_diff(a, b) -> float:
+    """The largest |a - b| over two trees of tensors."""
+    if isinstance(a, dict):
+        return max(tree_diff(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return max(tree_diff(u, v) for u, v in zip(a, b))
+    return float((a.detach().cpu() - b.detach().cpu()).abs().max())
+
+
 def build_deep_grid(dev, n, depth, to, ti, seed, *, reck="none", parked=None,
                     hw=None):
     """A deep grid's tile dicts on ``dev`` and its pack: random Clements
@@ -672,9 +709,11 @@ def fused_layer_inputs(layer, params):
                            v_p, u_p, 8, dev)]
 
 
-def cascade_grads(device, layers, plans, x, w, *, plain_dtype=None):
-    """The output ``y`` of ``ops.deep_apply`` on ``device`` and the gradients
-    of ``sum(w * y)`` in every tile param and ``x`` (phase 13).  With
+def cascade_grads(device, layers, plans, x, w, *, plain_dtype=None,
+                  mesh=None):
+    """The output ``y`` of ``ops.deep_apply`` on ``device`` (sharded over
+    ``mesh`` when given: phase 25) and the gradients of ``sum(w * y)`` in
+    every tile param and ``x`` (phase 13).  With
     ``plain_dtype`` (``device`` the CPU) the grid runs through the kernels'
     plain forward (``ref.deep_grid_planes``) in that precision on the
     float32 pack, and autograd takes its gradients: float64 is the witness
@@ -703,7 +742,7 @@ def cascade_grads(device, layers, plans, x, w, *, plain_dtype=None):
                                  pu, gains.to(plain_dtype), xx.to(wide),
                                  detect_last=True)[0]
     else:
-        y = ops.deep_apply(tree, xx, n=n, plans=plans)
+        y = ops.deep_apply(tree, xx, n=n, plans=plans, mesh=mesh)
     (y * w.to(device)).sum().backward()
     return y.detach().cpu(), [t.grad.cpu() for t in leaves + [xx]]
 
@@ -1907,6 +1946,405 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the analog processor across ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+def sharded_rank(rank: int, world: int, work: str, tag: str, backend: str,
+                 dev_type: str) -> None:
+    """One rank of phase 25, in a process of its own (``spawn``).
+
+    Joins a ``world``-rank process group on ``backend`` (a ``FileStore`` in
+    ``work``), loads the libraries phase 1 built (and refuses to build one),
+    runs the parts on ``work/inputs.pt``'s models and inputs and writes its
+    results to ``work/<tag>_rank<rank>.pt``.  Every part's launches are
+    counted from 0 just before it and read just after; its single-device
+    references and its timings come after the read.  Four ranks run (a) the
+    cascade at rows x data = 2 x 2 and 4 x 1, (b) the engine, (c) the SGD
+    steps and (d) the compiled program at 2 x 2, (e) the pipeline over four
+    stages; one rank runs (a) and (c) on a 1 x 1 mesh.
+    """
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import compile as compile_mod
+    from repro_torch.core.analog_linear import AnalogSequence
+    from repro_torch.kernels import cuda_build, givens_mesh, ops, schedule
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import pipeline_forward
+    from repro_torch.serving import Request, ServingEngine, as_servable
+    from repro_torch.train import make_sgd_step
+
+    dev = torch.device(dev_type)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        missing = [n for n in LIBRARIES
+                   if not cuda_build.library_path(n).exists()]
+        check(not missing, f"rank {rank}: not built by phase 1: {missing}")
+    dist.init_process_group(
+        backend, store=dist.FileStore(f"{work}/{tag}.store", world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def counted(fn):
+        sync()
+        for k in givens_mesh.LAUNCHES:
+            givens_mesh.LAUNCHES[k] = 0
+        out = fn()
+        sync()
+        return out, {k: v for k, v in givens_mesh.LAUNCHES.items() if v}
+
+    def grid(shape):
+        return init_device_mesh(dev_type, shape,
+                                mesh_dim_names=("rows", "data"))
+
+    try:
+        inp = torch.load(f"{work}/inputs.pt", weights_only=False)
+        res: dict = {"launches": {}}
+        # (a) the cascade, forward and every gradient
+        c = inp["cascade"]
+        deep, (cv, cu, gains) = c["packed"]
+        pv, pu = schedule.deep_grid_parity_arrays(deep, dev)
+        res["cascade"] = {}
+        for rows, data in (SHARDED_MESHES if world > 1 else ((1, 1),)):
+            mesh = grid((rows, data))
+
+            def fwd_bwd():
+                return cascade_grads(dev, c["layers"], c["plans"], c["x"],
+                                     c["w"], mesh=mesh)
+
+            (y, g), n = counted(fwd_bwd)
+            step_ms = []
+            for _ in range(SHARDED_TIMED_STEPS):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                fwd_bwd()
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            # this rank's layer-0 slab and batch shard, B7 and B8 timed one
+            # rank at a time: the others wait at the barrier
+            r = coll.axis_index(mesh, "rows")
+            d = coll.axis_index(mesh, "data")
+            slabs = [ops._slab(t[0:1], r, rows) for t in (cv, pv, cu, pu,
+                                                          gains)]
+            k = c["x"].shape[0] // data
+            xs = c["x"].to(dev)[d * k:(d + 1) * k].contiguous()
+            kernel_ms = None
+            for turn in range(world):
+                if turn == rank and cuda:
+                    out, sv, su = givens_mesh.launch_deepgrid(
+                        *slabs, xs, save_stages=True)
+                    gout = torch.ones_like(out)
+                    kernel_ms = {
+                        "deepgrid_fwd_res": device_ms(torch, lambda: (
+                            givens_mesh.launch_deepgrid(
+                                *slabs, xs, save_stages=True)), 20),
+                        "deepgrid_bwd": device_ms(torch, lambda: (
+                            givens_mesh.launch_deepgrid_backward(
+                                *slabs, xs, sv, su, gout)), 20)}
+                dist.barrier()
+            res["cascade"][f"{rows}x{data}"] = {
+                "y": y, "grads": g, "launches": n, "step_ms": step_ms,
+                "slab_kernel_ms": kernel_ms, "slab_rows": k,
+                "slab_tile_rows": deep.to // rows}
+            res["launches"][f"cascade_{rows}x{data}"] = n
+        # (c) SGD steps over the data axis: the paper's MNIST network (B1,
+        # B2) and the depth-4 one (B7, B8)
+        s = inp["sgd"]
+        mesh = grid((2, 2) if world > 1 else (1, 1))
+        xb, yb = s["x"].to(dev), s["y"].to(dev)
+        res["sgd"] = {}
+        for name, (model, params, lr) in s["models"].items():
+
+            def sgd(step):
+                p = params
+                for _ in range(SHARDED_STEPS):
+                    p, (loss, _) = step(p, xb, yb)
+                return p, float(loss)
+
+            (p_dp, loss_dp), n = counted(lambda: sgd(make_sgd_step(
+                model.loss, lr=lr, mesh=mesh)))
+            p_one, loss_one = sgd(make_sgd_step(model.loss, lr=lr))
+            res["sgd"][name] = {"params_diff": tree_diff(p_dp, p_one),
+                                "loss": loss_dp, "loss_single": loss_one,
+                                "launches": n}
+            res["launches"][f"sgd_{name}"] = n
+        if world > 1:
+            mesh = grid((2, 2))
+            # (b) the engine over both deep models at data = 2
+            e = inp["engine"]
+            res["engine"] = {}
+            for name, model, params, d_in in (
+                    ("tiled", e["tiled"], e["tparams"], 64),
+                    ("sequence", e["seq"], e["seq_params"], 8)):
+                feats = np.random.default_rng(d_in).normal(
+                    size=(256, d_in)).astype(np.float32)   # phase 14's
+
+                def serve():
+                    engine = ServingEngine(as_servable(model, params),
+                                           slots=64, device=dev, mesh=mesh)
+                    reqs = [Request(i, features=f)
+                            for i, f in enumerate(feats)]
+                    for q in reqs:
+                        check(engine.submit(q), "submit refused")
+                    first = engine.tick()
+                    packs = dict(ops.PACK_EVENTS)
+                    engine.run()
+                    return reqs, first, ops.PACK_EVENTS == packs
+
+                (reqs, first, flat), n = counted(serve)
+                with torch.no_grad():
+                    direct = model.apply(params, torch.from_numpy(feats).to(
+                        dev)).cpu().numpy()
+                res["engine"][name] = {
+                    "first_tick": first, "packs_flat": flat,
+                    "served": sum(q.done and not q.failed for q in reqs),
+                    "max_diff": max(float(np.abs(q.result - direct[q.rid])
+                                          .max()) for q in reqs),
+                    "scale": float(np.abs(direct).max()), "launches": n}
+                res["launches"][f"engine_{name}"] = n
+            # (d) the compiled program, lowered with the mesh
+            lw = inp["lowered"]
+            x_low = lw["x"].to(dev)
+            y_low, n = counted(lambda: compile_mod.lower_tiled(
+                lw["program"], mesh=mesh).apply(x_low))
+            y_one = compile_mod.lower_tiled(lw["program"]).apply(x_low)
+            res["lowered"] = {"rel": float((y_low - y_one).abs().max())
+                              / float(y_one.abs().max()), "launches": n}
+            res["launches"]["lowered"] = n
+            # (e) the pipeline: AnalogSequence(8, 4)'s layers as 4 stages
+            pl = inp["pipeline"]
+            stages = init_device_mesh(dev_type, (world,),
+                                      mesh_dim_names=("stage",))
+            layers = pl["params"]["layers"]
+            stacked = pytree.tree_map(lambda *ts: torch.stack(ts), *layers)
+            one = AnalogSequence(n=8, depth=1)
+            xs = pl["x"].to(dev)
+            with torch.no_grad():
+                y_pipe, n = counted(lambda: pipeline_forward(
+                    lambda p, h: one.apply({"layers": (p,)}, h), stages,
+                    "stage", stacked, xs))
+                direct = AnalogSequence(n=8, depth=len(layers)).apply(
+                    pl["params"], xs.reshape(-1, 8)).reshape(xs.shape)
+            res["pipeline"] = {"max_diff": float((y_pipe - direct).abs()
+                                                 .max()),
+                               "scale": float(direct.abs().max()),
+                               "launches": n}
+            res["launches"]["pipeline"] = n
+        res["collectives"] = {"in_place": dict(coll.IN_PLACE),
+                              "host_staged": dict(coll.HOST_STAGED)}
+        torch.save(res, f"{work}/{tag}_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(torch, dev, card: str, inputs: dict, single: dict) -> dict:
+    """Phase 25: the analog processor across ranks, all on the one card.
+
+    Spawns four ranks on a gloo group whose CUDA tensors go through gloo
+    (``SHARDED_BACKEND``), then one rank on NCCL (:func:`sharded_rank`),
+    and holds every rank's results: (a) the cascade's output and gradients
+    against phase 13's single-device kernel path (phase 13's card-vs-CPU
+    check, 1e-5 x n of each one's largest magnitude, on the output and
+    every gradient leaf but the 0-d scales) and its float64 witness (every
+    leaf within ``WITNESS_C`` x 2^-24 M_leaf), 4 B7 and 4 B8 a rank; (b)
+    phase 14's requests
+    served at data = 2 equal to a direct apply, no packing after the first
+    tick; (c) 5 data-parallel SGD steps of the depth-4 MNIST network within
+    1e-5 of the single-device steps; (d) the program lowered with the mesh
+    within 1e-5 of the single-device apply; (e) the pipeline within 1e-5 of
+    the single-device apply.  ``single`` holds phase 13's ``y``, ``grads``,
+    ``witness`` and ``mags`` and the single-device times.  The times are
+    of ranks sharing one card, not of several cards."""
+    import multiprocessing
+    import tempfile
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()   # earlier phases' cached blocks, for the ranks
+    ctx = multiprocessing.get_context("spawn")
+    runs = {}
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(inputs, f"{work}/inputs.pt")
+        for tag, backend, world in SHARDED_RUNS:
+            t0 = time.perf_counter()
+            procs = [ctx.Process(target=sharded_rank, args=(
+                r, world, work, tag, backend, dev.type)) for r in range(world)]
+            for p in procs:
+                p.start()
+            deadline = time.monotonic() + SHARDED_TIMEOUT_S
+            try:
+                while time.monotonic() < deadline and any(
+                        p.is_alive() for p in procs):
+                    if any(p.exitcode not in (None, 0) for p in procs):
+                        break
+                    time.sleep(0.1)
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.terminate()
+                for p in procs:
+                    p.join(30)
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            codes = [p.exitcode for p in procs]
+            check(codes == [0] * world,
+                  f"[25] the {world} {tag} ranks exited {codes}")
+            runs[tag] = [torch.load(f"{work}/{tag}_rank{r}.pt",
+                                    weights_only=False) for r in range(world)]
+            print(f"[25] {world} rank(s) on {backend} done in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ranks = [r for rs in runs.values() for r in rs]
+    report: dict = {"card": card, "backend": SHARDED_BACKEND,
+                    "note": "ranks sharing one card, not several cards"}
+
+    def rel(got, want, n=16):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * n * max(scale, 1e-30),
+              f"[25] {err} from the single-device result (scale {scale})")
+        return err / max(scale, 1e-30)
+
+    # (a) the cascade against phase 13
+    cascade = {}
+    for tag, rs in runs.items():
+        for shape in rs[0]["cascade"]:
+            got = [r["cascade"][shape] for r in rs]
+            y_rel = max(rel(g["y"], single["y"]) for g in got)
+            # phase 13's card-vs-CPU bound on every leaf with entries to
+            # scale by; a 0-d leaf (a tile's scale) is one batch sum that
+            # cancels, which no relative bound holds (card against CPU it
+            # reads up to 5.8e-4 of itself at other inputs, PERF.md): the
+            # witness bounds it below
+            g_rel = max(rel(a, b) for g in got
+                        for a, b in zip(g["grads"], single["grads"])
+                        if b.dim() > 0)
+            g_rel_0d = max(float((a - b).abs()) / max(float(b.abs()), 1e-30)
+                           for g in got
+                           for a, b in zip(g["grads"], single["grads"])
+                           if b.dim() == 0)
+            c_wit = max(witness_reading(g["grads"], single["witness"],
+                                        single["mags"]) for g in got)
+            check(c_wit <= WITNESS_C,
+                  f"[25] {shape} gradients against the float64 witness: "
+                  f"{c_wit:.1f} x 2^-24 M_leaf, bound {WITNESS_C:.1f}")
+            same = all(torch.equal(g["y"], got[0]["y"]) and all(
+                torch.equal(a, b) for a, b in zip(g["grads"],
+                                                  got[0]["grads"]))
+                for g in got)
+            check(same, f"[25] {shape}: the ranks' outputs differ")
+            for g in got:
+                check(g["launches"] == {"deepgrid_fwd_res": 4,
+                                        "deepgrid_bwd": 4},
+                      f"[25] {shape}: a rank's gradient must be 4 B7 and 4 "
+                      f"B8: {g['launches']}")
+            step = [min(g["step_ms"]) for g in got]
+            kms = [g["slab_kernel_ms"] for g in got]
+            cascade[f"{tag} {shape}"] = {
+                "out_rel": y_rel, "grads_rel": g_rel,
+                "scale_grads_rel": g_rel_0d, "witness_in_u_m": c_wit,
+                "step_ms_per_rank": step, "slab_kernel_ms_per_rank": kms,
+                "slab": (got[0]["slab_rows"], got[0]["slab_tile_rows"])}
+            print(f"[25] (a) {card} | the 64x64 cascade (4 layers of 4x4 "
+                  f"tiles of 16, B = {len(single['y'])}) over {len(rs)} rank(s) "
+                  f"sharing one card ({tag}), rows x data {shape}: output "
+                  f"{y_rel:.2e}, gradients {g_rel:.2e} of the single-device "
+                  f"kernel path's largest (the scales' {g_rel_0d:.2e} of "
+                  f"themselves), {c_wit:.1f} x 2^-24 M_leaf from "
+                  f"the float64 witness (bound {WITNESS_C:.1f}), the same "
+                  f"bits on every rank; fwd+bwd step ms per rank "
+                  f"{[round(t, 3) for t in step]} (single device "
+                  f"{single['step_ms']:.3f}); each rank's layer-0 slab "
+                  f"({got[0]['slab_rows']} rows x {got[0]['slab_tile_rows']}"
+                  f" tile rows) B7/B8 device ms, timed one rank at a time, "
+                  f"{kms}; the whole 4-layer cascade's one B7/B8 launch "
+                  f"(phase 15): {single['kernel_ms']}", flush=True)
+    report["cascade"] = cascade
+    # (b) to (e) on the four gloo ranks; (c) also on the NCCL rank
+    for r in runs["gloo"]:
+        for name, e in r["engine"].items():
+            check(e["served"] == 256 and e["first_tick"] == 64
+                  and e["packs_flat"], f"[25] (b) {name}: {e}")
+            check(e["max_diff"] <= 1e-5 * max(1.0, e["scale"]),
+                  f"[25] (b) {name}: served results differ from a direct "
+                  f"apply by {e['max_diff']}")
+            check(e["launches"].get("deepgrid_fwd", 0) >= 4,
+                  f"[25] (b) {name}: no B6 a tick: {e['launches']}")
+        check(r["lowered"]["rel"] <= 1e-5
+              and r["lowered"]["launches"] == {"deepgrid_fwd": 1},
+              f"[25] (d) the sharded compiled apply: {r['lowered']}")
+        check(r["pipeline"]["max_diff"]
+              <= 1e-5 * max(1.0, r["pipeline"]["scale"])
+              and r["pipeline"]["launches"] == {"deepgrid_fwd": 11},
+              f"[25] (e) the pipeline: {r['pipeline']}")
+    for r in ranks:
+        for name, sg in r["sgd"].items():
+            check(sg["params_diff"] <= 1e-5,
+                  f"[25] (c) {name}: data-parallel SGD params differ from "
+                  f"the single-device steps by {sg['params_diff']}")
+        check(r["sgd"]["mnist"]["launches"].get("mesh_fwd", 0) >= SHARDED_STEPS
+              and r["sgd"]["mnist"]["launches"].get("mesh_bwd", 0)
+              >= SHARDED_STEPS, f"[25] (c) mnist: no B1/B2 a step: "
+              f"{r['sgd']['mnist']['launches']}")
+        check(r["sgd"]["mnist_depth4"]["launches"] == {
+            "deepgrid_fwd_res": SHARDED_STEPS, "deepgrid_bwd": SHARDED_STEPS},
+            f"[25] (c) mnist_depth4: a step must be one B7 and one B8: "
+            f"{r['sgd']['mnist_depth4']['launches']}")
+    g0 = runs["gloo"][0]
+    report.update({
+        "engine": [r["engine"] for r in runs["gloo"]],
+        "sgd": [r["sgd"] for r in ranks],
+        "lowered": [r["lowered"] for r in runs["gloo"]],
+        "pipeline": [r["pipeline"] for r in runs["gloo"]],
+        "collectives": {tag: [r["collectives"] for r in rs]
+                        for tag, rs in runs.items()}})
+    print(f"[25] (b) engine over TiledAnalogLinear(64, 64) and "
+          f"AnalogSequence(8, 4) at data = 2 on 4 ranks: 256 requests each "
+          f"== direct apply on every rank (max diff "
+          f"{max(e['max_diff'] for r in runs['gloo'] for e in r['engine'].values()):.1e}), "
+          f"PACK_EVENTS flat after the first tick; (c) {SHARDED_STEPS} SGD "
+          f"steps of the paper's and the depth-4 MNIST networks at batch "
+          f"{SGD_BATCH}, data = 2: params within "
+          f"{max(sg['params_diff'] for r in ranks for sg in r['sgd'].values()):.1e}"
+          f" of the single-device steps (NCCL world 1 included), launches "
+          f"{g0['launches']['sgd_mnist']} and "
+          f"{g0['launches']['sgd_mnist_depth4']} a rank; (d) "
+          f"lower_tiled(mesh=) of a 64x64 matrix at 2x2: "
+          f"{max(r['lowered']['rel'] for r in runs['gloo']):.1e} of the "
+          f"single-device apply; (e) pipeline_forward, 4 stages x 8 "
+          f"microbatches of {SHARDED_MB}: {g0['pipeline']['max_diff']:.1e} "
+          f"from the single-device apply", flush=True)
+    for tag, rs in runs.items():
+        print(f"[25] collectives on {tag}: on CUDA tensors as they are "
+              f"{rs[0]['collectives']['in_place']}, through host memory "
+              f"{rs[0]['collectives']['host_staged']} (rank 0)", flush=True)
+    launches = {}
+    for r in ranks:
+        for part, n in r["launches"].items():
+            total = launches.setdefault(f"sharded_{part}", {})
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[25] phase 25 in {report['seconds']:.1f} s; launches summed over "
+          f"the ranks {launches}", flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2033,13 +2471,6 @@ def main(argv=None) -> int:
 
     def to_cpu(tree):
         return tree_map(lambda t: t.cpu(), tree)
-
-    def max_tree_diff(a, b):
-        if isinstance(a, dict):
-            return max(max_tree_diff(a[k], b[k]) for k in a)
-        if isinstance(a, (tuple, list)):
-            return max(max_tree_diff(u, v) for u, v in zip(a, b))
-        return float((a.cpu() - b.cpu()).abs().max())
 
     # -- phase 2: the kernel against its plain version on the card ----------
     def rand_x(rng, b, n):
@@ -2505,7 +2936,7 @@ def main(argv=None) -> int:
     r_card = _train_loop(tm, p0, x_tr, y_tr, x_te3, y_te3, **kw)
     launches["epoch"] = dict(givens_mesh.LAUNCHES)
     r_cpu = _train_loop(tm, to_cpu(p0), x_tr, y_tr, x_te3, y_te3, **kw)
-    d_epoch = max_tree_diff(r_card["params"], r_cpu["params"])
+    d_epoch = tree_diff(r_card["params"], r_cpu["params"])
     check(d_epoch <= 1e-4, f"card vs CPU epoch params differ by {d_epoch}")
     print(f"[4] one epoch of _train_loop (PROTOTYPE, continuous phases, 100 "
           f"steps): card vs CPU params max |diff| {d_epoch:.2e} (bound 1e-4), "
@@ -2610,7 +3041,7 @@ def main(argv=None) -> int:
           "measure through mesh_fwd")
     _, post_cpu, codes_cpu, info_cpu = train_rfnn2x2(x2, y2, method="search",
                                                      seed=0, device="cpu")
-    d_post = max_tree_diff(post_card, post_cpu)
+    d_post = tree_diff(post_card, post_cpu)
     check(codes_card == codes_cpu, f"2x2 codes {codes_card} vs {codes_cpu}")
     check(d_post <= 1e-5, f"2x2 post params differ by {d_post}")
     print(f"[5] train_rfnn2x2(search) on the card in {train2_s:.2f} s: codes "
@@ -2726,9 +3157,9 @@ def main(argv=None) -> int:
                                      steps=100)
     short_cpu = compile_mod.program(compile_mod.synthesize(w, device="cpu"),
                                     method="fit", steps=100)
-    d_fit = max(max_tree_diff(a.v_params, b.v_params) for a, b in
+    d_fit = max(tree_diff(a.v_params, b.v_params) for a, b in
                 zip(short_card.layers, short_cpu.layers))
-    d_fit = max(d_fit, max(max_tree_diff(a.u_params, b.u_params) for a, b in
+    d_fit = max(d_fit, max(tree_diff(a.u_params, b.u_params) for a, b in
                            zip(short_card.layers, short_cpu.layers)))
     check(d_fit <= 1e-5, f"fit card vs CPU after 100 steps: {d_fit}")
     print(f"[7] svd_synthesis(3x5) error {syn_err:.2e}; program(synthesize(W), "
@@ -2789,7 +3220,7 @@ def main(argv=None) -> int:
           f"once per step and nothing else: {launches['train_fused']}")
     p20_card, _ = fused_training(dev, 20)
     p20_cpu, _ = fused_training("cpu", 20)
-    d_fused = max_tree_diff(p20_card, p20_cpu)
+    d_fused = tree_diff(p20_card, p20_cpu)
     check(d_fused <= 1e-5, f"fused training card vs CPU after 20 steps: "
           f"{d_fused}")
     first_half = next(i for i, v in enumerate(losses) if v < 0.5 * losses[0])
@@ -3360,7 +3791,7 @@ def main(argv=None) -> int:
     p_cpu = to_cpu(dparams)
     for _ in range(20):
         p_cpu, _ = dstep(p_cpu, xb, yb)
-    d_deep20 = max_tree_diff(deep_state["p"], p_cpu)
+    d_deep20 = tree_diff(deep_state["p"], p_cpu)
     check(d_deep20 <= 1e-4, f"depth-4 SGD card vs CPU after 20 steps: "
           f"{d_deep20}")
     per_step_d, busy_d, ours_d, ours_dn = profile_steps(
@@ -3457,7 +3888,7 @@ def main(argv=None) -> int:
         f"tiled training must launch B7 and B8 once per step: "
         f"{launches['tiled_train']}")
     check(all(np.isfinite(tiled_losses)), f"tiled losses {tiled_losses}")
-    d_tiled_train = max_tree_diff(p_t["card"], p_t["cpu"])
+    d_tiled_train = tree_diff(p_t["card"], p_t["cpu"])
     check(d_tiled_train <= 1e-4, f"tiled SGD card vs CPU after {TILED_STEPS} "
           f"steps: {d_tiled_train}")
     print(f"[12] TiledAnalogLinear(64, 64, 16, table1, abs): forward at B=256 "
@@ -4251,18 +4682,60 @@ def main(argv=None) -> int:
                                         time_deep_shape)
     launches.update(report["training"]["launches"])
 
+    # -- phase 25: the analog processor across ranks sharing the card ----------
+    step_ms = []
+    for _ in range(SHARDED_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cascade_grads(dev, cascade_layers, cascade_plans, x_cascade,
+                      w_cascade)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    w_low = np.random.default_rng(args.seed + 7).normal(size=(64, 64)) / 8.0
+    paper_net = MnistRFNN(analog=True, hardware=PROTOTYPE, quantize="table1")
+    pipe_seq = AnalogSequence(n=8, depth=4)
+    report["sharded"] = sharded_phase(torch, dev, card, inputs={
+        "cascade": {"layers": cascade_layers, "plans": cascade_plans,
+                    "packed": cascade_packed, "x": x_cascade,
+                    "w": w_cascade},
+        # phase 14's models (its name ``seq`` is reused by the LM phases)
+        "engine": {"tiled": tiled, "tparams": tparams,
+                   "seq": AnalogSequence(n=8, depth=4, hardware=PROTOTYPE,
+                                         quantize="table1"),
+                   "seq_params": seq_params},
+        "sgd": {"x": xb, "y": yb, "models": {
+            "mnist": (paper_net, paper_net.init(
+                torch.Generator().manual_seed(args.seed)), 0.005),
+            "mnist_depth4": (deep_model, dparams, DEEP_LR)}},
+        "lowered": {"program": compile_mod.program_tiled(
+            compile_mod.synthesize_tiled(w_low, tile=16), method="reck"),
+            "x": torch.from_numpy(np.random.default_rng(args.seed + 8).normal(
+                size=(DEEP_BATCH, 64)).astype(np.float32))},
+        "pipeline": {"params": pipe_seq.init(
+            torch.Generator().manual_seed(args.seed + 6)),
+            "x": torch.from_numpy(np.random.default_rng(args.seed + 9).normal(
+                size=(SHARDED_MICRO, SHARDED_MB, 8)).astype(np.float32))}},
+        single={"y": y_card, "grads": g_card, "witness": g_wit, "mags": mags,
+                "step_ms": min(step_ms),
+                "kernel_ms": {r["kernel"]: r["kernel_device_ms"]
+                              for r in rows_deep
+                              if r["shape"] == "cascade_64x64_l4"
+                              and r["B"] == DEEP_BATCH}})
+    launches.update(report["sharded"]["launches"])
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 25: the kernels line and the device line ------------------------
+    # -- phase 26: the kernels line and the device line ------------------------
     main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
                  "processor_apply", "processor_program", "train_fused",
                  "mnist_deep", "train_mnist_deep", "tiled_apply", "tiled_train",
                  "cascade", "serving_deep", "lm_serve", "lm_teacher",
                  "lm_paths", "lm_card_cpu", "lm_engine", "lm_rfnn", "compiler",
                  *report["families"]["launches"],
-                 *report["training"]["launches"])
+                 *report["training"]["launches"],
+                 *report["sharded"]["launches"])
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{

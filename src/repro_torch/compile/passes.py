@@ -53,6 +53,7 @@ from repro_torch.core import quantize as q_lib
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.optim.adamw import AdamW
+from repro_torch.parallel import collectives as coll
 
 
 def _pad_even(k: int) -> int:
@@ -510,7 +511,8 @@ def calibrate_tiled(tp: TiledAnalogProgram,
     return tp.map_tiles(one)
 
 
-def lower_tiled(tp: TiledAnalogProgram, *, mesh=None) -> CompiledTiledProgram:
+def lower_tiled(tp: TiledAnalogProgram, *, mesh=None, row_axis: str = "rows",
+                data_axis: str = "data") -> CompiledTiledProgram:
     """Emit the tile grid's kernel inputs; returns a servable
     :class:`CompiledTiledProgram` whose ``apply`` is one deep-grid launch
     over the whole (To x Ti) grid.
@@ -518,10 +520,12 @@ def lower_tiled(tp: TiledAnalogProgram, *, mesh=None) -> CompiledTiledProgram:
     Tensors are emitted through ``ops.pack_tile_grid``'s pack cache, packed
     exactly once, here, and handed back on every ``apply``.  A placement on
     ``tp`` is carried onto the compiled program (its ``apply`` undoes it
-    digitally).  ``mesh=`` (the scale-out) waits for ROADMAP A11 and
-    raises.
+    digitally).  ``mesh`` (a ``DeviceMesh`` naming ``row_axis`` and
+    ``data_axis``) makes every ``apply`` shard over tile rows and batch
+    through ``ops.tiled_apply(mesh=)``.
     """
-    kernel_ops._no_mesh(mesh)
+    if mesh is not None:
+        coll.require_axes(mesh, row_axis, data_axis)
     if not tp.programmed:
         raise ValueError("lower_tiled needs a fully programmed tile grid — "
                          "run the `program_tiled` pass first")
@@ -536,14 +540,16 @@ def lower_tiled(tp: TiledAnalogProgram, *, mesh=None) -> CompiledTiledProgram:
         out_dim=tp.out_dim, in_dim=tp.in_dim, tile=tp.tile,
         to=tp.to, ti=tp.ti, plans=plans, tile_args=tile_args,
         hardware=hardware, grid=grid, packed=packed,
-        placement=tp.placement, source=tp)
+        placement=tp.placement, mesh=mesh, row_axis=row_axis,
+        data_axis=data_axis, source=tp)
 
 
 # ---------------------------------------------------------------------------
 # Deep pipeline: a multi-layer cascade of tile grids on one launch
 # ---------------------------------------------------------------------------
 
-def lower_deep(progs, *, mesh=None) -> CompiledDeepProgram:
+def lower_deep(progs, *, mesh=None, row_axis: str = "rows",
+               data_axis: str = "data") -> CompiledDeepProgram:
     """Lower a cascade of programmed tile grids onto one deep-grid pack.
 
     ``progs`` is a sequence of :class:`TiledAnalogProgram`: layer ``l``'s
@@ -560,9 +566,12 @@ def lower_deep(progs, *, mesh=None) -> CompiledDeepProgram:
     gather, and every *interior* boundary is resolved at pack time by
     re-ordering the next layer's packed tile columns into the previous
     layer's physical row order (each tile keeps its own calibration draw).
-    ``mesh=`` waits for ROADMAP A11 and raises.
+    ``mesh``/``row_axis``/``data_axis`` as for :func:`lower_tiled`: every
+    ``apply`` then runs ``ops.deep_apply(mesh=)``, a chain of single-layer
+    sharded launches.
     """
-    kernel_ops._no_mesh(mesh)
+    if mesh is not None:
+        coll.require_axes(mesh, row_axis, data_axis)
     progs = tuple(progs)
     if not progs:
         raise ValueError("lower_deep needs at least one tiled layer program")
@@ -620,4 +629,5 @@ def lower_deep(progs, *, mesh=None) -> CompiledDeepProgram:
         depth=len(progs), to=progs[-1].to, ti=progs[0].ti,
         plans=layer_plans, layer_args=layer_args, hardware=hardware,
         deep=deep, packed=packed, in_placement=progs[0].placement,
-        out_placement=progs[-1].placement, sources=progs)
+        out_placement=progs[-1].placement, mesh=mesh, row_axis=row_axis,
+        data_axis=data_axis, sources=progs)

@@ -25,7 +25,9 @@ The counterpart of the JAX package's ``repro.compile.program``.
 The IR is host-side (frozen dataclasses); the attenuation, scale, mesh
 params and draws are tensors on the device the program was synthesized
 for.  The JAX package's ``block_b``/``interpret`` have no counterpart (see
-``kernels/ops.py``); the ``mesh=`` scale-out waits for ROADMAP A11.
+``kernels/ops.py``).  Lowered with ``mesh=`` (a ``DeviceMesh``), the tiled
+and deep programs shard every ``apply`` over tile rows and batch, one
+launch a layer on each rank's row slab.
 """
 
 from __future__ import annotations
@@ -391,6 +393,11 @@ class CompiledTiledProgram:
     # yield-aware placement (compile/placement.py): the kernel runs the
     # physically permuted grid; apply() permutes the digital tile streams
     placement: "object | None" = None
+    # optional (tile-row x batch) scale-out: with a DeviceMesh every apply
+    # shards through kernels/ops.tiled_apply(mesh=)
+    mesh: "object | None" = None
+    row_axis: str = "rows"
+    data_axis: str = "data"
     # the TiledAnalogProgram this was lowered from: the recovery path
     # re-places and re-lowers it around dead tiles; not part of the kernel
     # contract
@@ -432,9 +439,12 @@ class CompiledTiledProgram:
         from repro_torch.compile import placement as place_lib
 
         plan = _recovery_plan(self.source, dead_tiles, max_dropped_mass)
-        return place_lib.recover_tiled(
+        out = place_lib.recover_tiled(
             self.source, plan, self.hardware if hardware is None else hardware,
             key=key, draws=draws, lower=True, steps=steps, **calibrate_kw)
+        return dataclasses.replace(out, mesh=self.mesh,
+                                   row_axis=self.row_axis,
+                                   data_axis=self.data_axis)
 
     @functools.cached_property
     def _gathers(self):
@@ -462,7 +472,9 @@ class CompiledTiledProgram:
         if cols is not None:
             xc = _gather_tiles(xc, cols, self.tile)
         y = kernel_ops.tiled_apply(None, xc, n=self.tile,
-                                   packed=(self.grid, self.packed))
+                                   packed=(self.grid, self.packed),
+                                   mesh=self.mesh, row_axis=self.row_axis,
+                                   data_axis=self.data_axis)
         if rows is not None:
             y = _gather_tiles(y, rows, self.tile)
         return y.abs()[..., : self.out_dim]
@@ -505,6 +517,11 @@ class CompiledDeepProgram:
     # (output gather); interior placements are already folded into packed
     in_placement: "object | None" = None
     out_placement: "object | None" = None
+    # optional (tile-row x batch) scale-out through deep_apply(mesh=)
+    # (depth runs as a chain of single-layer launches)
+    mesh: "object | None" = None
+    row_axis: str = "rows"
+    data_axis: str = "data"
     # the per-layer TiledAnalogPrograms this was lowered from (logical
     # column order, placements attached): the recovery path re-places one
     # layer and re-lowers the cascade; not part of the kernel contract
@@ -555,7 +572,9 @@ class CompiledDeepProgram:
             key=key, draws=draws, lower=False, steps=steps, **calibrate_kw)
         srcs = (self.sources[:layer] + (recovered,)
                 + self.sources[layer + 1:])
-        return passes_lib.lower_deep(srcs)
+        return passes_lib.lower_deep(srcs, mesh=self.mesh,
+                                     row_axis=self.row_axis,
+                                     data_axis=self.data_axis)
 
     @functools.cached_property
     def _gathers(self):
@@ -581,7 +600,9 @@ class CompiledDeepProgram:
             xc = _gather_tiles(xc, cols, self.tile)
         y = kernel_ops.deep_apply(None, xc, n=self.tile,
                                   packed=(self.deep, self.packed),
-                                  readout="magnitude")
+                                  readout="magnitude", mesh=self.mesh,
+                                  row_axis=self.row_axis,
+                                  data_axis=self.data_axis)
         if rows is not None:
             y = _gather_tiles(y, rows, self.tile)
         return y[..., : self.out_dim]

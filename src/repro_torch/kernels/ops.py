@@ -27,8 +27,12 @@ nothing.
 
 The JAX package's ``_auto_block``/``_pad_batch`` sized batch blocks for the
 TPU's VMEM; the CUDA kernels mask the ragged last tile themselves, so there
-is no ``block_b`` (nor ``interpret``) argument here.  The ``mesh=``
-scale-out of the deep grid waits for ROADMAP A11 and raises.
+is no ``block_b`` (nor ``interpret``) argument here.
+
+With ``mesh=`` (a ``DeviceMesh`` naming a row and a data axis) the deep
+grid shards by tile rows and batch: each rank runs B6/B7 and B8 on its
+tile-row slab of its batch shard, one layer a launch, and every rank
+returns the whole output (``repro_torch.parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -50,11 +54,13 @@ from repro_torch.kernels.schedule import (
     parity_array,
     schedule_from_plan,
 )
+from repro_torch.parallel import collectives as coll
 
 #: Per-entry-point invocation counts of the kernel path (proof that a
 #: configuration went through the kernel wrappers).
 KERNEL_PATH_CALLS = {"mesh_apply": 0, "mesh_apply_cells": 0, "rfnn_linear": 0,
-                     "rfnn_network": 0, "tiled_apply": 0, "deep_apply": 0}
+                     "rfnn_network": 0, "tiled_apply": 0, "deep_apply": 0,
+                     "deep_apply_sharded": 0, "tiled_apply_sharded": 0}
 
 #: Coefficient-pack builds actually executed by :func:`pack_deep_grid`
 #: (cache misses and bypasses), keyed by the entry point that asked for the
@@ -319,16 +325,120 @@ def pack_deep_grid(layers, *, n: int, plans=None,
                                                    build)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh= scale-out of the deep grid is not ported yet: see "
-            "ROADMAP A11")
+# ---------------------------------------------------------------------------
+# the sharded deep grid: (tile-row x batch) over a DeviceMesh
+# ---------------------------------------------------------------------------
+#
+# Each rank runs the same single-layer launch on its (To/rows)-row slab of
+# the replicated coefficients with its batch shard.  The forward needs no
+# collective inside a layer: every row's combine is local to the rank that
+# holds the row.  The backward's input cotangent is the transpose of the row
+# combine: B8 sums its own rows' partials, and an all-reduce over the row
+# axis finishes the sum.  Depth does not fuse across ranks: a layer's
+# re-detected rows are the next layer's whole input, so L > 1 is a chain of
+# single-layer launches, the row slabs gathered back at each boundary, with
+# the boundary |detect| inside the kernel (``detect_last=True``) so padded
+# batch rows get exact zero gradients.
+
+def _slab(t: torch.Tensor, r: int, rows: int) -> torch.Tensor:
+    """Tile-row slab ``r`` of ``rows`` (axis 1, To) of a layer's operand."""
+    k = t.shape[1] // rows
+    return t.narrow(1, r * k, k)
+
+
+def _grid_layer(slabs, x, detect_last: bool, save: bool):
+    """One layer's slab launch: B7 (``save``: ``(out, sv, su)``) or B6
+    (``out``) on a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cuda":
+        return givens_mesh.launch_deepgrid(*slabs, x, detect_last=detect_last,
+                                           save_stages=save)
+    if x.device.type != "cpu":
+        raise ValueError(f"the deep grid runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    out = givens_mesh.deepgrid_forward_plain(*slabs, x,
+                                             detect_last=detect_last)
+    return out if save else out[0]
+
+
+class _ShardedGridLayer(torch.autograd.Function):
+    """One layer of the deep grid on this rank's tile-row slab and batch
+    shard: B7 forward and B8 backward (their plain versions on CPU
+    tensors).  Takes the layer's whole ``[1, To, Ti, ...]`` operands, the
+    same on every rank, and this rank's ``[B_shard, Ti n]`` input; returns
+    its ``[B_shard, To/rows n]`` rows.  The backward hands back the whole
+    coefficient and gain gradients (summed over the data axis, gathered over
+    the row axis) and the shard's input cotangent summed over the row
+    axis."""
+
+    @staticmethod
+    def forward(ctx, coef_v, par_v, coef_u, par_u, gains, x, detect_last,
+                mesh, row_axis, data_axis):
+        r = coll.axis_index(mesh, row_axis)
+        rows = coll.axis_size(mesh, row_axis)
+        slabs = [_slab(t, r, rows) for t in (coef_v, par_v, coef_u, par_u,
+                                              gains)]
+        out, sv, su = _grid_layer(slabs, x, detect_last, save=True)
+        ctx.detect_last, ctx.mesh = detect_last, mesh
+        ctx.row_axis, ctx.data_axis = row_axis, data_axis
+        ctx.save_for_backward(*slabs, x, sv, su)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        args = ctx.saved_tensors + (g.contiguous(),)
+        if g.device.type == "cuda":
+            dcv, dcu, dg, dx = givens_mesh.launch_deepgrid_backward(
+                *args, detect_last=ctx.detect_last)
+        else:
+            dcv, dcu, dg, dx = givens_mesh.deepgrid_backward_plain(
+                *args, detect_last=ctx.detect_last)
+        rows = coll.axis_group(ctx.mesh, ctx.row_axis)
+        data = coll.axis_group(ctx.mesh, ctx.data_axis)
+        dx = coll.all_reduce(dx, rows)
+        dcv, dcu, dg = (coll.all_gather(coll.all_reduce(d, data), rows, dim=1)
+                        for d in (dcv, dcu, dg))
+        return dcv, None, dcu, None, dg, dx, None, None, None, None
+
+
+def _sharded_layer(layer_ops, x, detect_last, mesh, row_axis, data_axis):
+    """:class:`_ShardedGridLayer` when a gradient is wanted, else B6 (or
+    its plain version) on the slab."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in layer_ops + (x,)):
+        return _ShardedGridLayer.apply(*layer_ops, x, detect_last, mesh,
+                                       row_axis, data_axis)
+    slabs = [_slab(t, coll.axis_index(mesh, row_axis),
+                   coll.axis_size(mesh, row_axis)) for t in layer_ops]
+    return _grid_layer(slabs, x, detect_last, save=False)
+
+
+def _deep_apply_sharded(deep, tensors, x2, detect_last, mesh, row_axis,
+                        data_axis) -> torch.Tensor:
+    """The grid over ``mesh``: ``x2`` is the whole ``[B, Ti n]`` complex
+    input, the result the whole ``[B, To n]`` rows, on every rank."""
+    coef_v, coef_u, gains = tensors
+    par_v, par_u = deep_grid_parity_arrays(deep, x2.device)
+    b = x2.shape[0]
+    h = coll.scatter(coll.pad_rows(x2, coll.axis_size(mesh, data_axis)),
+                     mesh, data_axis)
+    for l in range(deep.n_layers):
+        last = l == deep.n_layers - 1
+        layer_ops = tuple(t[l:l + 1] for t in (coef_v, par_v, coef_u, par_u,
+                                                gains))
+        out = _sharded_layer(layer_ops, h, detect_last if last else True,
+                             mesh, row_axis, data_axis)
+        h = coll.gather(out, mesh, row_axis, dim=1)
+        if not last:
+            # the re-detected To rows are the next layer's Ti real inputs
+            h = h.to(torch.complex64)
+    return coll.gather(h, mesh, data_axis)[:b]
 
 
 def deep_apply(layers, x: torch.Tensor, *, n: int, plans=None,
                hardware: hw_lib.HardwareModel | None = None, packed=None,
-               readout: str = "magnitude", mesh=None) -> torch.Tensor:
+               readout: str = "magnitude", mesh=None, row_axis: str = "rows",
+               data_axis: str = "data") -> torch.Tensor:
     """A whole deep tiled network, L layers of a (To x Ti) tile grid, in one
     kernel launch per direction.
 
@@ -342,24 +452,44 @@ def deep_apply(layers, x: torch.Tensor, *, n: int, plans=None,
     params and ``x``: the backward unwinds all layers in one kernel from the
     saved stage boundaries.  ``packed``: a :func:`pack_deep_grid` result,
     skipping the pack and its cache.
+
+    ``mesh``: a ``DeviceMesh`` naming ``row_axis`` and ``data_axis``.  Each
+    layer's grid then shards its tile rows over ``row_axis`` and the batch
+    over ``data_axis``, each rank launching the same kernels on its
+    row slab and batch shard; depth runs as a chain of single-layer
+    launches.  Every rank passes the same whole ``x`` and gets the whole
+    output; gradients come back whole on every rank.  Matches the
+    single-device call to float tolerance; needs ``To % rows == 0``.
     """
     if readout not in ("magnitude", "complex"):
         raise ValueError(f"readout must be 'magnitude' or 'complex', "
                          f"got {readout!r}")
-    _no_mesh(mesh)
     KERNEL_PATH_CALLS["deep_apply"] += 1
     if packed is None:
         packed = pack_deep_grid(layers, n=n, plans=plans, hardware=hardware)
-    deep, (coef_v, coef_u, gains) = packed
+    deep, tensors = packed
     if x.shape[-1] != deep.ti * deep.n:
         raise ValueError(
             f"expected trailing dim {deep.ti * deep.n} (Ti={deep.ti} tiles "
             f"of n={deep.n}), got {tuple(x.shape)}")
     batch_shape = x.shape[:-1]
     x2 = as_complex(x).reshape(-1, deep.ti * deep.n).contiguous()
-    par_v, par_u = deep_grid_parity_arrays(deep, x2.device)
-    y = givens_mesh.deepgrid_forward(coef_v, par_v, coef_u, par_u, gains, x2,
-                                     detect_last=readout == "magnitude")
+    detect_last = readout == "magnitude"
+    if mesh is None:
+        par_v, par_u = deep_grid_parity_arrays(deep, x2.device)
+        y = givens_mesh.deepgrid_forward(tensors[0], par_v, tensors[1], par_u,
+                                         tensors[2], x2,
+                                         detect_last=detect_last)
+    else:
+        KERNEL_PATH_CALLS["deep_apply_sharded"] += 1
+        coll.require_axes(mesh, row_axis, data_axis)
+        rows = coll.axis_size(mesh, row_axis)
+        if deep.to % rows:
+            raise ValueError(
+                f"To={deep.to} tile rows do not shard over {rows} ranks on "
+                f"axis {row_axis!r}")
+        y = _deep_apply_sharded(deep, tensors, x2, detect_last, mesh,
+                                row_axis, data_axis)
     return y.reshape(batch_shape + (deep.to * deep.n,))
 
 
@@ -401,14 +531,17 @@ def pack_tile_grid(tiles, *, n: int, plans=None,
 
 def tiled_apply(tiles, x: torch.Tensor, *, n: int, plans=None,
                 hardware: hw_lib.HardwareModel | None = None, packed=None,
-                mesh=None) -> torch.Tensor:
+                mesh=None, row_axis: str = "rows",
+                data_axis: str = "data") -> torch.Tensor:
     """A (To x Ti) tile-grid matmul, ``sum_i gamma U (D (V x_i))`` per row:
     :func:`deep_apply` on the ``1 x To x Ti`` grid with the complex readout
-    (see :func:`pack_tile_grid`).  ``x`` is ``[..., Ti n]``, the result the
-    complex ``[..., To n]``; the readout (|.|, real part, detector noise)
-    composes on top."""
-    _no_mesh(mesh)
+    (see :func:`pack_tile_grid`; ``mesh``/``row_axis``/``data_axis`` as
+    there).  ``x`` is ``[..., Ti n]``, the result the complex ``[..., To
+    n]``; the readout (|.|, real part, detector noise) composes on top."""
     KERNEL_PATH_CALLS["tiled_apply"] += 1
     if packed is None:
         packed = pack_tile_grid(tiles, n=n, plans=plans, hardware=hardware)
-    return deep_apply(None, x, n=n, packed=packed, readout="complex")
+    if mesh is not None:
+        KERNEL_PATH_CALLS["tiled_apply_sharded"] += 1
+    return deep_apply(None, x, n=n, packed=packed, readout="complex",
+                      mesh=mesh, row_axis=row_axis, data_axis=data_axis)

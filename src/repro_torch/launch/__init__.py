@@ -1,1 +1,2 @@
-"""Entry points: ``serve`` (prefill + batched decode of an LM)."""
+"""Entry points: ``serve`` (prefill + batched decode of an LM), ``train``
+(the LM training driver) and ``mesh`` (the production mesh factory)."""

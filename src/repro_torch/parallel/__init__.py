@@ -1,0 +1,24 @@
+"""Distribution: logical-axis sharding rules, the mesh context, the deep
+grid's (tile-row x batch) shard specs, data and pipeline parallelism (the
+counterpart of ``repro.parallel``).  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` with ``mesh_dim_names`` over an
+initialised process group; every rank runs the same program."""
+
+from repro_torch.parallel.pipeline import bubble_fraction, pipeline_forward
+from repro_torch.parallel.sharding import (
+    ShardingRules,
+    TileGridShardSpecs,
+    active_mesh,
+    data_parallel,
+    default_rules,
+    logical_spec,
+    set_rules,
+    tile_grid_shard_specs,
+    use_mesh_and_rules,
+)
+
+__all__ = [
+    "ShardingRules", "TileGridShardSpecs", "active_mesh", "bubble_fraction",
+    "data_parallel", "default_rules", "logical_spec", "pipeline_forward",
+    "set_rules", "tile_grid_shard_specs", "use_mesh_and_rules",
+]

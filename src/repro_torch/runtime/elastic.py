@@ -15,8 +15,8 @@ Its constants are the reference's fleet, not this card's: ``HOST_CHIPS``
 (4 chips a host) and ``MODEL_AXIS`` (a tensor-parallel degree of 16, fixed
 by the reference's inter-chip ring), with a 512-chip original fleet.  The
 training driver (``repro_torch.launch.train``) prints the plan when the
-straggler monitor drops a host; nothing applies it yet, since the port has
-no multi-device mesh (ROADMAP A11).
+straggler monitor drops a host, as the JAX package's driver does; neither
+rebuilds a mesh from it.
 
 **Analog tile-grid recovery** (``TileRecoveryPlan``,
 ``plan_tile_recovery``): remap a (To x Ti) grid around dead tiles.  A dead

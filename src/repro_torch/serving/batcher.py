@@ -6,7 +6,8 @@ analog ticks) are one :class:`repro_torch.serving.ServingEngine`, and
 ``Request``/``AnalogRequest`` one :class:`repro_torch.serving.Request`.
 These aliases keep old call sites working; they emit
 ``DeprecationWarning``.  As on the engine, ``device=`` picks the card
-(CUDA when None) and ``mesh=`` raises ``NotImplementedError`` (ROADMAP A11).
+(CUDA when None) and ``mesh=``/``data_axis=`` split each tick's panel by
+batch over the mesh's data axis.
 """
 
 from __future__ import annotations
@@ -41,15 +42,15 @@ class AnalogTickBatcher(ServingEngine):
     """Deprecated — ``repro_torch.serving.ServingEngine``.
 
     Same constructor; ``stats`` keeps the old three-counter shape
-    (``dropped`` maps to the engine's ``expired``).  ``data_axis`` only
-    named the ``mesh=`` axis.
+    (``dropped`` maps to the engine's ``expired``).
     """
 
     def __init__(self, model, params=None, *, slots, mesh=None,
                  data_axis="data", failure_injector=None, recovery=None,
                  device=None):
         _warn("AnalogTickBatcher", "repro_torch.serving.ServingEngine")
-        super().__init__(model, params, slots=slots, mesh=mesh, device=device,
+        super().__init__(model, params, slots=slots, mesh=mesh,
+                         data_axis=data_axis, device=device,
                          failure_injector=failure_injector,
                          recovery=recovery)
 

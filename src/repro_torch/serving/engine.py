@@ -21,8 +21,9 @@ The JAX package's ``serving/engine.py``:
 
 A model exposing ``decode_step`` (:class:`repro_torch.models.Model`) is
 served through the LM slot family; both families share the admission
-queue, tick loop and SLO tracker.  Not ported yet: the ``mesh=``
-data-parallel tick panel (ROADMAP A11), which raises.
+queue, tick loop and SLO tracker.  With ``mesh=`` the analog family's tick
+panel splits by batch over the mesh's data axis (every rank runs the same
+engine: see :class:`ServingEngine`).
 
 Tick ordering is load-bearing for deadline/recovery semantics and is kept
 identical to the JAX engine: failures are polled and deadlines expired
@@ -43,6 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import data_parallel
 from repro_torch.runtime.slo import SLOTracker
 from repro_torch.serving.servable import ServableProgram, as_servable
 
@@ -130,19 +133,34 @@ class _AnalogSlots:
     The analog network is stateless, so a tick is: pack up to
     ``n_slots`` admitted requests into a zero-padded ``[n_slots, n_in]``
     panel on ``device``, ONE ``apply``, copy rows back to the host, free
-    every slot.  Unfilled slots ride as zero rows.
+    every slot.  Unfilled slots ride as zero rows.  With ``mesh`` the apply
+    splits the panel by batch over ``data_axis``
+    (:func:`repro_torch.parallel.data_parallel`); the data group's first
+    rank broadcasts its panel before the apply, so every rank computes the
+    same rows.
     """
 
     def __init__(self, servable: ServableProgram, n_slots: int,
-                 device: torch.device):
+                 device: torch.device, *, mesh=None, data_axis: str = "data"):
         self.n_slots = n_slots
         self.device = device
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.active: list[Request] = []
+        if mesh is not None:
+            coll.require_axes(mesh, data_axis)
         self.rebind(servable)
 
     def rebind(self, servable: ServableProgram) -> None:
         """(Re)bind the device call — also the mid-stream recovery swap."""
         self.servable = servable
+
+        def apply(p, x):
+            return servable.apply(x)
+
+        if self.mesh is not None:
+            apply = data_parallel(apply, self.mesh, axis_name=self.data_axis)
+        self._apply = apply
 
     def free_slots(self) -> int:
         return self.n_slots - len(self.active)
@@ -162,8 +180,11 @@ class _AnalogSlots:
         panel = np.zeros((self.n_slots, d), np.float32)
         for i, req in enumerate(active):
             panel[i] = req.payload
+        x = torch.from_numpy(panel).to(self.device)
+        if self.mesh is not None:
+            x = coll.broadcast(x, coll.axis_group(self.mesh, self.data_axis))
         with torch.no_grad():
-            out = self.servable.apply(torch.from_numpy(panel).to(self.device))
+            out = self._apply(None, x)
         out = out.cpu().numpy()
         for i, req in enumerate(active):
             req.result = out[i]
@@ -329,6 +350,16 @@ class ServingEngine:
     program mid-stream — via the ``recovery(dead_tiles)`` callable when
     given, else the servable's own ``recover(dead_tiles)`` — and serving
     continues on the recovered grid.  ``events`` logs each swap.
+
+    Data parallelism (analog path): with ``mesh=`` (a ``DeviceMesh``) each
+    tick's panel splits by batch over ``mesh``'s ``data_axis``, each rank
+    applying the program to its block.  Every rank of the mesh runs its own
+    engine, and the ranks stay in step only if each submits the same
+    requests in the same order and calls the same ticks (``run`` or
+    ``tick``; not the dispatch thread, whose ticks follow each rank's
+    clock).  The data group's first rank broadcasts its panel every tick,
+    so the rows computed are the same on every rank even where admission
+    differed; each rank hands its own requests the rows of their slots.
     """
 
     def __init__(self, program, params=None, *, slots: int,
@@ -337,12 +368,8 @@ class ServingEngine:
                  sample: Callable | None = None,
                  max_queue: int | None = None,
                  admission: str = "block",
-                 mesh=None,
+                 mesh=None, data_axis: str = "data",
                  failure_injector=None, recovery=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh= data-parallel tick panel is not ported yet: see "
-                "ROADMAP A11")
         if admission not in ("block", "reject"):
             raise ValueError(f"admission must be 'block' or 'reject', "
                              f"got {admission!r}")
@@ -360,7 +387,8 @@ class ServingEngine:
                                       self.device, sample=sample)
         else:
             self._impl = _AnalogSlots(as_servable(program, params), slots,
-                                      self.device)
+                                      self.device, mesh=mesh,
+                                      data_axis=data_axis)
         self._pending: deque[Request] = deque()
         self._cond = threading.Condition()
         self._thread: threading.Thread | None = None

@@ -9,10 +9,10 @@ the global batch is split along axis 0 and the micro-batches' gradients
 summed in float32 and divided by their count, as the JAX package's
 ``lax.scan`` body does, which divides activation memory by the
 accumulation factor at the same global batch.  The sharding spec
-(``state_specs``) waits for the multi-device slice (ROADMAP A11).
+(``state_specs``) waits for the LM's multi-device half (ROADMAP A11).
 
 :func:`make_sgd_step` is the minibatch-SGD step shared by the paper
-pipelines (without the JAX package's ``mesh=`` data-parallel form).
+pipelines, with the JAX package's ``mesh=`` data-parallel form.
 
 Gradients flow through whatever backend the model's layers select: with
 the analog layers' ``backend="kernel"`` on CUDA tensors a mesh's backward
@@ -29,6 +29,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.optim.adamw import AdamW, OptState
+from repro_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass
@@ -111,7 +112,9 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1):
     return train_step
 
 
-def make_sgd_step(loss_fn, lr: float, freeze: tuple[str, ...] = ()):
+def make_sgd_step(loss_fn, lr: float, freeze: tuple[str, ...] = (),
+                  mesh=None, data_axis: str = "data",
+                  replicated_args: tuple[int, ...] = ()):
     """Plain minibatch SGD: ``step(params, *batch) -> (params, (loss, aux))``.
 
     ``loss_fn(params, *batch) -> (loss, aux)``.  Top-level param groups
@@ -121,9 +124,32 @@ def make_sgd_step(loss_fn, lr: float, freeze: tuple[str, ...] = ()):
     gradients of everything upstream still flow through them.  ``loss`` and
     ``aux`` come back as detached tensors, so a step does not wait for the
     card.
+
+    With ``mesh`` (a ``DeviceMesh``) the step is data-parallel over its
+    ``data_axis``: every rank passes the same params and the same whole
+    batch, computes loss, aux and gradients on its block of each batch
+    argument's leading axis (which must divide by the axis size), averages
+    all three over the axis, and applies the same update, so the returned
+    params are the same on every rank.  Batch arguments whose leading axis
+    is not the batch are named in ``replicated_args`` by position and not
+    split.
     """
+    if mesh is not None:
+        coll.require_axes(mesh, data_axis)
+
+    def shard(i, t):
+        if i in replicated_args:
+            return t
+        n = coll.axis_size(mesh, data_axis)
+        if t.shape[0] % n:
+            raise ValueError(f"batch argument {i} of {t.shape[0]} rows does "
+                             f"not split over {n} ranks on {data_axis!r}")
+        k = t.shape[0] // n
+        return t[coll.axis_index(mesh, data_axis) * k:][:k]
 
     def step(params: dict, *batch):
+        if mesh is not None:
+            batch = tuple(shard(i, t) for i, t in enumerate(batch))
         live = {k: pytree.tree_map(
                     lambda t: t.detach().requires_grad_(k not in freeze), v)
                 for k, v in params.items()}
@@ -131,12 +157,23 @@ def make_sgd_step(loss_fn, lr: float, freeze: tuple[str, ...] = ()):
         trained = [t for t in leaves if t.requires_grad]
         with torch.enable_grad():
             loss, aux = loss_fn(live, *batch)
-            grads = iter(torch.autograd.grad(loss, trained, allow_unused=True))
+            grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        loss, aux = loss.detach(), aux.detach()
+        if mesh is not None:
+            group = coll.axis_group(mesh, data_axis)
+            n = coll.axis_size(mesh, data_axis)
+
+            def mean(t):
+                return None if t is None else coll.all_reduce(t, group) / n
+
+            loss, aux = mean(loss), mean(aux)
+            grads = [mean(g) for g in grads]
+        grads = iter(grads)
         new = []
         with torch.no_grad():
             for t in leaves:
                 g = next(grads) if t.requires_grad else None
                 new.append(t.detach() if g is None else t - lr * g)
-        return pytree.tree_unflatten(new, spec), (loss.detach(), aux.detach())
+        return pytree.tree_unflatten(new, spec), (loss, aux)
 
     return step

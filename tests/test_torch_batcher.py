@@ -94,7 +94,7 @@ def test_shims_refuse_a_mesh_and_default_to_the_card():
     _, comp = _compiled_tiled()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ValueError, match="no axis"):
             AnalogTickBatcher(comp, slots=2, mesh=object(), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):

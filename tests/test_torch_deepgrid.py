@@ -261,7 +261,7 @@ def test_rfnn_network_and_tiled_apply_are_deep_apply():
     assert {k: ops.KERNEL_PATH_CALLS[k] - before[k]
             for k in ("rfnn_network", "tiled_apply", "deep_apply")} == {
         "rfnn_network": 1, "tiled_apply": 1, "deep_apply": 4}
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="no axis"):
         ops.tiled_apply(tiles, x, n=4, mesh=object())
     with pytest.raises(ValueError, match="readout"):
         ops.deep_apply((tiles,), x, n=4, readout="real")

@@ -242,7 +242,7 @@ def test_unported_engine_modes_raise(deployed):
     # the LM slot family is ported; it refuses to start without a cache length
     with pytest.raises(ValueError, match="max_len"):
         ServingEngine(LM(), None, slots=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="no axis"):
         ServingEngine(tmodel, tparams, slots=2, device="cpu", mesh=object())
     bound = as_servable(tmodel, tparams)
     assert isinstance(bound, ServableProgram) and bound.n_in == 8

@@ -20,8 +20,13 @@ rebuild of a column's input from its output), each as the largest leaf's
 max |a - b| / max |witness| and as phase 13's reading in units of 2^-24
 M_leaf (``chip_smoke.witness_reading``; the card's and the CPU's must stay
 at or below ``chip_smoke.WITNESS_C``, and the tool exits 1 where one does
-not).  Writes the readings to ``chiprun_out/cascade_grads_<label>.json``.
-Needs a CUDA card and ``nvcc``.
+not).  With ``--chain`` the same gradients are also taken through
+``ops.deep_apply(mesh=)`` on a 1 x 1 mesh of a one-rank gloo group (chip_smoke
+phase 25's per-layer chain of B7 and B8 launches) and held against the
+card's fused path, as the largest relative error over the array leaves and
+over the tiles' 0-d scales, and against the float64 witness.  Writes the
+readings to ``chiprun_out/cascade_grads_<label>.json``.  Needs a CUDA card
+and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -58,10 +63,35 @@ def worst(got, want, names):
     return errs[k], names[k]
 
 
+def split_worst(got, want):
+    """The largest per-leaf relative error over the array leaves and over
+    the 0-d leaves (the tiles' scales)."""
+    errs = [(chip_smoke.leaf_rel([a], [b]), b.dim() == 0)
+            for a, b in zip(got, want)]
+    return (max(e for e, scalar in errs if not scalar),
+            max(e for e, scalar in errs if scalar))
+
+
+def one_rank_mesh(work: str):
+    """A 1 x 1 ("rows", "data") mesh on a one-rank gloo group."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group(chip_smoke.SHARDED_BACKEND,
+                            store=dist.FileStore(f"{work}/store", 1), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("rows", "data"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--chain", action="store_true",
+                    help="also the per-layer chain of deep_apply(mesh=)")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -74,6 +104,12 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
+    if args.chain:
+        import tempfile
+
+        work = tempfile.TemporaryDirectory()
+        torch.cuda.set_device(0)
+        mesh = one_rank_mesh(work.name)
     has_witness = ref.split_channels(torch.zeros(
         1, 2, dtype=torch.complex128))[0].dtype == torch.float64
     rows, failed = [], False
@@ -97,15 +133,27 @@ def main(argv=None) -> int:
                 f"{row['output_card_vs_cpu']:.3e}, gradients card vs CPU "
                 f"{row['card_vs_cpu']:.3e} at {row['card_vs_cpu_leaf']} "
                 f"(bound {BOUND:.1e}: "
-                f"{'within' if row['card_vs_cpu'] <= BOUND else 'OVER'})")
+                f"{'within' if row['card_vs_cpu'] <= BOUND else 'OVER'}; "
+                f"arrays %.3e, 0-d scales %.3e)" % split_worst(g_card, g_cpu))
+        if args.chain:
+            g_chain = chip_smoke.cascade_grads(dev, layers, plans, x, w,
+                                               mesh=mesh)[1]
+            row["chain_vs_card_arrays"], row["chain_vs_card_scales"] = \
+                split_worst(g_chain, g_card)
+            line += (f"; the 1 x 1 chain against the card's fused path: "
+                     f"arrays {row['chain_vs_card_arrays']:.3e}, 0-d scales "
+                     f"{row['chain_vs_card_scales']:.3e}")
         if has_witness:
             g_wit, g_auto = (chip_smoke.cascade_grads(
                 "cpu", layers, plans, x, w, plain_dtype=dt)[1]
                 for dt in (torch.float64, torch.float32))
             mags = chip_smoke.witness_magnitudes(layers, plans, x, w)
             line += "; against the float64 witness"
-            for side, g in (("card", g_card), ("cpu", g_cpu),
-                            ("cpu_autograd", g_auto)):
+            sides = [("card", g_card), ("cpu", g_cpu),
+                     ("cpu_autograd", g_auto)]
+            if args.chain:
+                sides.append(("chain", g_chain))
+            for side, g in sides:
                 err, leaf = worst(g, g_wit, names)
                 row[f"{side}_vs_float64"] = err
                 row[f"{side}_vs_float64_leaf"] = leaf
@@ -122,6 +170,9 @@ def main(argv=None) -> int:
             line += f" (bound {chip_smoke.WITNESS_C:.1f} x 2^-24 M_leaf)"
         rows.append(row)
         print(line, flush=True)
+    if args.chain:
+        torch.distributed.destroy_process_group()
+        work.cleanup()
     out = ROOT / "chiprun_out" / f"cascade_grads_{args.label}.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(rows, indent=1))
