@@ -249,12 +249,35 @@ exits non-zero):
     ``AnalogSequence(8, 4)``'s layers as four stages over 8 microbatches
     against the single-device apply; the collectives that ran on CUDA
     tensors and those staged through host memory;
-26. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
+26. the LM across ranks (``launch/specs.py``'s cells, the model code's
+    ``constrain`` calls on DTensors): (a) the dry run on a fake 256-rank
+    group, host only, in three ``spawn``ed processes started beside (b):
+    ``run_cell`` of TinyLlama-1.1B ``train_4k`` and ``decode_32k`` and of
+    ``train_4k`` on ``plan_recovery(140)``'s (8, 16) mesh, each rank's
+    argument, output and peak bytes, FLOPs, collectives by kind and
+    seconds printed; (b) TinyLlama-1.1B at full size (22 layers, bf16
+    weights, ``attn_impl="pallas"``) served on a (data 2 x model 2) mesh of
+    four ``spawn``ed gloo ranks sharing the card (``cpu:gloo,cuda:gloo``,
+    DTensor's functional collectives routed through
+    ``collectives.route_functional_collectives``), the ``prefill_32k`` and
+    ``decode_32k`` cells' rules, runtime config and resolved placements
+    cut to batch 4 x 512 prompt tokens, a cache of 520 and 8 decode steps:
+    the logits within 2e-2 of their scale of the single-device serve path
+    on the card, the same bits on every rank, 22 B9 launches a prefill on
+    each rank on its 16 local heads; (c) the ``train_4k`` cell's rules
+    (pure data parallelism) and runtime config with 4 of 22 layers and
+    float32 activations, batch 8 x 512, ``attn_impl="xla"``: the loss and
+    every gradient leaf within 1e-5 of each leaf's largest magnitude of the
+    single-device step, the params after one ``make_train_step`` step (the
+    profile's AdamW) the same bits on every rank, step ms per rank beside
+    the single-device step; the collectives on CUDA tensors and through
+    host memory;
+27. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
     line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
 to 14, 17 to 20, 22, each part of 23 and 24, and, in each rank, each part
-of 25) and read just after;
+of 25 and 26) and read just after;
 launches made in phases 2, 9, 10, 15, 16, 21 and in 24's B9 check and
 timings do not count.  Timings are also written to
 ``chiprun_out/chip_smoke.json``.
@@ -453,6 +476,15 @@ SHARDED_STEPS = 5
 SHARDED_MICRO, SHARDED_MB = 8, 128  # the pipeline's microbatches
 SHARDED_TIMEOUT_S = 300
 SHARDED_RUNS = (("gloo", SHARDED_BACKEND, 4), ("nccl", "nccl", 1))
+# phase 26: the LM across ranks sharing the one card
+LM_SHARDED_ARCH = "tinyllama-1.1b"
+LM_SHARDED_MESH = (2, 2)                  # data x model, four ranks
+LM_SHARDED_SERVE = (4, 512, 520, 8)       # batch, prompt, cache, steps
+LM_SHARDED_TRAIN = (4, 8, 512)            # layers, batch, seq
+LM_SHARDED_TIMED_STEPS = 3
+LM_SHARDED_TIMEOUT_S = 420
+LM_DRYRUN_CELLS = (("train_4k", None), ("decode_32k", None),
+                   ("train_4k", 140))     # (shape, plan_recovery chips)
 RFNN_LM = dict(name="rfnn-lm", family="dense", n_layers=2, d_model=64,
                n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=97,
                attn_chunk=16, dtype="float32", linear_impl="rfnn",
@@ -1946,6 +1978,28 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
     return report
 
 
+def wait_all(procs, timeout_s: float) -> list:
+    """Exit codes of ``procs`` after they end, a failure ends or
+    ``timeout_s`` passes; every process still alive is stopped."""
+    deadline = time.monotonic() + timeout_s
+    try:
+        while time.monotonic() < deadline and any(p.is_alive()
+                                                  for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [p.exitcode for p in procs]
+
+
 # ---------------------------------------------------------------------------
 # phase 25: the analog processor across ranks sharing the one card
 # ---------------------------------------------------------------------------
@@ -2185,23 +2239,7 @@ def sharded_phase(torch, dev, card: str, inputs: dict, single: dict) -> dict:
                 r, world, work, tag, backend, dev.type)) for r in range(world)]
             for p in procs:
                 p.start()
-            deadline = time.monotonic() + SHARDED_TIMEOUT_S
-            try:
-                while time.monotonic() < deadline and any(
-                        p.is_alive() for p in procs):
-                    if any(p.exitcode not in (None, 0) for p in procs):
-                        break
-                    time.sleep(0.1)
-            finally:
-                for p in procs:
-                    if p.is_alive():
-                        p.terminate()
-                for p in procs:
-                    p.join(30)
-                    if p.is_alive():
-                        p.kill()
-                        p.join()
-            codes = [p.exitcode for p in procs]
+            codes = wait_all(procs, SHARDED_TIMEOUT_S)
             check(codes == [0] * world,
                   f"[25] the {world} {tag} ranks exited {codes}")
             runs[tag] = [torch.load(f"{work}/{tag}_rank{r}.pt",
@@ -2342,6 +2380,450 @@ def sharded_phase(torch, dev, card: str, inputs: dict, single: dict) -> dict:
     report["seconds"] = time.perf_counter() - t_phase
     print(f"[25] phase 25 in {report['seconds']:.1f} s; launches summed over "
           f"the ranks {launches}", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the LM across ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+def lm_dryrun_cell(work: str, index: int) -> None:
+    """Phase 26 (a), one cell of ``LM_DRYRUN_CELLS`` in a process of its own
+    (``spawn``), host only: a fake process group of 256 ranks (or of
+    ``plan_recovery(chips)``'s mesh), ``dryrun.run_cell`` of the cell and its
+    readings written to ``work/dryrun<index>.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime import plan_recovery
+
+    shape, chips = LM_DRYRUN_CELLS[index]
+    plan = plan_recovery(chips) if chips else None
+    dryrun.fake_group(plan.chips if plan else 256)
+    try:
+        mesh = (init_device_mesh("cpu", plan.mesh_shape,
+                                 mesh_dim_names=plan.mesh_axes) if plan
+                else make_production_mesh(device_type="cpu"))
+        res = dryrun.run_cell(LM_SHARDED_ARCH, shape, mesh, False,
+                              verbose=False)
+    finally:
+        dist.destroy_process_group()
+    Path(work, f"dryrun{index}.json").write_text(json.dumps(res))
+
+
+def lm_serve_cells(specs, Model):
+    """Phase 26 (b)'s model (the ``prefill_32k`` runtime config with
+    ``attn_impl="pallas"``) and the two cells' rules."""
+    import dataclasses
+
+    cfg, _ = specs.runtime_config(LM_SHARDED_ARCH, "prefill_32k", False)
+    return (Model(dataclasses.replace(cfg, attn_impl="pallas")),
+            specs.rules_for(LM_SHARDED_ARCH, "prefill_32k", False),
+            specs.rules_for(LM_SHARDED_ARCH, "decode_32k", False))
+
+
+def lm_train_cell(torch, specs, Model, AdamW, make_train_step):
+    """Phase 26 (c)'s model (the ``train_4k`` runtime config with 4 of 22
+    layers and float32 activations), rules, optimizer and step."""
+    import dataclasses
+
+    layers = LM_SHARDED_TRAIN[0]
+    cfg, _ = specs.runtime_config(LM_SHARDED_ARCH, "train_4k", False)
+    model = Model(dataclasses.replace(cfg, n_layers=layers, dtype="float32"))
+    prof = specs.profile_for(LM_SHARDED_ARCH)
+    opt = AdamW(lr=1e-4, moment_dtype=getattr(torch, prof.moment_dtype),
+                grad_compression=prof.grad_compression)
+    return (model, specs.rules_for(LM_SHARDED_ARCH, "train_4k", False), opt,
+            make_train_step(model, opt, accum_steps=prof.accum_steps))
+
+
+def lm_serve_params(torch, model, seed: int):
+    """TinyLlama's weights drawn on the card from ``seed``, then bf16 (the
+    serve cells' weights); the same values in every process."""
+    from torch.utils import _pytree as pytree
+
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    return pytree.tree_map(lambda t: t.to(torch.bfloat16)
+                           if t.dtype == torch.float32 else t, params)
+
+
+def lm_sharded_rank(rank: int, world: int, work: str, seed: int) -> None:
+    """Phase 26 (b) and (c), one rank in a process of its own (``spawn``).
+
+    Joins a ``world``-rank gloo group (``SHARDED_BACKEND``, a ``FileStore``
+    in ``work``), routes DTensor's functional collectives through
+    ``collectives`` (gloo's CUDA path hangs on them) and loads the B9
+    library phase 1 built (it refuses to build one).  (b) draws TinyLlama's
+    weights from ``seed``, lays them out by the ``prefill_32k`` cell's
+    resolved placements, prefills ``work/lm_inputs.pt``'s prompts with B9
+    counted from 0 (each launch's head count recorded), redistributes the
+    cache and the weights to the ``decode_32k`` cell's placements and runs
+    the decode steps; (c) runs the ``train_4k`` cell's step on 4 layers
+    beside the single-device step on this rank.  Results go to
+    ``work/lm_rank<rank>.pt``."""
+    import datetime
+    import hashlib
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch import specs
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.step import (TrainState, loss_and_grads,
+                                        make_train_step)
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(cuda_build.library_path("flash_attn_fwd").exists(),
+          f"rank {rank}: flash_attn_fwd not built by phase 1")
+    dist.init_process_group(
+        SHARDED_BACKEND, store=dist.FileStore(f"{work}/lm.store", world),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=120))
+    coll.route_functional_collectives()
+    dev = torch.device("cuda")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    try:
+        mesh = init_device_mesh("cuda", LM_SHARDED_MESH,
+                                mesh_dim_names=("data", "model"))
+        inp = torch.load(f"{work}/lm_inputs.pt", weights_only=False)
+        res: dict = {"launches": {}}
+        # (b) serving: the prefill_32k and decode_32k cells, cut
+        b, prompt, cache_len, steps = LM_SHARDED_SERVE
+        model, rules_p, rules_d = lm_serve_cells(specs, Model)
+        params = lm_serve_params(torch, model, seed)
+        specs_p = model.param_specs()
+        params_p = specs.distribute(params, specs.resolve_shardings(
+            mesh, rules_p, specs_p, params))
+        params_d = specs.distribute(params_p, specs.resolve_shardings(
+            mesh, rules_d, specs_p, params))
+        del params
+        torch.cuda.empty_cache()
+        tokens = specs.distribute(inp["serve_tokens"].to(dev),
+                                  sh.named_sharding(mesh, rules_p, "batch",
+                                                    None))
+        heads = []
+        launch = flash.launch
+
+        def recording(q, k, v, **kw):
+            heads.append(int(q.shape[1]))
+            return launch(q, k, v, **kw)
+
+        sync()
+        for k in flash.LAUNCHES:
+            flash.LAUNCHES[k] = 0
+        flash.launch = recording
+        try:
+            t0 = time.perf_counter()
+            with torch.no_grad(), sh.use_mesh_and_rules(mesh, rules_p):
+                logits, cache = model.prefill(params_p, {"tokens": tokens},
+                                              max_len=cache_len)
+            sync()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            flash.launch = launch
+        b9_prefill = flash.LAUNCHES["flash_attn_fwd"]
+        outs = [full(logits).float().cpu()]
+        cache = specs.distribute(cache, specs.resolve_shardings(
+            mesh, rules_d, model.cache_specs(), cache))
+        dec = inp["serve_decode"].to(dev)
+        decode_ms = []
+        for i in range(steps):
+            tok = specs.distribute(dec[:, i], sh.named_sharding(
+                mesh, rules_d, "batch"))
+            t0 = time.perf_counter()
+            with torch.no_grad(), sh.use_mesh_and_rules(mesh, rules_d):
+                logits, cache = model.decode_step(params_d, tok, cache,
+                                                  prompt + i)
+            sync()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(full(logits).float().cpu())
+        res["launches"]["lm_sharded_serve"] = dict(flash.LAUNCHES)
+        res["serve"] = {"logits": torch.stack(outs), "prefill_ms": prefill_ms,
+                        "decode_ms": decode_ms, "b9_prefill": b9_prefill,
+                        "b9_heads": sorted(set(heads)),
+                        "cache_placements": str(cache["l0_dense"]["k"]
+                                                .placements)}
+        del params_p, params_d, cache, logits
+        torch.cuda.empty_cache()
+        # (c) training: the train_4k cell's step on 4 layers
+        model, rules_t, opt, step = lm_train_cell(
+            torch, specs, Model, AdamW, make_train_step)
+        params = model.init(torch.Generator(device="cuda").manual_seed(
+            seed + 1), device="cuda")
+        batch = {k: v.to(dev) for k, v in inp["train_batch"].items()}
+        grads1, loss1, _ = loss_and_grads(model.loss, params, batch)
+        pspecs = model.param_specs()
+        state = opt.init(params)
+        dstate = TrainState(
+            params=specs.distribute(params, specs.resolve_shardings(
+                mesh, rules_t, pspecs, params)),
+            opt=specs.distribute(state, specs.resolve_shardings(
+                mesh, rules_t, opt.state_specs(pspecs), state)))
+        dbatch = specs.distribute(batch, {
+            k: v for k, v in specs.batch_shardings(mesh, rules_t).items()
+            if k in batch})
+        with sh.use_mesh_and_rules(mesh, rules_t):
+            grads, loss, _ = loss_and_grads(model.loss, dstate.params,
+                                            dbatch)
+            errs = [float((full(g) - g1).abs().max())
+                    / max(float(g1.abs().max()), 1e-30)
+                    for g, g1 in zip(pytree.tree_leaves(grads),
+                                     pytree.tree_leaves(grads1))]
+            new, metrics = step(dstate, dbatch)
+            step_ms = []
+            for _ in range(LM_SHARDED_TIMED_STEPS):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                step(dstate, dbatch)
+                sync()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        digest = hashlib.sha1()
+        for t in pytree.tree_leaves(new.params):
+            digest.update(full(t).contiguous().view(torch.uint8).cpu()
+                          .numpy().tobytes())
+        res["train"] = {
+            "loss": float(full(loss)), "loss_single": float(loss1),
+            "grad_err": max(errs), "leaves": len(errs),
+            "step_loss": float(full(metrics["loss"])),
+            "params_sha1": digest.hexdigest(), "step_ms": step_ms,
+            "param_placements": str(pytree.tree_leaves(dstate.params)[0]
+                                    .placements)}
+        res["collectives"] = {"in_place": dict(coll.IN_PLACE),
+                              "host_staged": dict(coll.HOST_STAGED),
+                              "functional": dict(coll.FUNCTIONAL)}
+        torch.save(res, f"{work}/lm_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_sharded_phase(torch, dev, card: str, seed: int) -> dict:
+    """Phase 26: the LM across ranks sharing the one card.
+
+    Starts (a)'s three dry-run processes (host only), computes the
+    single-device references on the card in this process (TinyLlama's
+    serve path from the same weights; the 4-layer train step, timed), then
+    spawns four ranks (:func:`lm_sharded_rank`) and checks: (b) every
+    rank's prefill and decode logits within 2e-2 of their scale of the
+    single-device ones and the same bits on every rank, 22 B9 launches a
+    prefill on each rank on 16 heads; (c) the loss and every gradient leaf
+    within 1e-5 of the single-device ones (each leaf's largest magnitude),
+    the stepped params the same bits on every rank.  The times are of ranks
+    sharing one card, not of several cards."""
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import specs
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import TrainState, make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    b, prompt, cache_len, steps = LM_SHARDED_SERVE
+    layers, tb, ts = LM_SHARDED_TRAIN
+    rng = np.random.default_rng(seed + 26)
+    vocab = specs.runtime_config(LM_SHARDED_ARCH, "train_4k",
+                                 False)[0].vocab_size
+    toks = rng.integers(0, vocab, (tb, ts))
+    inputs = {"serve_tokens": torch.from_numpy(rng.integers(
+                  0, vocab, (b, prompt))),
+              "serve_decode": torch.from_numpy(rng.integers(
+                  0, vocab, (b, steps))),
+              "train_batch": {"tokens": torch.from_numpy(toks),
+                              "labels": torch.from_numpy(np.concatenate(
+                                  [toks[:, 1:], -np.ones((tb, 1), np.int64)],
+                                  1))}}
+    report: dict = {"card": card, "backend": SHARDED_BACKEND,
+                    "mesh": "data=2 x model=2",
+                    "note": "ranks sharing one card, not several cards",
+                    "cuts": {"serve": {"batch": b, "prompt": prompt,
+                                       "cache": cache_len, "steps": steps},
+                             "train": {"layers": layers, "batch": tb,
+                                       "seq": ts, "dtype": "float32"}}}
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(inputs, f"{work}/lm_inputs.pt")
+        dry = [ctx.Process(target=lm_dryrun_cell, args=(work, i))
+               for i in range(len(LM_DRYRUN_CELLS))]
+        for p in dry:
+            p.start()
+        # the single-device references, while (a) runs on the host
+        model, _, _ = lm_serve_cells(specs, Model)
+        n_layers = model.cfg.n_layers
+        local_heads = ((model.cfg.n_heads + model.cfg.head_pad)
+                       // LM_SHARDED_MESH[1])
+        params = lm_serve_params(torch, model, seed)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(
+                params, {"tokens": inputs["serve_tokens"].to(dev)},
+                max_len=cache_len)
+            torch.cuda.synchronize()
+            ref_prefill_ms = (time.perf_counter() - t0) * 1e3
+            ref = [logits.float().cpu()]
+            ref_decode_ms = []
+            for i in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(
+                    params, inputs["serve_decode"][:, i].to(dev), cache,
+                    prompt + i)
+                torch.cuda.synchronize()
+                ref_decode_ms.append((time.perf_counter() - t0) * 1e3)
+                ref.append(logits.float().cpu())
+        ref = torch.stack(ref)
+        del params, cache, logits
+        model, _, opt, step = lm_train_cell(torch, specs, Model, AdamW,
+                                            make_train_step)
+        params = model.init(torch.Generator(device="cuda").manual_seed(
+            seed + 1), device="cuda")
+        batch = {k: v.to(dev) for k, v in inputs["train_batch"].items()}
+        state = TrainState(params=params, opt=opt.init(params))
+        step(state, batch)
+        ref_step_ms = []
+        for _ in range(LM_SHARDED_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            ref_step_ms.append((time.perf_counter() - t0) * 1e3)
+        del params, state, batch
+        torch.cuda.empty_cache()
+        # (b) and (c) on four ranks
+        t0 = time.perf_counter()
+        world = LM_SHARDED_MESH[0] * LM_SHARDED_MESH[1]
+        procs = [ctx.Process(target=lm_sharded_rank, args=(r, world, work,
+                                                           seed))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            codes = wait_all(procs, LM_SHARDED_TIMEOUT_S)
+            ranks_s = time.perf_counter() - t0
+        finally:
+            dry_codes = wait_all(dry, LM_SHARDED_TIMEOUT_S)
+        check(codes == [0] * world, f"[26] the {world} ranks exited {codes}")
+        check(dry_codes == [0] * len(dry),
+              f"[26] the dry-run processes exited {dry_codes}")
+        ranks = [torch.load(f"{work}/lm_rank{r}.pt", weights_only=False)
+                 for r in range(world)]
+        dryruns = [json.loads(Path(work, f"dryrun{i}.json").read_text())
+                   for i in range(len(dry))]
+    # (a) the dry run
+    for (shape, chips), d in zip(LM_DRYRUN_CELLS, dryruns):
+        check(d["argument_bytes"] > 0 and d["flops"] > 0,
+              f"[26] (a) {shape} on {d['mesh']}: {d}")
+        peak = (f"{d['peak_bytes'] / 2**30:.3f} GiB"
+                if d["peak_bytes"] is not None else
+                f"not read ({d['peak_error']})")
+        print(f"[26] (a) dry run {LM_SHARDED_ARCH} x {shape} on {d['mesh']}"
+              f"{' (plan_recovery(%d))' % chips if chips else ''}, a rank: "
+              f"arguments {d['argument_bytes']} B, outputs "
+              f"{d['output_bytes']} B, peak {peak}, {d['flops']:.4g} FLOPs, "
+              f"collectives {d['collectives']} (bytes by kind, ops), build "
+              f"{d['lower_s']} s, trace {d['compile_s']} s (host only)",
+              flush=True)
+    report["dryrun"] = dryruns
+    # (b) serving
+    scale = float(ref.abs().max())
+    serve_err = [float((r["serve"]["logits"] - ref).abs().max()) / scale
+                 for r in ranks]
+    check(max(serve_err) <= 2e-2, f"[26] (b) logits {serve_err} of their "
+          f"scale {scale} from the single-device serve path (bound 2e-2)")
+    check(all(torch.equal(r["serve"]["logits"], ranks[0]["serve"]["logits"])
+              for r in ranks), "[26] (b) the ranks' logits differ")
+    for r, rk in enumerate(ranks):
+        check(rk["serve"]["b9_prefill"] == n_layers
+              and rk["serve"]["b9_heads"] == [local_heads],
+              f"[26] (b) rank {r}: {rk['serve']['b9_prefill']} B9 launches "
+              f"on heads {rk['serve']['b9_heads']} a prefill, want "
+              f"{n_layers} on {local_heads}")
+    s0 = ranks[0]["serve"]
+    print(f"[26] (b) {card} | {LM_SHARDED_ARCH} ({n_layers} layers, bf16, "
+          f"B9) on "
+          f"data 2 x model 2, batch {b} x {prompt}, cache {cache_len}, "
+          f"{steps} decode steps: logits within {max(serve_err):.3e} of "
+          f"their scale {scale:.3g} of the single-device path (bound 2e-2), "
+          f"the same bits on every rank; {s0['b9_prefill']} B9 launches a "
+          f"prefill a rank on {s0['b9_heads']} local heads; the decode "
+          f"cache {s0['cache_placements']}; prefill ms a rank "
+          f"{[round(r['serve']['prefill_ms'], 1) for r in ranks]} "
+          f"(single device {ref_prefill_ms:.1f}), decode ms a step (rank 0, "
+          f"median) {float(np.median(s0['decode_ms'])):.2f} (single device "
+          f"{float(np.median(ref_decode_ms)):.2f})", flush=True)
+    report["serve"] = {"err": serve_err, "scale": scale,
+                       "b9_prefill": s0["b9_prefill"],
+                       "b9_heads": s0["b9_heads"],
+                       "prefill_ms": [r["serve"]["prefill_ms"] for r in ranks],
+                       "decode_ms": [r["serve"]["decode_ms"] for r in ranks],
+                       "single_prefill_ms": ref_prefill_ms,
+                       "single_decode_ms": ref_decode_ms}
+    # (c) training
+    t0r = ranks[0]["train"]
+    for r, rk in enumerate(ranks):
+        t = rk["train"]
+        check(abs(t["loss"] - t["loss_single"]) <= 1e-5 * abs(
+            t["loss_single"]), f"[26] (c) rank {r} loss {t['loss']} vs "
+            f"{t['loss_single']}")
+        check(t["grad_err"] <= 1e-5, f"[26] (c) rank {r}: a gradient leaf "
+              f"{t['grad_err']:.3e} of its largest magnitude from the "
+              "single-device step (bound 1e-5)")
+        check(t["params_sha1"] == t0r["params_sha1"],
+              f"[26] (c) rank {r}: params after the step differ")
+    print(f"[26] (c) {card} | {LM_SHARDED_ARCH} train_4k cell (pure data "
+          f"parallelism, params {t0r['param_placements']}) at full width, "
+          f"{layers} layers, float32, batch {tb} x {ts}: loss "
+          f"{t0r['loss']:.6f} (single device {t0r['loss_single']:.6f}), "
+          f"every one of {t0r['leaves']} gradient leaves within "
+          f"{max(r['train']['grad_err'] for r in ranks):.3e} of its largest "
+          f"magnitude (bound 1e-5), the params after one AdamW step the same "
+          f"bits on every rank; step ms a rank "
+          f"{[round(min(r['train']['step_ms']), 1) for r in ranks]} beside "
+          f"the single-device step {min(ref_step_ms):.1f} (ranks sharing the "
+          f"card, not several cards)", flush=True)
+    report["train"] = {k: [r["train"][k] for r in ranks]
+                       for k in ("loss", "grad_err", "step_ms")}
+    report["train"]["single_step_ms"] = ref_step_ms
+    c0 = ranks[0]["collectives"]
+    print(f"[26] collectives (rank 0): on CUDA tensors as they are "
+          f"{c0['in_place']}, through host memory {c0['host_staged']}; "
+          f"DTensor's functional collectives routed {c0['functional']}",
+          flush=True)
+    report["collectives"] = c0
+    launches = {}
+    for rk in ranks:
+        for part, n in rk["launches"].items():
+            total = launches.setdefault(part, {})
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[26] phase 26 in {report['seconds']:.1f} s (ranks "
+          f"{ranks_s:.1f} s); launches summed over the ranks {launches}",
+          flush=True)
     return report
 
 
@@ -4723,11 +5205,15 @@ def main(argv=None) -> int:
                               and r["B"] == DEEP_BATCH}})
     launches.update(report["sharded"]["launches"])
 
+    # -- phase 26: the LM across ranks sharing the card ------------------------
+    report["lm_sharded"] = lm_sharded_phase(torch, dev, card, args.seed)
+    launches.update(report["lm_sharded"]["launches"])
+
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # -- phase 26: the kernels line and the device line ------------------------
+    # -- phase 27: the kernels line and the device line ------------------------
     main_path = ("mnist", "train_mnist", "rfnn2x2", "train_rfnn2x2", "serving",
                  "processor_apply", "processor_program", "train_fused",
                  "mnist_deep", "train_mnist_deep", "tiled_apply", "tiled_train",
@@ -4735,7 +5221,8 @@ def main(argv=None) -> int:
                  "lm_paths", "lm_card_cpu", "lm_engine", "lm_rfnn", "compiler",
                  *report["families"]["launches"],
                  *report["training"]["launches"],
-                 *report["sharded"]["launches"])
+                 *report["sharded"]["launches"],
+                 *report["lm_sharded"]["launches"])
     fwd = next(r for r in rows if r["B"] == 1000)        # the MNIST test batch
     bwd = next(r for r in rows_bwd if r["B"] == SGD_BATCH)  # the SGD step
     kernels = [{

@@ -29,16 +29,27 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import constrain, local_call, replicated
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Masked next-token CE in f32.  labels == -1 are masked."""
+    """Masked next-token CE in f32.  labels == -1 are masked.  Under a mesh
+    the vocab axis is gathered first and each rank reads its rows' gold
+    logits (DTensor's masked gather over a split vocab cannot reduce after
+    the label's axis is dropped)."""
     mask = labels >= 0
     lab = torch.clamp(labels, min=0).long()
+    if logits.dim() == 3:
+        logits = constrain(logits, "batch", "seq", None)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    if hasattr(logits, "placements"):
+        lab = replicated(logits.device_mesh, lab).redistribute(
+            logits.device_mesh, logits.placements)
+    gold = local_call(
+        lambda l, i: torch.gather(l, -1, i[..., None])[..., 0],
+        (logits, lab), getattr(logits, "placements", None))
     nll = (lse - gold) * mask
     denom = torch.clamp(mask.sum(), min=1)
     loss = nll.sum() / denom
@@ -70,6 +81,12 @@ class Model:
         if self._encdec:
             return encdec_lib.init_encdec(generator, self.cfg)
         return lm_lib.init_lm(generator, self.cfg)
+
+    def param_specs(self) -> dict:
+        """``init``'s tree with a tuple of logical axis names a leaf."""
+        if self._encdec:
+            return encdec_lib.spec_encdec(self.cfg)
+        return lm_lib.spec_lm(self.cfg)
 
     # ---------------- evaluation ----------------
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
@@ -143,6 +160,13 @@ class Model:
             return encdec_lib.init_dec_cache(self.cfg, batch, max_len,
                                              device=dev)
         return lm_lib.init_lm_cache(self.cfg, batch, max_len, device=dev)
+
+    def cache_specs(self) -> dict:
+        """``init_cache``'s tree with a tuple of logical axis names a
+        leaf."""
+        if self._encdec:
+            return encdec_lib.spec_dec_cache(self.cfg)
+        return lm_lib.spec_lm_cache(self.cfg)
 
     # ---------------- info ----------------
     def param_count(self) -> int:

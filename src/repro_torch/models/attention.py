@@ -10,8 +10,11 @@ package's TPU kernel takes the chunked loop unless the length divides
 autograd (train with ``"xla"``).  Decode reads and writes a KV
 cache; the port writes the cache in place (the JAX package returns a new
 one), reproducing ``dynamic_update_slice``'s clamp of the write position to
-the cache's last slot.  Sharding constraints are dropped: without a mesh
-they are no-ops in the JAX package too.
+the cache's last slot.  The ``constrain`` calls stand where the JAX
+package's do; under an active mesh B9 runs on each rank's batch rows and
+heads (the port expands KV heads to the q heads before B9, so every rank's
+q heads find their KV heads locally), and the cache writes land where each
+rank holds the cache.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, rope_frequencies,
                                        truncated_normal)
+from repro_torch.parallel.sharding import (constrain, local_call,
+                                           local_index_put_, local_window,
+                                           replicated)
 
 NEG_INF = -1e30
 
@@ -66,6 +72,15 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, *,
     return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
 
 
+def spec_attention() -> dict:
+    return {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk", x, w) in x's dtype."""
     d, h, k = w.shape
@@ -106,6 +121,7 @@ def _flash_over_kv(q_blk, kc, vc, pc, q_pos_blk, causal, scale):
         else:
             mask = (pci >= 2**30)[None, :].expand(sq, -1)
         s = s.masked_fill(mask[None, None], NEG_INF)
+        s = constrain(s, "batch", "heads", None, None)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -155,6 +171,16 @@ def _flash_chunks(q, k, v, q_pos, kv_pos, cfg: ModelConfig, causal: bool):
     return torch.cat(outs, dim=2).permute(0, 2, 1, 3)  # [B,Sq,H,hd]
 
 
+def _expand_kv(t: torch.Tensor, hmap: torch.Tensor) -> torch.Tensor:
+    """``t.index_select(2, hmap)``.  On a DTensor each rank selects from its
+    rows with the KV heads whole: DTensor's ``index_select`` backward fails
+    on a split batch."""
+    if not hasattr(t, "placements"):
+        return t.index_select(2, hmap)
+    t = constrain(t, "batch", "seq", None, "head_dim")
+    return local_call(lambda a: a.index_select(2, hmap), (t,), t.placements)
+
+
 def attention(params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
               rope: bool = True, kv_override=None, return_kv: bool = False):
@@ -171,21 +197,38 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
         cos, sin = rope_frequencies(cfg, positions)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     kv_out = (k, v)
     if _h_tot(cfg) != cfg.n_kv_heads:
         # expand KV per q-head (original GQA grouping kept under head padding)
         hmap = head_to_kv_map(cfg, x.device)
-        k = k.index_select(2, hmap)
-        v = v.index_select(2, hmap)
-    if cfg.attn_impl == "pallas" and k.shape[1] == s:
-        # the flash attention kernel B9: score blocks stay on chip.  Its
-        # tiles are its own; the block passed only has to divide s.
-        blk = math.gcd(s, min(cfg.attn_chunk, s, 128))
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, bq=blk, bk=blk)
-        out = out.transpose(1, 2)
+        k = _expand_kv(k, hmap)
+        v = _expand_kv(v, hmap)
+        k = constrain(k, "batch", "seq", "heads", "head_dim")
+        v = constrain(v, "batch", "seq", "heads", "head_dim")
+    use_kernel = cfg.attn_impl == "pallas" and k.shape[1] == s
+    # the flash attention kernel B9: score blocks stay on chip.  Its tiles
+    # are its own; the block passed only has to divide s.
+    blk = math.gcd(s, min(cfg.attn_chunk, s, 128))
+
+    def core(q, k, v):
+        if use_kernel:
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal, bq=blk,
+                                  bk=blk)
+            return out.transpose(1, 2)
+        return _flash_chunks(q, k, v, positions, kv_pos, cfg, causal)
+
+    if hasattr(q, "placements"):
+        # under a mesh each rank attends over the batch rows and heads it
+        # holds (B9 takes device pointers, never a DTensor)
+        k = k.redistribute(q.device_mesh, q.placements)
+        v = v.redistribute(q.device_mesh, q.placements)
+        out = local_call(core, (q, k, v), q.placements)
     else:
-        out = _flash_chunks(q, k, v, positions, kv_pos, cfg, causal)
+        out = core(q, k, v)
     wo = params["wo"].to(x.dtype)
     mask = _head_mask(cfg, x.device)
     if mask is not None:
@@ -212,16 +255,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def spec_cache() -> dict:
+    return {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
+
+
 def prefill_into_cache(cache: dict, k: torch.Tensor,
                        v: torch.Tensor) -> dict:
     """Write a prefill's k, v [B, S, KV, hd] into the cache's first S slots,
-    in place; returns the cache."""
-    s, max_len = k.shape[1], cache["k"].shape[1]
+    in place (each rank its own shard of a DTensor cache); returns the
+    cache."""
+    b, s = k.shape[:2]
+    max_len = cache["k"].shape[1]
     if s > max_len:
         raise ValueError(f"prefill of {s} tokens exceeds the cache's "
                          f"{max_len} slots")
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    if not hasattr(cache["k"], "placements"):
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        return cache
+    dev = cache["k"].device
+    at = (torch.arange(b, device=dev).repeat_interleave(s),
+          torch.arange(s, device=dev).repeat(b))
+    for name, t in (("k", k), ("v", v)):
+        local_index_put_(cache[name], at, t.reshape((b * s,) + t.shape[2:]))
     return cache
 
 
@@ -254,8 +311,11 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     """
     b = x.shape[0]
     pos = row_positions(pos, b, x.device)
-    g = cfg.n_heads // cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(params, cfg, x, x)
+    # the projection sharded as its weight, then the small q replicated
+    # over the heads for the cache products
+    q = constrain(q, "batch", None, "heads", "head_dim")
+    q = constrain(q, "batch", None, None, None)
     if rope:
         cos, sin = rope_frequencies(cfg, pos[:, None])         # [B, 1]
         q = apply_rope(q, cos, sin)
@@ -264,17 +324,78 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     s_len = k.shape[1]
     if update_cache:
         at = (torch.arange(b, device=x.device), pos.long().clamp(0, s_len - 1))
-        k[at] = k_new[:, 0].to(k.dtype)
-        v[at] = v_new[:, 0].to(v.dtype)
+        local_index_put_(k, at, k_new[:, 0])
+        local_index_put_(v, at, v_new[:, 0])
+        k = constrain(k, "batch", "kv_seq", "kv_heads", "head_dim")
+        v = constrain(v, "batch", "kv_seq", "kv_heads", "head_dim")
+    if hasattr(q, "placements") or hasattr(k, "placements"):
+        out = _decode_sharded(q, k, v, pos, cfg)
+    else:
+        out = _decode_core(q, k, v, pos, cfg)
+    wo = params["wo"][: cfg.n_heads].to(x.dtype)
+    return _out_proj(out, wo), cache
+
+
+def _decode_core(q, k, v, pos, cfg: ModelConfig, seq_offset: int = 0,
+                 reduce=None):
+    """One token's attention: q [B, 1, H, hd] against k, v [B, S, KV, hd]
+    (positions ``seq_offset`` on), row b seeing positions <= ``pos[b]``.
+    ``reduce(t, op)`` sums (``op="sum"``) or maxes over the ranks that hold
+    the other positions; ``None`` when these are all of them."""
+    b, g = q.shape[0], cfg.n_heads // cfg.n_kv_heads
+    s_len = k.shape[1]
     # grouped form over the real heads only (pad heads are dead)
     q = q[..., : cfg.n_heads, :]
     qg = q.reshape(b, cfg.n_kv_heads, g, cfg.head_dim)         # [B,KV,G,hd]
     scores = torch.matmul(qg, k.to(qg.dtype).permute(0, 2, 3, 1))  # [B,KV,G,S]
     scores = scores.float() / math.sqrt(cfg.head_dim)
-    valid = torch.arange(s_len, device=x.device) <= pos[:, None, None, None]
+    at = torch.arange(s_len, device=q.device)
+    if seq_offset:
+        at = at + seq_offset
+    valid = at <= pos[:, None, None, None]
     scores = scores.masked_fill(~valid, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(qg.dtype)
-    out = torch.matmul(probs, v.to(qg.dtype).permute(0, 2, 1, 3))  # [B,KV,G,hd]
-    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    wo = params["wo"][: cfg.n_heads].to(x.dtype)
-    return _out_proj(out, wo), cache
+    if reduce is None:
+        probs = torch.softmax(scores, dim=-1).to(qg.dtype)
+        out = torch.matmul(probs, v.to(qg.dtype).permute(0, 2, 1, 3))
+    else:  # a softmax over positions split across ranks (flash-decode)
+        m = reduce(scores.amax(dim=-1, keepdim=True), "max")
+        p = torch.exp(scores - m)
+        probs = (p / reduce(p.sum(dim=-1, keepdim=True), "sum")).to(qg.dtype)
+        out = reduce(torch.matmul(probs, v.to(qg.dtype).permute(0, 2, 1, 3)),
+                     "sum")
+    return out.reshape(b, 1, cfg.n_heads, cfg.head_dim)        # [B,1,H,hd]
+
+
+def _decode_sharded(q, k, v, pos, cfg: ModelConfig):
+    """:func:`_decode_core` on each rank's shard of the cache: the cache
+    split by batch rows and positions (its heads gathered), q by the same
+    rows; the softmax and the value sum reduced over the ranks that split
+    the positions."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = (k if hasattr(k, "placements") else q).device_mesh
+    q, k, v = (replicated(mesh, t) for t in (q, k, v))
+    if hasattr(pos, "full_tensor"):
+        pos = pos.full_tensor()
+    kv_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1)
+                  else Replicate() for p in k.placements)
+    q_pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in kv_pl)
+    k = k.redistribute(mesh, kv_pl)
+    v = v.redistribute(mesh, kv_pl)
+    q = q.redistribute(mesh, q_pl)
+    seq_dims = [i for i, p in enumerate(kv_pl)
+                if isinstance(p, Shard) and p.dim == 1]
+    size, off = local_window(k.shape, mesh, kv_pl)
+    pos = pos.narrow(0, off[0], size[0])
+
+    def reduce(t, op):
+        for i in seq_dims:
+            t = all_reduce(t, op, (mesh, i))
+        return t
+
+    return local_call(
+        lambda q_, k_, v_: _decode_core(q_, k_, v_, pos, cfg, off[1],
+                                        reduce if seq_dims else None),
+        (q, k, v), q_pl)

@@ -13,7 +13,9 @@ checkpoints each decoder layer whole, as the JAX package's
 everything, as there).  With ``attn_impl="pallas"`` the
 encoder and the decoder's self-attention run kernel B9; cross-attention,
 whose keys are the encoder's frames, runs the plain chunked loop, as in
-the JAX package.
+the JAX package.  ``spec_encdec`` and ``spec_dec_cache`` mirror the params
+and the cache with logical axis names; the ``constrain`` calls stand where
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import checkpointed, unstack
+from repro_torch.models.lm import checkpointed, constrain_tree, unstack
+from repro_torch.parallel.sharding import constrain, local_copy_
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -67,18 +70,29 @@ def init_encdec(generator: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def spec_encdec(cfg: ModelConfig) -> dict:
+    enc = {"ln1": L.spec_rmsnorm(), "attn": attn_lib.spec_attention(),
+           "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp(cfg)}
+    dec = {"ln1": L.spec_rmsnorm(), "self_attn": attn_lib.spec_attention(),
+           "ln_x": L.spec_rmsnorm(), "cross_attn": attn_lib.spec_attention(),
+           "ln2": L.spec_rmsnorm(), "mlp": L.spec_mlp(cfg)}
+    return {"embed": L.spec_embed(cfg), "enc_blocks": L.stack_spec(enc),
+            "enc_norm": L.spec_rmsnorm(), "dec_blocks": L.stack_spec(dec),
+            "final_norm": L.spec_rmsnorm()}
+
+
 def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: [B, enc_seq, D] precomputed embeddings (frontend stub)."""
     x = frames.to(cfg.activation_dtype())
     pe = torch.from_numpy(sinusoids(x.shape[1], cfg.d_model)).to(x.device)
-    x = x + pe.to(x.dtype)
+    x = constrain(x + pe.to(x.dtype), "batch", "seq", "embed")
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for lp in unstack(params["enc_blocks"], cfg.n_enc_layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         x = x + attn_lib.attention(lp["attn"], cfg, h, positions,
                                    causal=False, rope=False)
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(lp["mlp"], cfg, h)
+        x = constrain(x + L.mlp(lp["mlp"], cfg, h), "batch", "seq", "embed")
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -104,18 +118,21 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced decode over the full target sequence."""
     memory = encode(params, cfg, frames)
-    x = L.embed_tokens(params["embed"], cfg, tokens)
+    x = constrain(L.embed_tokens(params["embed"], cfg, tokens),
+                  "batch", "seq", "embed")
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def layer(lp, x):
-        return _dec_layer(lp, cfg, x, positions, memory)[0]
+        return constrain(_dec_layer(lp, cfg, x, positions, memory)[0],
+                         "batch", "seq", "embed")
 
     if cfg.remat in ("full", "dots"):
         layer = checkpointed(layer, "full")
     for lp in unstack(params["dec_blocks"], cfg.n_layers):
         x = layer(lp, x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], cfg, x)
+    logits = constrain(L.unembed(params["embed"], cfg, x),
+                       "batch", "seq", "vocab")
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -132,31 +149,43 @@ def init_dec_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             "cross_v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def spec_dec_cache(cfg: ModelConfig) -> dict:
+    return L.stack_spec({"self": attn_lib.spec_cache(),
+                         "cross_k": ("batch", None, "kv_heads", "head_dim"),
+                         "cross_v": ("batch", None, "kv_heads", "head_dim")})
+
+
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Encode + teacher-forced pass building the self and cross caches."""
     memory = encode(params, cfg, frames)
-    x = L.embed_tokens(params["embed"], cfg, tokens)
+    x = constrain(L.embed_tokens(params["embed"], cfg, tokens),
+                  "batch", "seq", "embed")
     s = x.shape[1]
     max_len = max_len or cfg.max_cache_len or s
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    cache = init_dec_cache(cfg, x.shape[0], max_len, device=x.device)
+    cache = constrain_tree(
+        init_dec_cache(cfg, x.shape[0], max_len, device=x.device),
+        spec_dec_cache(cfg))
     for i in range(cfg.n_layers):
         x, (k, v), (ck, cv) = _dec_layer(_layer(params["dec_blocks"], i), cfg,
                                          x, positions, memory, return_kv=True)
+        x = constrain(x, "batch", "seq", "embed")
         attn_lib.prefill_into_cache(_layer(cache["self"], i), k, v)
-        cache["cross_k"][i] = ck.to(cache["cross_k"].dtype)
-        cache["cross_v"][i] = cv.to(cache["cross_v"].dtype)
+        local_copy_(cache["cross_k"][i], ck)
+        local_copy_(cache["cross_v"][i], cv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, x[:, -1:])[:, 0], cache
+    logits = L.unembed(params["embed"], cfg, x[:, -1:])[:, 0]
+    return constrain(logits, "batch", "vocab"), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, pos) -> tuple[torch.Tensor, dict]:
     """One decode step (``pos`` as in ``lm.decode_step``); the self cache is
     updated in place, the cross cache read."""
-    x = L.embed_tokens(params["embed"], cfg, token[:, None])
+    x = constrain(L.embed_tokens(params["embed"], cfg, token[:, None]),
+                  "batch", None, "embed")
     pos = attn_lib.row_positions(pos, x.shape[0], x.device)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_blocks"], i)
@@ -173,4 +202,5 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(lp["mlp"], cfg, h)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, x)[:, 0], cache
+    logits = L.unembed(params["embed"], cfg, x)[:, 0]
+    return constrain(logits, "batch", "vocab"), cache

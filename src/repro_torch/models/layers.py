@@ -4,7 +4,9 @@ The JAX package's ``models/layers.py`` on torch.  Parameters are plain
 dicts of tensors with the JAX package's keys and shapes; the cast points
 are the JAX package's: RMSNorm and RoPE compute in float32 and cast back,
 matmuls run in the activation dtype against weights cast to it per call.
-The sharding specs (``spec_*``) wait for the multi-device slice.
+Every ``init_*`` has a ``spec_*`` returning the same tree with a tuple of
+logical axis names a leaf, one name a tensor dim (the JAX package's, which
+``launch/specs.py`` resolves into placements).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import (constrain, local_call,
+                                           replicated, whole)
 
 
 def truncated_normal(generator: torch.Generator, shape,
@@ -34,6 +38,17 @@ def truncated_normal(generator: torch.Generator, shape,
 def init_rmsnorm(d: int, device=None, *, stack: tuple = ()) -> dict:
     return {"scale": torch.ones(stack + (d,), dtype=torch.float32,
                                 device=device)}
+
+
+def spec_rmsnorm() -> dict:
+    return {"scale": ("embed",)}
+
+
+def stack_spec(tree, name: str = "layers"):
+    """``tree`` with the stacked axis ``name`` prepended to every leaf."""
+    if isinstance(tree, dict):
+        return {k: stack_spec(v, name) for k, v in tree.items()}
+    return (name,) + tree
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -57,9 +72,25 @@ def init_embed(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def spec_embed(cfg: ModelConfig) -> dict:
+    p = {"table": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("vocab", "embed")
+    return p
+
+
 def embed_tokens(params: dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params["table"][tokens]
+    table = params["table"]
+    if hasattr(tokens, "placements") or hasattr(table, "placements"):
+        # each rank looks its rows up in the whole table (DTensor's own
+        # lookup fails on batch rows split over two mesh dims)
+        mesh = (table if hasattr(table, "placements") else tokens).device_mesh
+        table = whole(mesh, table)
+        tokens = replicated(mesh, tokens)
+        x = local_call(lambda t, i: t[i], (table, tokens), tokens.placements)
+    else:
+        x = table[tokens]
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x.to(cfg.activation_dtype())
@@ -164,21 +195,50 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def _replicated_like(tree):
+    if isinstance(tree, dict):
+        return {k: _replicated_like(v) for k, v in tree.items()}
+    return (None,) * tree.dim()
+
+
+def spec_mlp(cfg: ModelConfig | None = None) -> dict:
+    """The MLP's specs; the analog projections' tiles all replicated (one
+    unstacked layer's tree, drawn on the CPU for its ranks)."""
+    if cfg is not None and cfg.linear_impl == "rfnn":
+        return _replicated_like(init_mlp(
+            torch.Generator().manual_seed(0), cfg))
+    p = {"wi": ("embed", "ffn"), "wo": ("ffn", "embed")}
+    if cfg is None or _gated(cfg):
+        p["wg"] = ("embed", "ffn")
+    return p
+
+
+def _analog_mlp(params: dict, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    layers = _analog_layers(cfg, cfg.d_model, cfg.d_ff)
+    xf = x.float()
+    h = layers["wi"].apply(params["wi"], xf)
+    if _gated(cfg):
+        h = h * _act(cfg)(layers["wg"].apply(params["wg"], xf))
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return layers["wo"].apply(params["wo"], h).to(x.dtype)
+
+
 def mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     if cfg.linear_impl == "rfnn":
-        layers = _analog_layers(cfg, cfg.d_model, cfg.d_ff)
-        xf = x.float()
-        h = layers["wi"].apply(params["wi"], xf)
-        if _gated(cfg):
-            h = h * _act(cfg)(layers["wg"].apply(params["wg"], xf))
-        else:
-            h = F.gelu(h, approximate="tanh")
-        return layers["wo"].apply(params["wo"], h).to(dt)
+        # the deep-grid kernels take device pointers: under a mesh each
+        # rank runs them on its rows (features whole), the tiles replicated
+        x = constrain(x, "batch", "seq", None) if x.dim() == 3 else x
+        return local_call(lambda p, t: _analog_mlp(p, cfg, t), (params, x),
+                          getattr(x, "placements", None))
     h = torch.matmul(x, params["wi"].to(dt))
     if _gated(cfg):
         g = torch.matmul(x, params["wg"].to(dt))
         h = h * _act(cfg)(g)
     else:  # plain gelu (whisper)
         h = F.gelu(h, approximate="tanh")
+    if h.dim() == 3:
+        h = constrain(h, "batch", "seq", "ffn")
     return torch.matmul(h, params["wo"].to(dt))

@@ -36,6 +36,10 @@ JAX package's ``jax.checkpoint`` around its scan body:
            selective checkpointing of each super-block, as JAX's
            ``checkpoint_dots_with_no_batch_dims`` (attention's batched
            score matmuls are recomputed in both).
+
+``spec_lm`` and ``spec_lm_cache`` mirror the params and the cache with
+logical axis names; the ``constrain`` calls stand where the JAX package's
+do, and under an active mesh a prefill's new cache takes the cache specs.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import (active_mesh, active_rules,
+                                           constrain, local_copy_,
+                                           use_mesh_and_rules)
 
 
 def superblock_layout(cfg: ModelConfig) -> tuple[int, list[str]]:
@@ -71,6 +78,35 @@ def superblock_layout(cfg: ModelConfig) -> tuple[int, list[str]]:
                              f"attn_every {k}")
         return cfg.n_layers // k, ["ssm"] * k + ["shared_attn"]
     raise ValueError(cfg.family)
+
+
+def _spec_attn_layer(cfg, ffn):
+    p = {"ln1": L.spec_rmsnorm(), "attn": attn_lib.spec_attention(),
+         "ln2": L.spec_rmsnorm()}
+    if ffn == "moe":
+        p["moe"] = moe_lib.spec_moe(cfg)
+    else:
+        p["mlp"] = L.spec_mlp(cfg)
+    return p
+
+
+def _spec_layer(kind, cfg):
+    if kind in ("dense", "moe"):
+        return _spec_attn_layer(cfg, "moe" if kind == "moe" else "mlp")
+    return {"ln": L.spec_rmsnorm(), "ssm": ssm_lib.spec_ssm()}
+
+
+def spec_lm(cfg: ModelConfig) -> dict:
+    """``init_lm``'s tree with a tuple of logical axis names a leaf, the
+    stacked blocks' led by ``"layers"``."""
+    kinds = superblock_layout(cfg)[1]
+    specs = {"embed": L.spec_embed(cfg), "final_norm": L.spec_rmsnorm(),
+             "blocks": L.stack_spec({f"l{i}_{kind}": _spec_layer(kind, cfg)
+                                     for i, kind in enumerate(kinds)
+                                     if kind != "shared_attn"})}
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = _spec_attn_layer(cfg, "mlp")
+    return specs
 
 
 def _init_attn_layer(generator, cfg, stack, ffn):
@@ -133,7 +169,7 @@ def _embed_input(params, cfg, tokens, vis_embed):
         if vis_embed is None:
             raise ValueError("vlm family requires vis_embed")
         x = torch.cat([vis_embed.to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -153,14 +189,23 @@ def _dots_context():
 def checkpointed(fn, remat: str):
     """``fn`` run under ``remat``'s checkpointing (``"full"``: plain,
     ``"dots"``: the matmul-saving policy) when autograd records it, else
-    ``fn`` itself."""
+    ``fn`` itself.  The recomputation runs under the mesh context of the
+    forward pass: autograd runs a CUDA backward on a thread of its own,
+    where the thread-local context is empty."""
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
+        body = fn
+        if active_mesh() is not None:
+            context = (active_mesh(), active_rules())
+
+            def body(*a):
+                with use_mesh_and_rules(*context):
+                    return fn(*a)
         if remat == "dots":
-            return ckpt.checkpoint(fn, *args, use_reentrant=False,
+            return ckpt.checkpoint(body, *args, use_reentrant=False,
                                    context_fn=_dots_context)
-        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+        return ckpt.checkpoint(body, *args, use_reentrant=False)
     return run
 
 
@@ -205,12 +250,14 @@ def _superblock(cfg, kinds, shared, positions, bp, x, aux):
         lp = shared if kind == "shared_attn" else bp[f"l{i}_{kind}"]
         if kind == "ssm":
             x = x + sub(functools.partial(_ssm_sublayer, lp, cfg), x)
+            x = constrain(x, "batch", "seq", "embed")
             continue
         x = x + sub(functools.partial(_attn_sublayer, lp, cfg), x, positions)
         y, a = sub(functools.partial(_ffn_sublayer, lp, cfg), x)
         x = x + y
         if a is not None:
             aux = aux + a
+        x = constrain(x, "batch", "seq", "embed")
     return x, aux
 
 
@@ -231,7 +278,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for bp in unstack(params["blocks"], n_super):
         x, aux = run(bp, x, aux)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, x), aux
+    logits = L.unembed(params["embed"], cfg, x)
+    return constrain(logits, "batch", "seq", "vocab"), aux
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -251,12 +299,28 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
+def spec_lm_cache(cfg: ModelConfig) -> dict:
+    kinds = superblock_layout(cfg)[1]
+    return L.stack_spec({
+        f"l{i}_{kind}": (ssm_lib.spec_ssm_cache() if kind == "ssm"
+                         else attn_lib.spec_cache())
+        for i, kind in enumerate(kinds)})
+
+
+def constrain_tree(tree, specs):
+    """``constrain`` of every leaf of ``tree`` by its spec in ``specs``."""
+    if isinstance(tree, dict):
+        return {k: constrain_tree(v, specs[k]) for k, v in tree.items()}
+    return constrain(tree, *specs)
+
+
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, pos) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: [B] int; pos: int or 0-d tensor (every row
     at that position) or an int tensor [B] (row b at ``pos[b]``).
     -> (logits [B, V], cache), the cache updated in place."""
     x = L.embed_tokens(params["embed"], cfg, token[:, None])
+    x = constrain(x, "batch", None, "embed")
     pos = attn_lib.row_positions(pos, x.shape[0], x.device)
     for l, name, kind, lp in _layers(params, cfg):
         lc = _layer(cache[name], l)
@@ -270,7 +334,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         x = x + y
         x = x + _ffn_sublayer(lp, cfg, x)[0]
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, x)[:, 0], cache
+    logits = L.unembed(params["embed"], cfg, x)[:, 0]
+    return constrain(logits, "batch", "vocab"), cache
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -283,7 +348,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     s = x.shape[1]
     max_len = max_len or cfg.max_cache_len or s
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    cache = init_lm_cache(cfg, x.shape[0], max_len, device=x.device)
+    cache = constrain_tree(
+        init_lm_cache(cfg, x.shape[0], max_len, device=x.device),
+        spec_lm_cache(cfg))
     for l, name, kind, lp in _layers(params, cfg):
         lc = _layer(cache[name], l)
         if kind == "ssm":
@@ -291,7 +358,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
             x = x + y
             for key, t in c.items():
-                lc[key].copy_(t)
+                local_copy_(lc[key], t)
+            x = constrain(x, "batch", "seq", "embed")
             continue
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
         y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
@@ -299,5 +367,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         attn_lib.prefill_into_cache(lc, k, v)
         x = x + y
         x = x + _ffn_sublayer(lp, cfg, x)[0]
+        x = constrain(x, "batch", "seq", "embed")
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], cfg, x[:, -1:])[:, 0], cache
+    logits = L.unembed(params["embed"], cfg, x[:, -1:])[:, 0]
+    return constrain(logits, "batch", "vocab"), cache

@@ -8,8 +8,11 @@ their gates; each choice takes the next position in its expert's queue in
 token-major order, and choices at or past the expert's capacity are dropped
 (they fall through on the residual).  Dispatch and combine are gathers over
 a per-group ``[G, E * C]`` slot table, as in the JAX package, whose
-``custom_vjp`` forms exist for GSPMD's locality and are not needed here;
-the expert-parallel sharding waits for the multi-device slice.
+``custom_vjp`` forms exist for GSPMD's locality and are not needed here.
+Under an active mesh the ``constrain`` calls stand where the JAX package's
+do: the groups split over the DP axes, then the expert buffer flips to the
+experts split over "data" (DTensor's redistribution is the expert-parallel
+all-to-all) and back.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import truncated_normal
+from repro_torch.parallel.sharding import constrain
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
@@ -39,6 +43,19 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
             "wg": truncated_normal(generator, stack + (d, f_sh), s_in),
             "wo": truncated_normal(generator, stack + (f_sh, d),
                                    1.0 / math.sqrt(f_sh))}
+    return p
+
+
+def spec_moe(cfg: ModelConfig) -> dict:
+    p = {
+        "router": ("embed", None),
+        "wi": ("experts", "mlp_embed", "expert_ffn"),
+        "wg": ("experts", "mlp_embed", "expert_ffn"),
+        "wo": ("experts", "expert_ffn", "mlp_embed"),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"),
+                       "wo": ("ffn", "embed")}
     return p
 
 
@@ -66,6 +83,7 @@ def moe_block(params: dict, cfg: ModelConfig,
     cap = capacity(cfg, t)
     dt = x.dtype
     xg = x.reshape(g, t, d)
+    xg = constrain(xg, "expert_group", None, None)
 
     # ---- router (float32) ----
     logits = torch.matmul(xg.float(), params["router"].float())   # [G,T,E]
@@ -84,8 +102,10 @@ def moe_block(params: dict, cfg: ModelConfig,
     # ---- positions within each expert queue (dropping beyond capacity) ----
     flat_idx = expert_idx.reshape(g, t * k)
     onehot = F.one_hot(flat_idx, e)                                 # [G,T*k,E]
-    pos = torch.gather(torch.cumsum(onehot, dim=1) - 1, 2,
-                       flat_idx[..., None])[..., 0]
+    onehot = constrain(onehot, "expert_group", None, None)
+    pos_in_e = constrain(torch.cumsum(onehot, dim=1) - 1,
+                         "expert_group", None, None)
+    pos = torch.gather(pos_in_e, 2, flat_idx[..., None])[..., 0]
     keep = pos < cap
 
     # ---- dispatch: each kept choice owns one slot of its expert ----
@@ -95,27 +115,41 @@ def moe_block(params: dict, cfg: ModelConfig,
     tok_of_choice = torch.arange(t, device=x.device).repeat_interleave(k)
     tok_of_slot = torch.full((g, n_slots + 1), t, dtype=torch.long,
                              device=x.device)
-    tok_of_slot.scatter_(1, slot_of_choice, tok_of_choice.expand(g, -1))
+    tok_of_slot = tok_of_slot.scatter(1, slot_of_choice,
+                                      tok_of_choice.expand(g, -1))
+    tok_of_slot = constrain(tok_of_slot, "expert_group", None)
+    slot_of_choice = constrain(slot_of_choice, "expert_group", None)
     buf = _gather_rows(xg, tok_of_slot[:, :n_slots]).reshape(g, e, cap, d)
+    buf = constrain(buf, "expert_group", None, None, None)
+
+    # ---- groups split -> experts split (the all-to-all) ----
+    buf = constrain(buf, None, "experts", None, None)
 
     # ---- expert FFNs ----
     h = torch.einsum("gecd,edf->gecf", buf, params["wi"].to(dt))
     gt = torch.einsum("gecd,edf->gecf", buf, params["wg"].to(dt))
     h = h * F.silu(gt)
+    h = constrain(h, None, "experts", None, "expert_ffn")
     out = torch.einsum("gecf,efd->gecd", h, params["wo"].to(dt))
+    out = constrain(out, None, "experts", None, None)
+
+    # ---- and back to the groups split ----
+    out = constrain(out, "expert_group", None, None, None)
 
     # ---- combine with gates (dropped choices read the zero row) ----
     picked = _gather_rows(out.reshape(g, n_slots, d), slot_of_choice)
     w = (gate_vals.reshape(g, t * k) * keep).to(dt)
     picked = picked * w[..., None]
     y = picked.reshape(g, t, k, d).sum(dim=2).reshape(b, s, d)
+    y = constrain(y, "batch", "seq", None)
 
     # ---- shared experts (plain dense MLP path) ----
     if cfg.n_shared_experts:
         sh = params["shared"]
         hs = torch.matmul(x, sh["wi"].to(dt))
         gs = torch.matmul(x, sh["wg"].to(dt))
-        y = y + torch.matmul(hs * F.silu(gs), sh["wo"].to(dt))
+        hs = constrain(hs * F.silu(gs), "batch", "seq", "ffn")
+        y = y + torch.matmul(hs, sh["wo"].to(dt))
 
     # ---- load-balance aux (switch-style), over real experts only ----
     n_act = cfg.n_experts_active

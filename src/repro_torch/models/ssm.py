@@ -6,7 +6,9 @@ the decay kernel) plus an inter-chunk state recurrence (a loop over
 chunks).  Decode is the O(1) recurrent update on a [B, H, state, headdim]
 carry.  Single B/C group (n_groups=1) as in the mamba2-780m config; the
 causal depthwise conv (window ``ssm_conv``) is applied to x, B and C.
-No kernel of the JAX package runs here: these are plain torch.
+No kernel of the JAX package runs here: these are plain torch.  Under an
+active mesh the chunked heads are constrained where the JAX package's are,
+and a decode step writes each rank's shard of a DTensor cache.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import truncated_normal
+from repro_torch.parallel.sharding import constrain, local_copy_
 
 
 def _uniform(generator: torch.Generator, shape, lo: float,
@@ -53,6 +56,19 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, *,
         "norm": torch.ones(stack + (di,), dtype=torch.float32, device=dev),
         "w_out": truncated_normal(generator, stack + (di, d),
                                   1.0 / math.sqrt(di)),
+    }
+
+
+def spec_ssm() -> dict:
+    return {
+        "w_z": ("embed", "conv_dim"), "w_x": ("embed", "conv_dim"),
+        "w_b": ("embed", None), "w_c": ("embed", None),
+        "w_dt": ("embed", "ssm_heads"),
+        "conv_x": (None, "conv_dim"), "conv_b": (None, None),
+        "conv_c": (None, None),
+        "a_log": ("ssm_heads",), "d_skip": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",), "norm": ("conv_dim",),
+        "w_out": ("conv_dim", "embed"),
     }
 
 
@@ -125,6 +141,7 @@ def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
     a = -torch.exp(params["a_log"].float())                    # [H]
     da = dt * a                                                # [B,S,H] (<=0)
     xh = x.reshape(b, nc, q, h, p)
+    xh = constrain(xh, "batch", None, None, "ssm_heads", None)
     bc = bb.reshape(b, nc, q, n)
     ccc = cc.reshape(b, nc, q, n)
     dac = da.reshape(b, nc, q, h)
@@ -188,6 +205,13 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *, device=None,
             "conv_c": zeros((batch, k - 1, n), dtype)}
 
 
+def spec_ssm_cache() -> dict:
+    return {"state": ("batch", "ssm_heads", None, None),
+            "conv_x": ("batch", None, "conv_dim"),
+            "conv_b": ("batch", None, None),
+            "conv_c": ("batch", None, None)}
+
+
 def ssm_decode_step(params: dict, cfg: ModelConfig, u: torch.Tensor,
                     cache: dict) -> tuple[torch.Tensor, dict]:
     """One-token recurrent update.  u: [B, 1, D].  The cache's tensors are
@@ -211,5 +235,5 @@ def ssm_decode_step(params: dict, cfg: ModelConfig, u: torch.Tensor,
     out = _gated_out(params, cfg, y, z)
     for name, new in (("state", state), ("conv_x", ncx), ("conv_b", ncb),
                       ("conv_c", ncc)):
-        cache[name].copy_(new)
+        local_copy_(cache[name], new)
     return out, cache

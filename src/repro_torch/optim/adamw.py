@@ -5,9 +5,9 @@ gradient compression: the counterpart of the JAX package's
 It is functional, like the JAX optimizer: ``update(params, grads, state)``
 returns new params and a new state and changes none of its inputs.  Params
 are nested dicts of tensors (any tree ``torch.utils._pytree`` flattens);
-the moments live on the params' devices, in ``moment_dtype``.  The JAX
-package's sharding hook (``state_specs``) has no counterpart here: the port
-has no sharded optimizer state yet.
+the moments live on the params' devices, in ``moment_dtype``.
+:meth:`AdamW.state_specs` gives the moments the params' logical specs
+(ZeRO-style inherited layouts) and the step count none.
 """
 
 from __future__ import annotations
@@ -51,6 +51,10 @@ class AdamW:
         return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                         m=pytree.tree_map(zeros, params),
                         v=pytree.tree_map(zeros, params))
+
+    def state_specs(self, param_specs) -> OptState:
+        """Moment sharding = param sharding; the step count replicated."""
+        return OptState(step=(), m=param_specs, v=param_specs)
 
     def compress_grads(self, grads):
         if not self.grad_compression:

@@ -28,6 +28,12 @@ which this module copies through host memory.  The choice is made from the
 group's backend for the tensor's device (:func:`runs_in_place`), never by
 catching an error.  ``IN_PLACE`` and ``HOST_STAGED`` count the collectives
 that ran on CUDA tensors as they are and those staged through the host.
+
+DTensor redistributes through torch's functional collectives
+(``_c10d_functional``), which hang on gloo's CUDA path (torch 2.11,
+measured on the card, while the ordinary collectives run);
+:func:`route_functional_collectives` re-registers their CUDA kernels to run
+the ordinary collective the same way, counted here.
 """
 
 from __future__ import annotations
@@ -38,8 +44,11 @@ import torch.distributed as dist
 #: The ops each backend runs on CUDA tensors as they are; any other op on a
 #: CUDA tensor goes through host memory.
 CUDA_OPS = {"nccl": frozenset({"all_reduce", "all_gather", "broadcast",
-                               "p2p"}),
-            "gloo": frozenset({"all_reduce", "all_gather", "broadcast"})}
+                               "p2p", "all_gather_into_tensor",
+                               "reduce_scatter", "all_to_all"}),
+            "gloo": frozenset({"all_reduce", "all_gather", "broadcast",
+                               "all_gather_into_tensor", "reduce_scatter",
+                               "all_to_all"})}
 
 #: Collectives run on CUDA tensors as they are, and staged through host
 #: memory, by op.
@@ -159,6 +168,108 @@ def ring_shift(t: torch.Tensor, group) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return _restore(got, t)
+
+
+# ---------------------------------------------------------------------------
+# DTensor's functional collectives on gloo's CUDA path
+# ---------------------------------------------------------------------------
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.AVG,
+               "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+               "product": dist.ReduceOp.PRODUCT}
+_ROUTED: list = []
+_LIBS: list = []
+
+#: Calls of the routed functional collectives, by op.
+FUNCTIONAL: dict[str, int] = {}
+
+
+def _count(op: str) -> None:
+    FUNCTIONAL[op] = FUNCTIONAL.get(op, 0) + 1
+
+
+def _group(name: str):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(name)
+
+
+def _reduce_op(name: str):
+    return _REDUCE_OPS[name.lower()]
+
+
+def _f_all_reduce(t, reduce_op, group_name):
+    _count("all_reduce")
+    group = _group(group_name)
+    work, copied = _staged("all_reduce", t, group)
+    if not copied:
+        work = work.clone()
+    dist.all_reduce(work, op=_reduce_op(reduce_op), group=group)
+    return _restore(work, t)
+
+
+def _f_all_gather(t, group_size, group_name):
+    _count("all_gather_into_tensor")
+    group = _group(group_name)
+    work, _ = _staged("all_gather_into_tensor", t, group)
+    out = work.new_empty((group_size * work.shape[0],) + work.shape[1:])
+    dist.all_gather_into_tensor(out, work, group=group)
+    return _restore(out, t)
+
+
+def _f_reduce_scatter(t, reduce_op, group_size, group_name):
+    _count("reduce_scatter")
+    group = _group(group_name)
+    work, _ = _staged("reduce_scatter", t, group)
+    out = work.new_empty((work.shape[0] // group_size,) + work.shape[1:])
+    dist.reduce_scatter_tensor(out, work, op=_reduce_op(reduce_op),
+                               group=group)
+    return _restore(out, t)
+
+
+def _f_all_to_all(t, output_split_sizes, input_split_sizes, group_name):
+    _count("all_to_all")
+    group = _group(group_name)
+    work, _ = _staged("all_to_all", t, group)
+    rows = (sum(output_split_sizes) if output_split_sizes
+            else work.shape[0])
+    out = work.new_empty((rows,) + work.shape[1:])
+    dist.all_to_all_single(out, work, output_split_sizes or None,
+                           input_split_sizes or None, group=group)
+    return _restore(out, t)
+
+
+def _f_broadcast(t, src, group_name):
+    _count("broadcast")
+    group = _group(group_name)
+    work, copied = _staged("broadcast", t, group)
+    if not copied:
+        work = work.clone()
+    dist.broadcast(work, src=src, group=group)
+    return _restore(work, t)
+
+
+def route_functional_collectives(key: str = "CUDA") -> None:
+    """Run the CUDA kernels of ``_c10d_functional``'s ``all_reduce``,
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+    ``all_to_all_single`` and ``broadcast`` (what DTensor's redistributions
+    issue) as the ordinary collectives of this module, synchronously: on
+    the card where the group's CUDA backend runs the op
+    (:data:`CUDA_OPS`), through host memory otherwise, each counted in
+    :data:`IN_PLACE` or :data:`HOST_STAGED`.  For a process whose CUDA
+    tensors are served by gloo; idempotent.  ``key="CPU"`` routes the CPU
+    kernels the same way (the CPU tests' check of these kernels)."""
+    if key in _ROUTED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name, fn in (("all_reduce", _f_all_reduce),
+                     ("all_gather_into_tensor", _f_all_gather),
+                     ("reduce_scatter_tensor", _f_reduce_scatter),
+                     ("all_to_all_single", _f_all_to_all),
+                     ("broadcast", _f_broadcast)):
+        lib.impl(name, fn, key)
+    _ROUTED.append(key)
+    _LIBS.append(lib)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ AdamW update, with microbatched gradient accumulation (``accum_steps``):
 the global batch is split along axis 0 and the micro-batches' gradients
 summed in float32 and divided by their count, as the JAX package's
 ``lax.scan`` body does, which divides activation memory by the
-accumulation factor at the same global batch.  The sharding spec
-(``state_specs``) waits for the LM's multi-device half (ROADMAP A11).
+accumulation factor at the same global batch.  :func:`state_specs` is the
+state's tree of logical axis names; with params, moments and batch given as
+DTensors (``launch/specs.py`` lays them out) the step runs across the mesh
+unchanged.
 
 :func:`make_sgd_step` is the minibatch-SGD step shared by the paper
 pipelines, with the JAX package's ``mesh=`` data-parallel form.
@@ -49,6 +51,11 @@ def init_state(model, optimizer: AdamW, generator: torch.Generator, *,
     when None) and a fresh optimizer state beside them."""
     params = model.init(generator, device=device)
     return TrainState(params=params, opt=optimizer.init(params))
+
+
+def state_specs(model, optimizer: AdamW) -> TrainState:
+    pspecs = model.param_specs()
+    return TrainState(params=pspecs, opt=optimizer.state_specs(pspecs))
 
 
 def loss_and_grads(loss_fn, params, batch):
