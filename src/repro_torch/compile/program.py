@@ -43,6 +43,7 @@ from repro_torch.core import mesh as mesh_lib
 from repro_torch.core import quantize as q_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.schedule import DeepGridSchedule
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -593,19 +594,24 @@ class CompiledDeepProgram:
         coherently, the detector reads each layer's rows and feeds the
         next.
         """
-        xc = _prep_input(x, self.in_dim, self.ti * self.tile,
-                         self.packed[0].device)
-        cols, rows = self._gathers
-        if cols is not None:
-            xc = _gather_tiles(xc, cols, self.tile)
-        y = kernel_ops.deep_apply(None, xc, n=self.tile,
-                                  packed=(self.deep, self.packed),
-                                  readout="magnitude", mesh=self.mesh,
-                                  row_axis=self.row_axis,
-                                  data_axis=self.data_axis)
-        if rows is not None:
-            y = _gather_tiles(y, rows, self.tile)
-        return y[..., : self.out_dim]
+        with trace.span("analog.apply"):
+            with trace.span("analog.prep"):
+                xc = _prep_input(x, self.in_dim, self.ti * self.tile,
+                                 self.packed[0].device)
+                cols, rows = self._gathers
+                if cols is not None:
+                    xc = _gather_tiles(xc, cols, self.tile)
+            with trace.span("analog.grid"):
+                y = kernel_ops.deep_apply(None, xc, n=self.tile,
+                                          packed=(self.deep, self.packed),
+                                          readout="magnitude",
+                                          mesh=self.mesh,
+                                          row_axis=self.row_axis,
+                                          data_axis=self.data_axis)
+            with trace.span("analog.readout"):
+                if rows is not None:
+                    y = _gather_tiles(y, rows, self.tile)
+                return y[..., : self.out_dim]
 
     def n_cells(self) -> int:
         return sum(vp.n_cells + up.n_cells

@@ -19,6 +19,8 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.runtime import trace
+
 
 @dataclasses.dataclass
 class TokenStream:
@@ -60,14 +62,15 @@ class TokenStream:
 
     def batch(self, step: int) -> dict:
         """The local shard of global batch ``step`` (tokens + shifted labels)."""
-        rows = []
-        base = step * self.global_batch + self.host_id * self.local_batch
-        for r in range(self.local_batch):
-            rng = np.random.default_rng((self.seed, base + r))
-            rows.append(self._gen_row(rng))
-        arr = np.stack(rows)
-        return {"tokens": arr[:, :-1].astype(np.int32),
-                "labels": arr[:, 1:].astype(np.int32)}
+        with trace.span("data.batch"):
+            rows = []
+            base = step * self.global_batch + self.host_id * self.local_batch
+            for r in range(self.local_batch):
+                rng = np.random.default_rng((self.seed, base + r))
+                rows.append(self._gen_row(rng))
+            arr = np.stack(rows)
+            return {"tokens": arr[:, :-1].astype(np.int32),
+                    "labels": arr[:, 1:].astype(np.int32)}
 
     def __iter__(self):
         step = 0

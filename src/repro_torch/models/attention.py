@@ -30,6 +30,7 @@ from repro_torch.models.layers import (apply_rope, rope_frequencies,
 from repro_torch.parallel.sharding import (constrain, local_call,
                                            local_index_put_, local_window,
                                            replicated)
+from repro_torch.runtime import trace
 
 NEG_INF = -1e30
 
@@ -185,58 +186,63 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
               rope: bool = True, kv_override=None, return_kv: bool = False):
     """Full-sequence attention (train / prefill / cross)."""
-    b, s, _ = x.shape
-    if kv_override is None:
-        q, k, v = _project_qkv(params, cfg, x, x)
-        kv_pos = positions
-    else:
-        q = _proj(x, params["wq"])
-        k, v = kv_override
-        kv_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-    if rope and kv_override is None:
-        cos, sin = rope_frequencies(cfg, positions)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    q = constrain(q, "batch", "seq", "heads", "head_dim")
-    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
-    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
-    kv_out = (k, v)
-    if _h_tot(cfg) != cfg.n_kv_heads:
-        # expand KV per q-head (original GQA grouping kept under head padding)
-        hmap = head_to_kv_map(cfg, x.device)
-        k = _expand_kv(k, hmap)
-        v = _expand_kv(v, hmap)
-        k = constrain(k, "batch", "seq", "heads", "head_dim")
-        v = constrain(v, "batch", "seq", "heads", "head_dim")
-    use_kernel = cfg.attn_impl == "pallas" and k.shape[1] == s
-    # the flash attention kernel B9: score blocks stay on chip.  Its tiles
-    # are its own; the block passed only has to divide s.
-    blk = math.gcd(s, min(cfg.attn_chunk, s, 128))
+    with trace.span("lm.attention"):
+        b, s, _ = x.shape
+        if kv_override is None:
+            q, k, v = _project_qkv(params, cfg, x, x)
+            kv_pos = positions
+        else:
+            q = _proj(x, params["wq"])
+            k, v = kv_override
+            kv_pos = torch.arange(k.shape[1], dtype=torch.int32,
+                                  device=x.device)
+        if rope and kv_override is None:
+            with trace.span("attn.rope"):
+                cos, sin = rope_frequencies(cfg, positions)
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+        q = constrain(q, "batch", "seq", "heads", "head_dim")
+        k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+        v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
+        kv_out = (k, v)
+        if _h_tot(cfg) != cfg.n_kv_heads:
+            # expand KV per q-head (original GQA grouping kept under head
+            # padding)
+            hmap = head_to_kv_map(cfg, x.device)
+            k = _expand_kv(k, hmap)
+            v = _expand_kv(v, hmap)
+            k = constrain(k, "batch", "seq", "heads", "head_dim")
+            v = constrain(v, "batch", "seq", "heads", "head_dim")
+        use_kernel = cfg.attn_impl == "pallas" and k.shape[1] == s
+        # the flash attention kernel B9: score blocks stay on chip.  Its tiles
+        # are its own; the block passed only has to divide s.
+        blk = math.gcd(s, min(cfg.attn_chunk, s, 128))
 
-    def core(q, k, v):
-        if use_kernel:
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal, bq=blk,
-                                  bk=blk)
-            return out.transpose(1, 2)
-        return _flash_chunks(q, k, v, positions, kv_pos, cfg, causal)
+        def core(q, k, v):
+            with trace.span("attn.core"):
+                if use_kernel:
+                    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), causal=causal,
+                                          bq=blk, bk=blk)
+                    return out.transpose(1, 2)
+                return _flash_chunks(q, k, v, positions, kv_pos, cfg, causal)
 
-    if hasattr(q, "placements"):
-        # under a mesh each rank attends over the batch rows and heads it
-        # holds (B9 takes device pointers, never a DTensor)
-        k = k.redistribute(q.device_mesh, q.placements)
-        v = v.redistribute(q.device_mesh, q.placements)
-        out = local_call(core, (q, k, v), q.placements)
-    else:
-        out = core(q, k, v)
-    wo = params["wo"].to(x.dtype)
-    mask = _head_mask(cfg, x.device)
-    if mask is not None:
-        wo = wo * mask[:, None, None].to(wo.dtype)
-    y = _out_proj(out, wo)
-    if return_kv:
-        return y, kv_out
-    return y
+        if hasattr(q, "placements"):
+            # under a mesh each rank attends over the batch rows and heads it
+            # holds (B9 takes device pointers, never a DTensor)
+            k = k.redistribute(q.device_mesh, q.placements)
+            v = v.redistribute(q.device_mesh, q.placements)
+            out = local_call(core, (q, k, v), q.placements)
+        else:
+            out = core(q, k, v)
+        wo = params["wo"].to(x.dtype)
+        mask = _head_mask(cfg, x.device)
+        if mask is not None:
+            wo = wo * mask[:, None, None].to(wo.dtype)
+        y = _out_proj(out, wo)
+        if return_kv:
+            return y, kv_out
+        return y
 
 
 def project_cross_kv(params, cfg: ModelConfig, memory: torch.Tensor):
@@ -265,21 +271,23 @@ def prefill_into_cache(cache: dict, k: torch.Tensor,
     """Write a prefill's k, v [B, S, KV, hd] into the cache's first S slots,
     in place (each rank its own shard of a DTensor cache); returns the
     cache."""
-    b, s = k.shape[:2]
-    max_len = cache["k"].shape[1]
-    if s > max_len:
-        raise ValueError(f"prefill of {s} tokens exceeds the cache's "
-                         f"{max_len} slots")
-    if not hasattr(cache["k"], "placements"):
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
+    with trace.span("lm.cache"):
+        b, s = k.shape[:2]
+        max_len = cache["k"].shape[1]
+        if s > max_len:
+            raise ValueError(f"prefill of {s} tokens exceeds the cache's "
+                             f"{max_len} slots")
+        if not hasattr(cache["k"], "placements"):
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
+            return cache
+        dev = cache["k"].device
+        at = (torch.arange(b, device=dev).repeat_interleave(s),
+              torch.arange(s, device=dev).repeat(b))
+        for name, t in (("k", k), ("v", v)):
+            local_index_put_(cache[name], at,
+                             t.reshape((b * s,) + t.shape[2:]))
         return cache
-    dev = cache["k"].device
-    at = (torch.arange(b, device=dev).repeat_interleave(s),
-          torch.arange(s, device=dev).repeat(b))
-    for name, t in (("k", k), ("v", v)):
-        local_index_put_(cache[name], at, t.reshape((b * s,) + t.shape[2:]))
-    return cache
 
 
 def row_positions(pos, batch: int, device) -> torch.Tensor:

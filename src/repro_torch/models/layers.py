@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import (constrain, local_call,
                                            replicated, whole)
+from repro_torch.runtime import trace
 
 
 def truncated_normal(generator: torch.Generator, shape,
@@ -52,11 +53,12 @@ def stack_spec(tree, name: str = "layers"):
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * params["scale"]).to(dt)
+    with trace.span("lm.norm"):
+        dt = x.dtype
+        x = x.float()
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+        x = x * torch.rsqrt(var + eps)
+        return (x * params["scale"]).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -97,15 +99,17 @@ def embed_tokens(params: dict, cfg: ModelConfig,
 
 
 def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    table = params["table"] if cfg.tie_embeddings else params["unembed"]
-    logits = torch.matmul(x, table.to(x.dtype).t())
-    if cfg.logit_softcap:
-        c = cfg.logit_softcap
-        logits = c * torch.tanh(logits / c)
-    if cfg.vocab_real and cfg.vocab_real < cfg.vocab_size:
-        pad = torch.arange(cfg.vocab_size, device=x.device) >= cfg.vocab_real
-        logits = logits.masked_fill(pad, -1e30)
-    return logits
+    with trace.span("lm.unembed"):
+        table = params["table"] if cfg.tie_embeddings else params["unembed"]
+        logits = torch.matmul(x, table.to(x.dtype).t())
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = c * torch.tanh(logits / c)
+        if cfg.vocab_real and cfg.vocab_real < cfg.vocab_size:
+            pad = (torch.arange(cfg.vocab_size, device=x.device)
+                   >= cfg.vocab_real)
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
 
 
 # ---------------------------------------------------------------------------

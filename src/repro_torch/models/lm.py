@@ -57,6 +57,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import (active_mesh, active_rules,
                                            constrain, local_copy_,
                                            use_mesh_and_rules)
+from repro_torch.runtime import trace
 
 
 def superblock_layout(cfg: ModelConfig) -> tuple[int, list[str]]:
@@ -164,12 +165,13 @@ def unstack(tree, n: int) -> list:
 
 
 def _embed_input(params, cfg, tokens, vis_embed):
-    x = L.embed_tokens(params["embed"], cfg, tokens)
-    if cfg.family == "vlm":
-        if vis_embed is None:
-            raise ValueError("vlm family requires vis_embed")
-        x = torch.cat([vis_embed.to(x.dtype), x], dim=1)
-    return constrain(x, "batch", "seq", "embed")
+    with trace.span("lm.embed"):
+        x = L.embed_tokens(params["embed"], cfg, tokens)
+        if cfg.family == "vlm":
+            if vis_embed is None:
+                raise ValueError("vlm family requires vis_embed")
+            x = torch.cat([vis_embed.to(x.dtype), x], dim=1)
+        return constrain(x, "batch", "seq", "embed")
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -217,9 +219,10 @@ def _attn_sublayer(lp, cfg, x, positions):
 def _ffn_sublayer(lp, cfg, x):
     """(y, moe aux or None)."""
     h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    if "moe" in lp:
-        return moe_lib.moe_block(lp["moe"], cfg, h)
-    return L.mlp(lp["mlp"], cfg, h), None
+    with trace.span("lm.ffn"):
+        if "moe" in lp:
+            return moe_lib.moe_block(lp["moe"], cfg, h)
+        return L.mlp(lp["mlp"], cfg, h), None
 
 
 def _ssm_sublayer(lp, cfg, x):
@@ -289,13 +292,15 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     n_super, kinds = superblock_layout(cfg)
     dt = cfg.activation_dtype()
     cache = {}
-    for i, kind in enumerate(kinds):
-        if kind == "ssm":
-            cache[f"l{i}_{kind}"] = ssm_lib.init_ssm_cache(
-                cfg, batch, dt, device=device, stack=(n_super,))
-        else:
-            cache[f"l{i}_{kind}"] = attn_lib.init_cache(
-                cfg, batch, max_len, dt, device=device, stack=(n_super,))
+    with trace.span("lm.cache"):
+        for i, kind in enumerate(kinds):
+            if kind == "ssm":
+                cache[f"l{i}_{kind}"] = ssm_lib.init_ssm_cache(
+                    cfg, batch, dt, device=device, stack=(n_super,))
+            else:
+                cache[f"l{i}_{kind}"] = attn_lib.init_cache(
+                    cfg, batch, max_len, dt, device=device,
+                    stack=(n_super,))
     return cache
 
 
@@ -344,30 +349,32 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Prefill: full-sequence pass producing last-position logits + cache.
     An ``ssm``/``hybrid`` prompt longer than ``ssm_chunk`` must be a
     multiple of it (``ssm_block`` raises otherwise)."""
-    x = _embed_input(params, cfg, tokens, vis_embed)
-    s = x.shape[1]
-    max_len = max_len or cfg.max_cache_len or s
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    cache = constrain_tree(
-        init_lm_cache(cfg, x.shape[0], max_len, device=x.device),
-        spec_lm_cache(cfg))
-    for l, name, kind, lp in _layers(params, cfg):
-        lc = _layer(cache[name], l)
-        if kind == "ssm":
-            h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-            y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
+    with trace.span("lm.prefill"):
+        x = _embed_input(params, cfg, tokens, vis_embed)
+        s = x.shape[1]
+        max_len = max_len or cfg.max_cache_len or s
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        cache = constrain_tree(
+            init_lm_cache(cfg, x.shape[0], max_len, device=x.device),
+            spec_lm_cache(cfg))
+        for l, name, kind, lp in _layers(params, cfg):
+            lc = _layer(cache[name], l)
+            if kind == "ssm":
+                h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+                y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
+                x = x + y
+                for key, t in c.items():
+                    local_copy_(lc[key], t)
+                x = constrain(x, "batch", "seq", "embed")
+                continue
+            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
+                                           return_kv=True)
+            attn_lib.prefill_into_cache(lc, k, v)
             x = x + y
-            for key, t in c.items():
-                local_copy_(lc[key], t)
+            x = x + _ffn_sublayer(lp, cfg, x)[0]
             x = constrain(x, "batch", "seq", "embed")
-            continue
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
-                                       return_kv=True)
-        attn_lib.prefill_into_cache(lc, k, v)
-        x = x + y
-        x = x + _ffn_sublayer(lp, cfg, x)[0]
-        x = constrain(x, "batch", "seq", "embed")
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], cfg, x[:, -1:])[:, 0]
-    return constrain(logits, "batch", "vocab"), cache
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], cfg, x[:, -1:])[:, 0]
+        return constrain(logits, "batch", "vocab"), cache
+

@@ -32,6 +32,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.optim.adamw import AdamW, OptState
 from repro_torch.parallel import collectives as coll
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass
@@ -65,10 +66,12 @@ def loss_and_grads(loss_fn, params, batch):
     leaves, spec = pytree.tree_flatten(params)
     live = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
-        loss, metrics = loss_fn(pytree.tree_unflatten(live, spec), batch)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g
-             for t, g in zip(leaves, grads)]
+        with trace.span("train.forward"):
+            loss, metrics = loss_fn(pytree.tree_unflatten(live, spec), batch)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return pytree.tree_unflatten(grads, spec), loss.detach(), metrics
 
@@ -85,36 +88,42 @@ def make_train_step(model, optimizer: AdamW, accum_steps: int = 1):
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
     def train_step(state: TrainState, batch: dict):
-        params = state.params
-        if accum_steps == 1:
-            grads, loss, metrics = loss_and_grads(model.loss, params, batch)
-            grads = optimizer.compress_grads(grads)
-        else:
-            b = next(iter(batch.values())).shape[0]
-            if b % accum_steps:
-                raise ValueError(f"batch {b} does not split into "
-                                 f"{accum_steps} micro-batches")
-            mb = b // accum_steps
-            gsum = pytree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=pytree.tree_leaves(params)[0].device)
-            for i in range(accum_steps):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                grads, micro_loss, _ = loss_and_grads(model.loss, params,
-                                                      micro)
+        with trace.span("train.step"):
+            params = state.params
+            if accum_steps == 1:
+                grads, loss, metrics = loss_and_grads(model.loss, params,
+                                                      batch)
                 grads = optimizer.compress_grads(grads)
-                gsum = pytree.tree_map(lambda a, g: a + g.float(), gsum, grads)
-                loss = loss + micro_loss
-            grads = pytree.tree_map(lambda g: g / accum_steps, gsum)
-            loss = loss / accum_steps
-            metrics = {}
-        new_params, new_opt, gnorm = optimizer.update(params, grads, state.opt)
-        metrics = dict(metrics)
-        metrics.update({"loss": loss, "grad_norm": gnorm,
-                        "step": new_opt.step})
-        return TrainState(params=new_params, opt=new_opt), metrics
+            else:
+                b = next(iter(batch.values())).shape[0]
+                if b % accum_steps:
+                    raise ValueError(f"batch {b} does not split into "
+                                     f"{accum_steps} micro-batches")
+                mb = b // accum_steps
+                gsum = pytree.tree_map(
+                    lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=pytree.tree_leaves(params)[0].device)
+                for i in range(accum_steps):
+                    micro = {k: v[i * mb:(i + 1) * mb]
+                             for k, v in batch.items()}
+                    grads, micro_loss, _ = loss_and_grads(model.loss, params,
+                                                          micro)
+                    grads = optimizer.compress_grads(grads)
+                    gsum = pytree.tree_map(lambda a, g: a + g.float(), gsum,
+                                           grads)
+                    loss = loss + micro_loss
+                grads = pytree.tree_map(lambda g: g / accum_steps, gsum)
+                loss = loss / accum_steps
+                metrics = {}
+            with trace.span("train.optimizer"):
+                new_params, new_opt, gnorm = optimizer.update(params, grads,
+                                                              state.opt)
+            metrics = dict(metrics)
+            metrics.update({"loss": loss, "grad_norm": gnorm,
+                            "step": new_opt.step})
+            return TrainState(params=new_params, opt=new_opt), metrics
 
     return train_step
 
