@@ -8,15 +8,13 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, ``PATH`` or
 imports nothing of JAX.  Phases (each raises on failure, so the script
 exits non-zero):
 
-1. card name and power limit; build the seven CUDA libraries from ``csrc/``
+1. card name and power limit; build the eight CUDA libraries from ``csrc/``
    (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``,
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
-   ``mesh_sweep.cuh``, and ``flash_attn_fwd.cu``), one ``nvcc`` each,
-   started together, beside one more ``nvcc -Xptxas -v`` each of
-   ``flash_attn_fwd.cu``, ``deepgrid_fwd.cu``, ``mesh_fwd.cu``,
-   ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu`` and
-   ``deepgrid_bwd.cu`` (registers and spill bytes of every B1-B8
-   instantiation printed; no kernel of B1-B9 may spill registers);
+   ``mesh_sweep.cuh``, ``flash_attn_fwd.cu`` and ``adamw_fused.cu``), one
+   ``nvcc`` each, started together, beside one more ``nvcc -Xptxas -v``
+   each (registers and spill bytes of every B1-B8 and A1 instantiation
+   printed; no kernel of B1-B9 or A1 may spill registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -216,7 +214,7 @@ exits non-zero):
     events and busy share, the model-FLOPs share of the bf16 dense peak;
     finite losses and gradient norms, every leaf (every super-block's)
     changed, step 0's loss equal across the modes and step 1's within 1e-3,
-    a lower peak with ``"full"``, no kernel launched; (b) the reduced
+    a lower peak with ``"full"``, no kernel but A1 launched; (b) the reduced
     TinyLlama in float32, 3 steps at ``accum_steps`` 1 and 2, card against
     CPU: losses within 1e-5, updates within the CPU tests' AdamW rule; a
     gradient through ``attn_impl="pallas"`` raising on the card (B9 is
@@ -229,7 +227,18 @@ exits non-zero):
     and 4x8 tiles of 16, 1024 rows) as phase 15; (d) ``launch.train.main``
     on the card: 12 steps with checkpoints, a resume to 16 whose params are
     within 1e-6 of scale of an uninterrupted run's, ``--inject-straggler 2``
-    printing a recovery plan, and a 6-step qwen2-moe run;
+    printing a recovery plan, and a 6-step qwen2-moe run; (e) A1, the fused
+    AdamW, at the granite-3-2b train cell's 11 leaves (its config and its
+    traffic's AdamW under ``bench/``, 1.317 B float32 params, gradients
+    normals of 1e-4 so the clip at 1.0 acts, moments drawn, step 1000): one
+    ``AdamW.update`` launching one ``adamw_sqnorm`` a leaf, one
+    ``adamw_finalize`` and one ``adamw_update`` a leaf, its outputs against
+    the plain version on the same card tensors (no non-finite value on
+    either side, each leaf within 1e-6 of its largest magnitude, the norm
+    within 1e-6 relative; without clipping the same bits; the same bits on
+    a second call), then its device ms, the plain version's ms,
+    ``torch._fused_adamw_``'s device ms (timed only) and each kernel's
+    device ms; (a) counts A1's update launches, one a leaf a step;
 25. the analog processor across ranks, all on the one card (``spawn``ed
     processes that load phase 1's libraries; a gloo group whose CUDA tensors
     go through gloo, ``cpu:gloo,cuda:gloo``, then one rank on NCCL): (a)
@@ -272,14 +281,14 @@ exits non-zero):
     profile's AdamW) the same bits on every rank, step ms per rank beside
     the single-device step; the collectives on CUDA tensors and through
     host memory;
-27. the ``kernels`` line (nine entries) and, last, the ``ok``/``device``
-    line.
+27. the ``kernels`` line (ten entries, A1's at 24 (e)'s leaves) and, last,
+    the ``ok``/``device`` line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
 to 14, 17 to 20, 22, each part of 23 and 24, and, in each rank, each part
 of 25 and 26) and read just after;
-launches made in phases 2, 9, 10, 15, 16, 21 and in 24's B9 check and
-timings do not count.  Timings are also written to
+launches made in phases 2, 9, 10, 15, 16, 21, in 24's B9 check and
+timings and in 24 (e) do not count.  Timings are also written to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -311,7 +320,7 @@ FLOPS_PER_CELL_INV = 43        # det, |det|^2, 1/det and adj(t)/det, per cell
 FLOPS_PER_CHANNEL_FUSED = 16
 FLOPS_PER_CHANNEL_FUSED_BWD = 41
 LIBRARIES = ("mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd", "deepgrid_fwd",
-             "deepgrid_bwd", "flash_attn_fwd")
+             "deepgrid_bwd", "flash_attn_fwd", "adamw_fused")
 SGD_BATCH = 10                 # the paper's minibatch
 PROC_BATCH = 4096              # inputs through the programmed processor
 FUSED_BATCH = 1000             # the fused layer's training batch
@@ -468,6 +477,13 @@ TRAIN_RFNN_BATCH, TRAIN_RFNN_SEQ = 8, 128
 TRAIN_RFNN_LR = 0.01
 TRAIN_RFNN_STEPS = 12
 DRIVER_STRAGGLER_STEPS = 80
+# (e) A1 at the granite-3-2b train cell's leaves with the cell's AdamW:
+# gradients normals of 1e-4 (a norm of ~3.6, so the clip at 1.0 acts),
+# moments drawn as at a late step; 32 bytes a param move with clipping
+ADAMW_TRAFFIC = "bench/traffic/train-8x512.json"
+ADAMW_GRAD, ADAMW_STEP = 1e-4, 1000
+ADAMW_BYTES_PER_PARAM = 32
+ADAMW_REL = 1e-6               # the card tests' limit with clipping
 # phase 25: the analog processor across ranks sharing the one card
 SHARDED_BACKEND = "cpu:gloo,cuda:gloo"
 SHARDED_MESHES = ((2, 2), (4, 1))   # rows x data, four ranks
@@ -855,7 +871,7 @@ def compiler_phase(torch, dev, card: str, seed: int, reset_launches) -> dict:
 
     from repro_torch import compile as C
     from repro_torch.data.digits import load_digits
-    from repro_torch.kernels import givens_mesh, ops
+    from repro_torch.kernels import adamw_fused, givens_mesh, ops
     from repro_torch.paper.mnist_rfnn import digital_to_analog_transfer
     from repro_torch.paper.prototype import PROTOTYPE
     from repro_torch.runtime import FailureInjector, tile_row_failures
@@ -1040,7 +1056,8 @@ def compiler_phase(torch, dev, card: str, seed: int, reset_launches) -> dict:
             for e in eng.events], "max_rel_diff": worst}
     # the main path ends here: the timings below repeat its applies and
     # calibration steps, and their launches are not the path's
-    report["launches"] = dict(givens_mesh.LAUNCHES)
+    report["launches"] = {**givens_mesh.LAUNCHES,
+                          "adamw_update": adamw_fused.LAUNCHES["adamw_update"]}
     print(f"[22] main path's launches {report['launches']}", flush=True)
 
     # (b) times of the compiled applies (every call one B6, no packing)
@@ -1662,6 +1679,7 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
                            * cfg.head_dim * TRAIN_LM_SEQ)
     baseline = torch.cuda.memory_allocated()
     lm = {}
+    a1_updates = 0  # A1's update launches due: one a leaf a step
     reset_launches()
     for remat, n_steps in TRAIN_LM_STEPS.items():
         model = Model(dataclasses.replace(cfg, remat=remat))
@@ -1669,6 +1687,7 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
         state = init_state(model, opt,
                            torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
+        a1_updates += (n_steps + 1) * len(pytree.tree_leaves(state.params))
         before = leaf_samples(state.params)
         step = make_train_step(model, opt)
         torch.cuda.synchronize()
@@ -1728,10 +1747,10 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
               flush=True)
         del state, step, model
         torch.cuda.empty_cache()
-    report["launches"]["train_lm"] = all_launches()
-    check(sum(report["launches"]["train_lm"].values()) == 0,
-          f"the digital LM's training launched kernels: "
-          f"{report['launches']['train_lm']}")
+    report["launches"]["train_lm"] = counts = all_launches()
+    check(counts["adamw_update"] == a1_updates == sum(counts.values()),
+          f"the digital LM's training launched {counts}, not A1 alone "
+          f"{a1_updates} times (one a leaf a step)")
     none, full = lm["none"], lm["full"]
     check(full["losses"][0] == none["losses"][0],
           f"step 0's loss differs between remat modes: {none['losses'][0]} "
@@ -1975,6 +1994,177 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
     print(f"[24] phase 24 in {report['seconds']:.1f} s (parts end at "
           f"{ {k: round(v, 1) for k, v in report['part_s'].items()} } s)",
           flush=True)
+    return report
+
+
+def ordered(torch, t):
+    """Each float32's place on the line of float32s, as int64: two values
+    are ``|ordered(a) - ordered(b)|`` ulps apart (NaNs and infinities fall
+    past the largest finite value)."""
+    i = t.view(torch.int32).long()
+    return i.where(i >= 0, -(i & 0x7FFFFFFF))
+
+
+def adamw_gaps(torch, got, want) -> dict:
+    """How far the fused outputs ``got`` lie from the plain ones ``want``
+    (lists of float32 leaves): non-finite counts on each side, the largest
+    absolute gap (a NaN propagates), the largest in ulps and where it is,
+    and the largest gap as a share of its leaf's largest magnitude."""
+    out = {"nonfinite_got": 0, "nonfinite_want": 0, "ulps": 0}
+    abs_max, rel = [], []
+    for leaf, (a, b) in enumerate(zip(got, want)):
+        out["nonfinite_got"] += int((~torch.isfinite(a)).sum())
+        out["nonfinite_want"] += int((~torch.isfinite(b)).sum())
+        abs_max.append((a - b).abs().max())
+        rel.append(abs_max[-1] / b.abs().max())
+        ulps = (ordered(torch, a) - ordered(torch, b)).abs().flatten()
+        at = int(ulps.argmax())
+        if int(ulps[at]) > out["ulps"]:
+            out.update(ulps=int(ulps[at]), ulps_leaf=leaf, ulps_index=at,
+                       ulps_got=float(a.flatten()[at]),
+                       ulps_want=float(b.flatten()[at]))
+        del ulps
+    out["max_abs"] = float(torch.stack(abs_max).max())
+    out["rel"] = float(torch.stack(rel).max())
+    return out
+
+
+def adamw_phase(torch, dev, card: str, seed: int) -> dict:
+    """A1, the fused AdamW, at the granite-3-2b train cell's leaves (phase
+    24 (e)): its launches on one ``AdamW.update``, each output against the
+    plain version on the same card tensors (bit for bit without clipping,
+    within ``ADAMW_REL`` of each leaf's largest magnitude and the norm
+    within ``ADAMW_REL`` with it) and against a second call (the same
+    bits), its device ms, the plain version's and
+    ``torch._fused_adamw_``'s, the bound and each kernel's device ms."""
+    from torch.utils import _pytree as pytree
+
+    from bench.reference import dense_lm
+    from repro_torch.kernels import adamw_fused
+    from repro_torch.optim import AdamW, OptState
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = json.loads((ROOT / "bench/configs/granite-3-2b.json").read_text())
+    hp = json.loads((ROOT / ADAMW_TRAFFIC).read_text())["adamw"]
+    params = dense_lm.make_params(cfg, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def like(scale, square=False):
+        def draw(p):
+            t = torch.randn(p.shape, generator=gen, device=dev) * scale
+            return t.square() if square else t
+        return pytree.tree_map(draw, params)
+
+    grads = like(ADAMW_GRAD)
+    state = OptState(step=torch.full((), ADAMW_STEP - 1, dtype=torch.int32,
+                                     device=dev),
+                     m=like(ADAMW_GRAD / 10), v=like(ADAMW_GRAD / 10, True))
+    leaves = [pytree.tree_leaves(t) for t in (params, grads, state.m,
+                                              state.v)]
+    n_params = sum(t.numel() for t in leaves[0])
+    step = state.step + 1
+    report = {"params": n_params, "leaves": len(leaves[0]),
+              "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+
+    def compare(opt, what):
+        for k in adamw_fused.LAUNCHES:
+            adamw_fused.LAUNCHES[k] = 0
+        new_p, new_s, gnorm = opt.update(params, grads, state)
+        torch.cuda.synchronize()
+        launches = dict(adamw_fused.LAUNCHES)
+        got = [pytree.tree_leaves(t) for t in (new_p, new_s.m, new_s.v)]
+        again = adamw_fused.launch(opt, *leaves, step, opt.lr)
+        twice = float(again[3]) == float(gnorm) and all(
+            torch.equal(a, b) for g, w in zip(got, again)
+            for a, b in zip(g, w))
+        del new_p, new_s, again
+        want = adamw_fused.update_plain(opt, *leaves, step, opt.lr)
+        row = {"launches": launches, "gnorm": float(gnorm),
+               "gnorm_plain": float(want[3]), "same_bits_twice": twice,
+               "bits_equal": all(torch.equal(a, b) for g, w in zip(got, want)
+                                 for a, b in zip(g, w)),
+               **{name: adamw_gaps(torch, g, w)
+                  for name, g, w in zip("pmv", got, want[:3])}}
+        del got, want
+        torch.cuda.empty_cache()
+        n = len(leaves[0])
+        check(launches == {"adamw_sqnorm": n if opt.clip_norm > 0 else 0,
+                           "adamw_finalize": 1, "adamw_update": n},
+              f"A1, {what}: one update launched {launches} on {n} leaves")
+        check(twice, f"A1, {what}: two calls on the same inputs differ")
+        print(f"[24] (e) A1, {what}: gnorm {row['gnorm']!r} (plain "
+              f"{row['gnorm_plain']!r}); the same bits twice; the plain "
+              f"version's bits {row['bits_equal']}; "
+              + "; ".join(f"{k} {row[k]}" for k in "pmv"), flush=True)
+        return row
+
+    opt = AdamW(**hp)
+    clipped = compare(opt, f"clip {hp['clip_norm']}")
+    unclipped = compare(AdamW(**{**hp, "clip_norm": 0.0}), "no clipping")
+    check(unclipped["bits_equal"] and unclipped["gnorm"] == 0.0,
+          f"A1 without clipping is not the plain version's bits: {unclipped}")
+    check(abs(clipped["gnorm"] - clipped["gnorm_plain"])
+          <= ADAMW_REL * clipped["gnorm_plain"]
+          and all(clipped[k]["nonfinite_got"] == clipped[k]["nonfinite_want"]
+                  == 0 and clipped[k]["rel"] <= ADAMW_REL for k in "pmv"),
+          f"A1 with clipping against the plain version: {clipped}")
+    report.update(clipped=clipped, unclipped=unclipped)
+
+    def fused():
+        return opt.update(params, grads, state)
+
+    def plain():
+        return adamw_fused.update_plain(opt, *leaves, step, opt.lr)
+
+    report["device_ms"] = device_ms(torch, fused, 10)
+    report["plain_ms"] = cuda_ms(torch, plain, 5, warmup=2)
+    # each kernel's device ms an update: its mean launch times its launches
+    # an update (the profiler may miss a call's events at a cycle's edge)
+    per_update = {"adamw_sqnorm": len(leaves[0]), "adamw_finalize": 1,
+                  "adamw_update": len(leaves[0])}
+    kernels = {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        for name, n in per_update.items():
+            if f"{name}_kernel" in ev.key and ev.device_time_total:
+                kernels[name] = (kernels.get(name, 0.0) + ev.device_time_total
+                                 / ev.count * n / 1e3)
+    report["kernel_ms"] = kernels
+    torch.cuda.empty_cache()
+    # PyTorch's fused AdamW, timed only (the port never calls it): in place,
+    # no clipping, so 28 bytes a param where A1 moves 32
+    lib = [[t.clone() for t in group] for group in
+           (leaves[0], leaves[2], leaves[3])]
+    steps = [torch.full((), float(ADAMW_STEP), device=dev)
+             for _ in leaves[0]]
+
+    def library():
+        torch._fused_adamw_(lib[0], leaves[1], lib[1], lib[2], [], steps,
+                            lr=hp["lr"], beta1=hp["b1"], beta2=hp["b2"],
+                            weight_decay=hp["weight_decay"], eps=hp["eps"],
+                            amsgrad=False, maximize=False)
+
+    report["library_ms"] = device_ms(torch, library, 10)
+    del lib
+    report["bound_ms"] = (ADAMW_BYTES_PER_PARAM * n_params / HBM_BYTES_PER_S
+                          * 1e3)
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[24] (e) {card} | A1 at granite-3-2b's {len(leaves[0])} leaves "
+          f"({n_params} float32 params, clip {hp['clip_norm']}): "
+          f"{report['device_ms']:.4f} device ms an update "
+          f"({100 * report['bound_ms'] / report['device_ms']:.1f}% of its "
+          f"{report['bound_ms']:.4f} ms bound at 32 B a param); the plain "
+          f"version {report['plain_ms']:.4f} ms; torch._fused_adamw_ (no "
+          f"clipping) {report['library_ms']:.4f} device ms; by kernel "
+          f"{ {k: round(v, 4) for k, v in kernels.items()} } ms "
+          f"({report['seconds']:.1f} s)", flush=True)
+    del params, grads, state, leaves
+    torch.cuda.empty_cache()
     return report
 
 
@@ -2855,7 +3045,8 @@ def main(argv=None) -> int:
     from repro_torch.core.hardware import IDEAL
     from repro_torch.data.digits import load_digits
     from repro_torch.data.toys import make_toy_dataset
-    from repro_torch.kernels import cuda_build, givens_mesh, ops, ref, schedule
+    from repro_torch.kernels import (adamw_fused, cuda_build, givens_mesh, ops,
+                                     ref, schedule)
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, ModelConfig
@@ -2905,17 +3096,15 @@ def main(argv=None) -> int:
                 "per_kernel": per}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES) + 7) as pool:
-        usage = {k: pool.submit(ptxas_usage, k)
-                 for k in ("flash_attn_fwd", "deepgrid_fwd", "mesh_fwd",
-                           "mesh_bwd", "rfnn_fwd", "rfnn_bwd",
-                           "deepgrid_bwd")}
+    with ThreadPoolExecutor(2 * len(LIBRARIES)) as pool:
+        usage = {k: pool.submit(ptxas_usage, k) for k in LIBRARIES}
         build_s = dict(zip(LIBRARIES, pool.map(timed_load, LIBRARIES)))
         b9_usage = usage["flash_attn_fwd"].result()
         b67_usage = usage["deepgrid_fwd"].result()
         sweep_usage = {k: usage[k].result() for k in ("mesh_fwd", "mesh_bwd",
                                                     "rfnn_fwd", "rfnn_bwd",
-                                                    "deepgrid_bwd")}
+                                                    "deepgrid_bwd",
+                                                    "adamw_fused")}
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
@@ -2944,12 +3133,15 @@ def main(argv=None) -> int:
     report["b1_b5_b8_ptxas"] = sweep_usage
 
     def reset_launches():
-        for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES):
+        for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES,
+                       adamw_fused.LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
     def all_launches():
-        return {**givens_mesh.LAUNCHES, **flash.LAUNCHES}
+        # A1 by its update kernel, one launch a leaf an optimizer step
+        return {**givens_mesh.LAUNCHES, **flash.LAUNCHES,
+                "adamw_update": adamw_fused.LAUNCHES["adamw_update"]}
 
     def to_cpu(tree):
         return tree_map(lambda t: t.cpu(), tree)
@@ -5163,6 +5355,7 @@ def main(argv=None) -> int:
                                         reset_launches, all_launches,
                                         time_deep_shape)
     launches.update(report["training"]["launches"])
+    report["adamw"] = adamw_phase(torch, dev, card, args.seed)
 
     # -- phase 25: the analog processor across ranks sharing the card ----------
     step_ms = []
@@ -5320,6 +5513,24 @@ def main(argv=None) -> int:
         "bound_by": row["bound_by"],
         # scaled_dot_product_attention(is_causal=True), timed only
         "library_ms": row["sdpa_device_ms"],
+    })
+    # A1 at the granite-3-2b train cell's leaves (phase 24 (e)): no TPU
+    # kernel, as XLA fuses the JAX package's AdamW
+    a1 = report["adamw"]
+    kernels.append({
+        "name": "adamw_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw_fused.cu",
+        "replaces": None,
+        "launches": sum(launches[k].get("adamw_update", 0)
+                        for k in main_path),
+        "max_abs_err": max(a1["clipped"][k]["max_abs"] for k in "pmv"),
+        "ms": a1["device_ms"],
+        "plain_ms": a1["plain_ms"],
+        "bound_ms": a1["bound_ms"],
+        "bound_by": "bytes",
+        # torch._fused_adamw_, timed only: no clipping, so no norm pass
+        "library_ms": a1["library_ms"],
     })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")

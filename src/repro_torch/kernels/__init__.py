@@ -13,6 +13,10 @@ schedule     — parity-column schedules lowering any adjacent-pair MeshPlan
 flash_attention — kernel B9, flash attention: CUDA kernel
                ``csrc/flash_attn_fwd.cu`` (online softmax, causal block skip,
                float32 or bfloat16) and its dense plain version
+adamw_fused  — the fused AdamW update: CUDA kernels ``csrc/adamw_fused.cu``
+               (the clipping norm's partial sums, its finalize, one update
+               pass a leaf) and the plain version ``optim.AdamW`` runs on
+               the CPU and on DTensors
 ops          — public wrappers (``mesh_apply``, ``mesh_apply_cells``,
                ``rfnn_linear``, ``deep_apply``, ``rfnn_network``,
                ``tiled_apply``) and the deep grid's pack cache

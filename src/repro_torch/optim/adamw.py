@@ -8,6 +8,12 @@ are nested dicts of tensors (any tree ``torch.utils._pytree`` flattens);
 the moments live on the params' devices, in ``moment_dtype``.
 :meth:`AdamW.state_specs` gives the moments the params' logical specs
 (ZeRO-style inherited layouts) and the step count none.
+
+The arithmetic is :mod:`repro_torch.kernels.adamw_fused`'s: on plain CUDA
+tensors the fused CUDA update (a norm pass and one update pass a leaf,
+nothing waiting for the card), on the CPU and on DTensors (the sharded
+training paths, whose global norm DTensor reduces across ranks) its plain
+version, the separate tensor ops the JAX package's update is made of.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Any, Callable
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.kernels import adamw_fused
 
 
 @dataclasses.dataclass
@@ -69,7 +77,7 @@ class AdamW:
 
     def _update(self, params, grads, state: OptState):
         p_leaves, spec = pytree.tree_flatten(params)
-        g_leaves = [g.to(torch.float32) for g in pytree.tree_leaves(grads)]
+        g_leaves = pytree.tree_leaves(grads)
         m_leaves, v_leaves = (pytree.tree_leaves(state.m),
                               pytree.tree_leaves(state.v))
         if not (len(g_leaves) == len(m_leaves) == len(v_leaves)
@@ -77,34 +85,9 @@ class AdamW:
             raise ValueError("params, grads and optimizer state differ in "
                              "structure")
         step = state.step + 1
-        if self.clip_norm > 0:
-            gsq = torch.zeros((), dtype=torch.float32, device=step.device)
-            for g in g_leaves:
-                gsq = gsq + (g * g).sum()
-            gnorm = torch.sqrt(gsq)
-            scale = torch.clamp(self.clip_norm / torch.clamp_min(gnorm, 1e-9),
-                                max=1.0)
-            g_leaves = [g * scale for g in g_leaves]
-        else:
-            gnorm = torch.zeros((), dtype=torch.float32, device=step.device)
-
         lr = self.lr(step) if callable(self.lr) else self.lr
-        b1, b2 = self.b1, self.b2
-        stepf = step.to(torch.float32)
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                           device=step.device), stepf)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                           device=step.device), stepf)
-        new_p, new_m, new_v = [], [], []
-        for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
-            mf = m.to(torch.float32) * b1 + (1 - b1) * g
-            vf = v.to(torch.float32) * b2 + (1 - b2) * g * g
-            delta = (mf / bc1) / (torch.sqrt(vf / bc2) + self.eps)
-            if self.weight_decay:
-                delta = delta + self.weight_decay * p.to(torch.float32)
-            new_p.append((p.to(torch.float32) - lr * delta).to(p.dtype))
-            new_m.append(mf.to(self.moment_dtype))
-            new_v.append(vf.to(self.moment_dtype))
+        new_p, new_m, new_v, gnorm = adamw_fused.update(
+            self, p_leaves, g_leaves, m_leaves, v_leaves, step, lr)
         unflat = lambda leaves: pytree.tree_unflatten(leaves, spec)  # noqa: E731
         return (unflat(new_p), OptState(step=step, m=unflat(new_m),
                                         v=unflat(new_v)), gnorm)
