@@ -122,7 +122,9 @@ exits non-zero):
     in q's layout) and views not 16-byte aligned, float32 within 2e-5 and bfloat16 within 3e-2 and each element
     within one bf16 step plus 2e-5 (unit-normal inputs); changing the last
     key and value leaves every earlier row bit-identical; B*H*S = 0
-    launches nothing;
+    launches nothing; then B9 with a score scale of its caller's, Granite
+    4.0's ``attention_multiplier`` 1/128 at hd 128, causal bf16, at the
+    shapes of the cell ``granite4h-prefill-32k`` (:func:`b9_scaled_phase`);
 17. (b) TinyLlama-1.1B at full width (``attn_impl="pallas"``, bf16
     activations, random weights drawn on the card from ``--seed``) through
     ``launch.serve.serve``: batch 8, prompt 1024, 32 greedy tokens, twice
@@ -661,6 +663,73 @@ def flash_bound(b, h, sq, skv, hd, causal) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes",
             flops, nbytes)
+
+
+B9_SCALE = 1.0 / 128        # Granite 4.0's attention_multiplier
+B9_SCALED_ROWS = 512        # query rows held at S = 32768
+
+
+def b9_scaled_phase(torch, flash, dev) -> dict:
+    """B9 with a score scale given by its caller: Granite 4.0's attention
+    (32 heads of 128, causal, scores times 1/128) in bf16 at the shapes of
+    the cell ``granite4h-prefill-32k``.  At ``[8, 32, 4096, 128]`` every
+    batch row is held whole against the plain version; at ``[1, 32, 32768,
+    128]`` the first 512 query rows against the plain version over their
+    keys, and the last 512 against the plain version's float32 sums over
+    all 32768 keys (the dense scores of every row do not fit).  Each
+    within ``FLASH_BF16_TOL`` and one bf16 step per element, one launch a
+    call.  q is drawn 16 times wider than k so that the scores spread
+    (standard deviation 1.4 at 1/128): the output at the default scale,
+    1/sqrt(128), lies far outside the bound, so the scale is read."""
+    gen = torch.Generator(device=dev).manual_seed(128)
+    rows = B9_SCALED_ROWS
+    worst, far = 0.0, float("inf")
+    for b, s in ((8, 4096), (1, 32768)):
+        q, k, v = (torch.randn(b, 32, s, 128, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        q = q * 16
+        before = flash.LAUNCHES["flash_attn_fwd"]
+        got = flash.flash_attention(q, k, v, causal=True, scale=B9_SCALE)
+        torch.cuda.synchronize()
+        check(flash.LAUNCHES["flash_attn_fwd"] == before + 1,
+              f"B9 scaled [{b}, 32, {s}, 128]: "
+              f"{flash.LAUNCHES['flash_attn_fwd'] - before} launches")
+        if s * s * 32 * 4 <= 4 << 30:
+            pairs = [(got[i:i + 1], flash.flash_attention_plain(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True,
+                scale=B9_SCALE), flash.flash_attention_plain(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True))
+                for i in range(b)]
+        else:
+            lo = s - rows
+            sc = torch.einsum("bhqd,bhkd->bhqk", q[:, :, lo:].float(),
+                              k.float())
+            late = (torch.arange(s, device=dev)[None, :]
+                    > torch.arange(lo, s, device=dev)[:, None])
+            last = [torch.einsum("bhqk,bhkd->bhqd", torch.softmax(
+                (sc * scale).masked_fill(late, -1e30), dim=-1),
+                v.float()).to(q.dtype) for scale in (B9_SCALE, 128 ** -0.5)]
+            del sc
+            head = [q[:, :, :rows], k[:, :, :rows], v[:, :, :rows]]
+            pairs = [(got[:, :, :rows],
+                      flash.flash_attention_plain(*head, causal=True,
+                                                  scale=B9_SCALE),
+                      flash.flash_attention_plain(*head, causal=True)),
+                     (got[:, :, lo:], *last)]
+        for out, want, unscaled in pairs:
+            err = float((out.float() - want.float()).abs().max())
+            check(err <= FLASH_BF16_TOL and bf16_close(out, want),
+                  f"B9 scaled [{b}, 32, {s}, 128] against its plain "
+                  f"version: {err}")
+            worst = max(worst, err)
+            far = min(far, float((out.float() - unscaled.float()).abs()
+                                 .max()))
+        check(far > 10 * FLASH_BF16_TOL,
+              f"B9 scaled [{b}, 32, {s}, 128]: within {far} of the default "
+              "scale's output")
+        del q, k, v, got, pairs
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "default_scale_gap": far}
 
 
 def tree_map(fn, tree):
@@ -1210,7 +1279,8 @@ def families_phase(torch, dev, card: str, seed: int, reset_launches,
         out = launch_b9(q, k, v, **kw)
         key = (arch_now[0], tuple(q.shape), causal)
         if key not in b9_shapes:
-            want = flash.flash_attention_plain(q, k, v, causal=causal)
+            want = flash.flash_attention_plain(
+                q, k, v, causal=causal, scale=kw.get("scale", 0.0))
             err = float((out.float() - want.float()).abs().max())
             check(err <= FLASH_BF16_TOL and bf16_close(out, want),
                   f"{key[0]}: B9 at q {key[1]} causal={causal} against its "
@@ -4911,6 +4981,14 @@ def main(argv=None) -> int:
           "rows bit-identical under a changed last key; B*H*S = 0 launches "
           "nothing", flush=True)
     report["flash_check"] = flash_worst
+    scaled = b9_scaled_phase(torch, flash, dev)
+    report["flash_scaled"] = scaled
+    print(f"[16] B9 with its caller's score scale (1/128, hd 128, causal, "
+          f"bf16) at [8, 32, 4096, 128] and [1, 32, 32768, 128] (query rows "
+          f"0-{B9_SCALED_ROWS} and the last {B9_SCALED_ROWS}): one launch "
+          f"each, worst {scaled['max_abs_err']:.3e} (bound {FLASH_BF16_TOL}); "
+          f"the default scale's output {scaled['default_scale_gap']:.3e} "
+          "away", flush=True)
 
     # -- phase 17 (b): TinyLlama-1.1B at full width through serve() ----------
     lm_cfg = dataclasses.replace(lm_configs.get_config("tinyllama-1.1b"),

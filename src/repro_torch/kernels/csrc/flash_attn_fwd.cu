@@ -1,5 +1,6 @@
 // Kernel B9: forward softmax attention with an online softmax (flash
-// attention), o = softmax(q k^T / sqrt(hd)) v, causal or not, for q and o
+// attention), o = softmax(q k^T * scale) v, causal or not (scale 1/sqrt(hd)
+// unless the caller gives another: Granite's attention_multiplier), for q and o
 // [B, H, Sq, hd] and k, v [B, H, Skv, hd] (KV heads already expanded to H),
 // each given by its batch, head and sequence strides with the last dim
 // contiguous, float32 or bfloat16 in and out.  Replaces the JAX package's
@@ -638,11 +639,13 @@ bool aligned16(const void* p) {
 // 1 <= hd <= 256 and the grid, ceil(seq_q / 64) * b * heads blocks, is below
 // 2^31 (the caller keeps b * heads an int); else cudaGetLastError() after
 // the launch (or the error of raising the kernel's shared-memory limit).
+// scale > 0 multiplies the scores; scale <= 0 takes 1/sqrt(hd).
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, void* o,
                                      const long long* strides, int b,
                                      int heads, int seq_q, int seq_kv, int hd,
-                                     int causal, int bf16, void* stream) {
+                                     int causal, int bf16, float scale,
+                                     void* stream) {
   if (hd < 1 || hd > 256 || b < 1 || heads < 1 || seq_q < 1 || seq_kv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   FlashArgs a;
@@ -663,7 +666,9 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
   a.hd = hd;
   a.causal = causal;
   a.n_qtiles = (seq_q + kRowsPerTile - 1) / kRowsPerTile;
-  a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  a.scale = scale > 0.f
+                ? scale
+                : static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   bool vec = hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
              aligned16(o);
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;

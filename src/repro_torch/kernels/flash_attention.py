@@ -1,7 +1,8 @@
 """Flash attention on Hopper: kernel B9 and its plain PyTorch version.
 
-``flash_attention(q, k, v, causal=, bq=, bk=)`` computes
-``softmax(q k^T / sqrt(hd)) v`` for q ``[B, H, Sq, hd]`` and k, v
+``flash_attention(q, k, v, causal=, bq=, bk=, scale=)`` computes
+``softmax(q k^T * scale) v`` (``scale`` 0: ``1 / sqrt(hd)``) for q
+``[B, H, Sq, hd]`` and k, v
 ``[B, H, Skv, hd]`` (KV heads already expanded to H), float32 or bfloat16,
 with float32 math and the output in the input's dtype.  It keeps the JAX
 package's signature and its ``ValueError`` when a length does not divide its
@@ -42,7 +43,7 @@ MAX_HEAD_DIM = 256
 _BLOCK_Q = 64                  # the kernel's query rows per block
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 _STRIDES = ctypes.c_longlong * 12
 
 
@@ -88,18 +89,20 @@ def kernel_strides(q, k, v, o) -> list[int]:
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          scale: float = 0.0) -> torch.Tensor:
     """The plain PyTorch version of the kernel (dense scores)."""
     _check(q, k, v)
-    return ref.flash_attention_ref(q, k, v, causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool = True) -> torch.Tensor:
+           causal: bool = True, scale: float = 0.0) -> torch.Tensor:
     """Launch kernel B9 on the current stream; q, k, v CUDA tensors with
     their last dim contiguous (raises otherwise), any other strides.  The
-    output takes q's layout (``torch.empty_like``).  Raises under autograd
-    (grad mode on and q, k or v requiring grad): B9 has no backward."""
+    output takes q's layout (``torch.empty_like``).  ``scale`` multiplies
+    the scores (0: ``1 / sqrt(hd)``).  Raises under autograd (grad mode on
+    and q, k or v requiring grad): B9 has no backward."""
     _check(q, k, v)
     _forward_only(q, k, v)
     if q.device.type != "cuda":
@@ -125,7 +128,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  _STRIDES(*strides), b, h, sq, skv, hd, int(causal),
-                 int(q.dtype == torch.bfloat16), stream)
+                 int(q.dtype == torch.bfloat16), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err} "
                            f"(B={b}, H={h}, Sq={sq}, Skv={skv}, hd={hd})")
@@ -134,9 +137,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, bq: int = 128,
-                    bk: int = 128) -> torch.Tensor:
-    """q, k, v: [B, H, S, hd] (KV heads pre-expanded to H) -> [B, H, Sq, hd].
+                    causal: bool = True, bq: int = 128, bk: int = 128,
+                    scale: float = 0.0) -> torch.Tensor:
+    """q, k, v: [B, H, S, hd] (KV heads pre-expanded to H) -> [B, H, Sq, hd],
+    the scores times ``scale`` (0: ``1 / sqrt(hd)``).
 
     The kernel on a CUDA tensor, the plain version on a CPU tensor.  Raises
     ``ValueError`` when Sq or Skv does not divide ``min(bq, Sq)`` or
@@ -152,8 +156,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"seq lens ({sq},{skv}) must divide blocks "
                          f"({bq_},{bk_})")
     if q.device.type == "cuda":
-        return launch(q, k, v, causal=causal)
+        return launch(q, k, v, causal=causal, scale=scale)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                      f"{q.device}")

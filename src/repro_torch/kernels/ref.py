@@ -478,14 +478,17 @@ def deep_grid_planes_bwd(coef_v: torch.Tensor, par_v, coef_u: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        scale: float = 0.0) -> torch.Tensor:
     """Dense-softmax twin of the flash attention kernel (B9).
 
     q: [B, H, Sq, hd], k, v: [B, H, Skv, hd] -> [B, H, Sq, hd] in q's dtype,
-    float32 math; causal masks key > query with -1e30, as the kernel.
+    float32 math, the scores times ``scale`` (0: divided by sqrt(hd));
+    causal masks key > query with -1e30, as the kernel.
     """
     hd = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(hd)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * scale if scale else s / math.sqrt(hd)
     if causal:
         sq, sk = s.shape[-2], s.shape[-1]
         mask = (torch.arange(sk, device=s.device)[None, :]

@@ -124,9 +124,14 @@ class Model:
           can drop expert choices that token-by-token decode keeps;
         * ssm and hybrid: ``n`` up to ``ssm_chunk``, above it the largest
           multiple of the chunk (``ssm_block`` takes no ragged last chunk);
+        * a ``layer_pattern`` (its MoE dropless: a prefill keeps every
+          choice that decode keeps): as hybrid with mamba layers, else as
+          dense;
         * dense: all ``n``.
         """
         fam = self.cfg.family
+        if self.cfg.layer_pattern:
+            fam = "hybrid" if "M" in self.cfg.layer_pattern else "dense"
         if fam in ("vlm", "encdec", "moe"):
             return 0
         if fam in ("ssm", "hybrid") and n > self.cfg.ssm_chunk:

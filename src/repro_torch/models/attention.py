@@ -6,7 +6,9 @@ torch (``attn_impl="xla"``) or, with ``attn_impl="pallas"``, the flash
 attention kernel B9 (``repro_torch.kernels.flash_attention``) for every
 self-attention length: B9 tiles ragged lengths itself, where the JAX
 package's TPU kernel takes the chunked loop unless the length divides
-``min(attn_chunk, S)``.  B9 is forward-only, so ``"pallas"`` raises under
+``min(attn_chunk, S)``.  Scores are scaled by ``cfg.attn_scale`` (Granite's
+``attention_multiplier``, else ``1/sqrt(head_dim)``); ``rope=False`` is the
+NoPE of Granite 4.0's attention layers.  B9 is forward-only, so ``"pallas"`` raises under
 autograd (train with ``"xla"``).  Decode reads and writes a KV
 cache; the port writes the cache in place (the JAX package returns a new
 one), reproducing ``dynamic_update_slice``'s clamp of the write position to
@@ -153,7 +155,7 @@ def _flash_chunks(q, k, v, q_pos, kv_pos, cfg: ModelConfig, causal: bool):
     kc = list(k.split(chunk, dim=1))
     vc = list(v.split(chunk, dim=1))
     pc = list(kv_pos.split(chunk))
-    scale = 1.0 / math.sqrt(hd)
+    scale = cfg.attn_scale
 
     blockable = causal and sq == skv and n_chunks > 1 and pad == 0
     if not blockable:
@@ -223,7 +225,7 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
                 if use_kernel:
                     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                           v.transpose(1, 2), causal=causal,
-                                          bq=blk, bk=blk)
+                                          bq=blk, bk=blk, scale=cfg.attn_scale)
                     return out.transpose(1, 2)
                 return _flash_chunks(q, k, v, positions, kv_pos, cfg, causal)
 
@@ -356,7 +358,9 @@ def _decode_core(q, k, v, pos, cfg: ModelConfig, seq_offset: int = 0,
     q = q[..., : cfg.n_heads, :]
     qg = q.reshape(b, cfg.n_kv_heads, g, cfg.head_dim)         # [B,KV,G,hd]
     scores = torch.matmul(qg, k.to(qg.dtype).permute(0, 2, 3, 1))  # [B,KV,G,S]
-    scores = scores.float() / math.sqrt(cfg.head_dim)
+    scores = (scores.float() * cfg.attention_multiplier
+              if cfg.attention_multiplier
+              else scores.float() / math.sqrt(cfg.head_dim))
     at = torch.arange(s_len, device=q.device)
     if seq_offset:
         at = at + seq_offset

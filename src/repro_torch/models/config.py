@@ -4,12 +4,15 @@ One frozen dataclass covers the five families (dense / moe / ssm / hybrid /
 encdec / vlm); family-specific fields default to "off".  Exact per-arch
 values live in ``repro_torch.configs``.  A copy of the JAX package's
 ``models/config.py``, field for field; ``activation_dtype`` returns a torch
-dtype.
+dtype.  :class:`PatternConfig` adds the fields of Granite 4.0's hybrid
+layout (``layer_pattern`` and what it reads), which the JAX package lacks;
+on a ``ModelConfig`` they read as off.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +80,20 @@ class ModelConfig:
     remat: str = "none"            # none | full | dots
     max_cache_len: int = 0         # decode KV cache length (0 -> seq)
 
+    # --- Granite 4.0-h's layout: ``PatternConfig``'s fields, off here (class
+    # attributes, not fields: this dataclass's fields stay the JAX
+    # package's) ---
+    layer_pattern = ""
+    embedding_multiplier = 1.0
+    residual_multiplier = 1.0
+    logits_scaling = 1.0
+    attention_multiplier = 0.0
+    nope = False
+    ssm_conv_bias = False
+    moe_dropless = False
+    experts_held = 0
+    experts_first = 0
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
@@ -90,6 +107,12 @@ class ModelConfig:
             raise ValueError(f"{self.family} family needs ssm_state")
         if self.family == "encdec" and not self.n_enc_layers:
             raise ValueError("encdec family needs n_enc_layers")
+        if self.experts_first + self.held > self.n_experts:
+            raise ValueError("held experts must lie within n_experts")
+        # the attention's score scale, read by every attention call (a
+        # derived attribute, not a field)
+        object.__setattr__(self, "attn_scale", self.attention_multiplier
+                           or 1.0 / math.sqrt(self.head_dim))
 
     # ------------------------------------------------------------------
     @property
@@ -99,6 +122,11 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    @property
+    def held(self) -> int:
+        """Experts whose weights this chip holds and computes."""
+        return self.experts_held or self.n_experts
 
     @property
     def is_moe_layer(self):
@@ -112,8 +140,33 @@ class ModelConfig:
         import torch
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
 
+    def _pattern_counts(self) -> tuple[int, int]:
+        """(params, params a token meets) of a ``layer_pattern`` model:
+        each layer two norms, its mixer and its FFN; a token meets the held
+        experts at their expected share, ``top_k * held / n_experts``."""
+        d, hd, h, kv = self.d_model, self.head_dim, self.n_heads, \
+            self.n_kv_heads
+        di, n, hs, k = self.d_inner, self.ssm_state, self.ssm_heads, \
+            self.ssm_conv
+        mamba = (2 * d * di + 2 * d * n + d * hs + k * (di + 2 * n)
+                 + (di + 2 * n) * self.ssm_conv_bias + 3 * hs + di + di * d)
+        attn = d * hd * (h + 2 * kv) + h * hd * d
+        expert = 3 * d * self.d_ff_expert
+        other = (d * self.n_experts
+                 + 3 * d * self.d_ff_shared * self.n_shared_experts)
+        ffn = other + self.held * expert
+        ffn_active = other + self.top_k * self.held * expert // self.n_experts
+        mixers = sum(mamba if c == "M" else attn for c in self.layer_pattern)
+        reps = self.n_layers // len(self.layer_pattern)
+        base = (self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+                + reps * mixers + 2 * d * self.n_layers)
+        return (base + self.n_layers * ffn,
+                base + self.n_layers * ffn_active)
+
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks), for roofline."""
+        if self.layer_pattern:
+            return self._pattern_counts()[0]
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd, h, kv = self.head_dim, self.n_heads, self.n_kv_heads
         attn = d * hd * (h + 2 * kv) + h * hd * d
@@ -148,6 +201,8 @@ class ModelConfig:
     def active_param_count(self) -> int:
         """Params touched per token (MoE top-k; weight-tied blocks counted
         per *invocation*), for the 6ND model-FLOPs."""
+        if self.layer_pattern:
+            return self._pattern_counts()[1]
         if self.family == "hybrid" and self.attn_every:
             d, f = self.d_model, self.d_ff
             hd, h, kv = self.head_dim, self.n_heads, self.n_kv_heads
@@ -163,3 +218,21 @@ class ModelConfig:
         n_moe = sum(self.is_moe_layer)
         inactive = n_moe * (self.n_experts_active - self.top_k) * gates * d * fe
         return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class PatternConfig(ModelConfig):
+    """A ``ModelConfig`` with a per-layer mixer pattern (granite 4.0-h)."""
+
+    layer_pattern: str = ""        # one super-block's mixers, "M" mamba2 or
+                                   # "A" attention, each followed by the
+                                   # dropless MoE; "" = off
+    embedding_multiplier: float = 1.0   # embeddings x m
+    residual_multiplier: float = 1.0    # each sub-layer's output x m
+    logits_scaling: float = 1.0         # logits / s
+    attention_multiplier: float = 0.0   # score scale; 0 -> 1/sqrt(head_dim)
+    nope: bool = False             # no position embedding in attention
+    ssm_conv_bias: bool = False    # a bias on the causal conv's channels
+    moe_dropless: bool = False     # sort choices by expert, keep them all
+    experts_held: int = 0          # experts this chip computes (0 = all)
+    experts_first: int = 0         # the first of them, of n_experts

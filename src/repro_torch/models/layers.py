@@ -95,6 +95,8 @@ def embed_tokens(params: dict, cfg: ModelConfig,
         x = table[tokens]
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x.to(cfg.activation_dtype())
 
 
@@ -102,6 +104,8 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     with trace.span("lm.unembed"):
         table = params["table"] if cfg.tie_embeddings else params["unembed"]
         logits = torch.matmul(x, table.to(x.dtype).t())
+        if cfg.logits_scaling != 1.0:
+            logits = logits / cfg.logits_scaling
         if cfg.logit_softcap:
             c = cfg.logit_softcap
             logits = c * torch.tanh(logits / c)

@@ -12,6 +12,14 @@ the family's repeating pattern:
                attention block (one parameter set outside the stack, reused
                by every invocation, each with its own KV cache: zamba2's
                weight tying)
+  pattern      ``cfg.layer_pattern``'s layers (granite 4.0-h's
+               ``MMMMMAMMMM``), each a mixer (``M`` mamba2, ``A`` attention
+               without RoPE under ``cfg.nope``) and then the dropless MoE
+               with its shared MLP, every sub-layer's output scaled by
+               ``cfg.residual_multiplier``; one cache tree holds the mamba
+               layers' states beside the attention layers' KV caches.  Its
+               layers run in functions of their own (``_pattern_*``), picked
+               once a call, so the other layouts run no step of theirs.
 
 Modes: ``forward`` (training and evaluation over a full sequence),
 ``prefill`` (forward plus cache) and ``decode_step`` (one token).  Caches
@@ -60,8 +68,21 @@ from repro_torch.parallel.sharding import (active_mesh, active_rules,
 from repro_torch.runtime import trace
 
 
+PATTERN_KINDS = {"M": "mamba", "A": "attn"}
+
+
 def superblock_layout(cfg: ModelConfig) -> tuple[int, list[str]]:
     """(number of super-blocks, layer kinds inside one super-block)."""
+    if cfg.layer_pattern:
+        p = cfg.layer_pattern
+        if set(p) - set(PATTERN_KINDS) or cfg.n_layers % len(p):
+            raise ValueError(f"layer_pattern {p!r} is not M/A letters "
+                             f"whose length divides n_layers {cfg.n_layers}")
+        if not (cfg.n_experts and cfg.moe_dropless):
+            raise ValueError("a layer_pattern's FFN is the dropless MoE")
+        return cfg.n_layers // len(p), [PATTERN_KINDS[c] for c in p]
+    if cfg.moe_dropless:
+        raise ValueError("moe_dropless needs a layer_pattern")
     if cfg.family in ("dense", "vlm"):
         return cfg.n_layers, ["dense"]
     if cfg.family == "moe":
@@ -94,6 +115,12 @@ def _spec_attn_layer(cfg, ffn):
 def _spec_layer(kind, cfg):
     if kind in ("dense", "moe"):
         return _spec_attn_layer(cfg, "moe" if kind == "moe" else "mlp")
+    if kind in ("mamba", "attn"):
+        p = {"ln1": L.spec_rmsnorm(), "ln2": L.spec_rmsnorm(),
+             "moe": moe_lib.spec_moe(cfg)}
+        p.update({"ssm": ssm_lib.spec_ssm(cfg)} if kind == "mamba"
+                 else {"attn": attn_lib.spec_attention()})
+        return p
     return {"ln": L.spec_rmsnorm(), "ssm": ssm_lib.spec_ssm()}
 
 
@@ -105,7 +132,7 @@ def spec_lm(cfg: ModelConfig) -> dict:
              "blocks": L.stack_spec({f"l{i}_{kind}": _spec_layer(kind, cfg)
                                      for i, kind in enumerate(kinds)
                                      if kind != "shared_attn"})}
-    if cfg.family == "hybrid":
+    if "shared_attn" in kinds:
         specs["shared_attn"] = _spec_attn_layer(cfg, "mlp")
     return specs
 
@@ -126,6 +153,16 @@ def _init_layer(kind, generator, cfg, stack):
     if kind in ("dense", "moe"):
         return _init_attn_layer(generator, cfg, stack,
                                 "moe" if kind == "moe" else "mlp")
+    if kind in ("mamba", "attn"):
+        dev = generator.device
+        p = {"ln1": L.init_rmsnorm(cfg.d_model, dev, stack=stack)}
+        p.update({"ssm": ssm_lib.init_ssm(generator, cfg, stack=stack)}
+                 if kind == "mamba" else
+                 {"attn": attn_lib.init_attention(generator, cfg,
+                                                  stack=stack)})
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, dev, stack=stack)
+        p["moe"] = moe_lib.init_moe(generator, cfg, stack=stack)
+        return p
     return {"ln": L.init_rmsnorm(cfg.d_model, generator.device, stack=stack),
             "ssm": ssm_lib.init_ssm(generator, cfg, stack=stack)}
 
@@ -140,7 +177,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     params = {"embed": L.init_embed(generator, cfg),
               "final_norm": L.init_rmsnorm(cfg.d_model, generator.device),
               "blocks": blocks}
-    if cfg.family == "hybrid":
+    if "shared_attn" in kinds:
         params["shared_attn"] = _init_attn_layer(generator, cfg, (), "mlp")
     return params
 
@@ -264,6 +301,38 @@ def _superblock(cfg, kinds, shared, positions, bp, x, aux):
     return x, aux
 
 
+def _pattern_mixer(kind, lp, cfg, x, positions):
+    """A ``layer_pattern`` layer's mixer over its normed input."""
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        with trace.span("lm.ssm"):
+            return ssm_lib.ssm_block(lp["ssm"], cfg, h)
+    return attn_lib.attention(lp["attn"], cfg, h, positions,
+                              rope=not cfg.nope)
+
+
+def _pattern_ffn(lp, cfg, x):
+    """A ``layer_pattern`` layer's FFN, the dropless MoE with its shared
+    MLP, over its normed input."""
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    with trace.span("lm.ffn"), trace.span("lm.moe"):
+        return moe_lib.moe_dropless(lp["moe"], cfg, h)
+
+
+def _pattern_superblock(cfg, kinds, shared, positions, bp, x, aux):
+    """One ``layer_pattern`` super-block over the full sequence: (x, aux;
+    the dropless MoE adds no aux loss)."""
+    sub = checkpointed(_call, "full") if cfg.remat == "outputs" else _call
+    r = cfg.residual_multiplier
+    for i, kind in enumerate(kinds):
+        lp = bp[f"l{i}_{kind}"]
+        x = x + sub(functools.partial(_pattern_mixer, kind, lp, cfg), x,
+                    positions) * r
+        x = x + sub(functools.partial(_pattern_ffn, lp, cfg), x) * r
+        x = constrain(x, "batch", "seq", "embed")
+    return x, aux
+
+
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vis_embed: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -272,7 +341,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_super, kinds = superblock_layout(cfg)
-    run = functools.partial(_superblock, cfg, kinds,
+    body = _pattern_superblock if cfg.layer_pattern else _superblock
+    run = functools.partial(body, cfg, kinds,
                             params.get("shared_attn"), positions)
     if cfg.remat in ("full", "dots"):
         run = checkpointed(run, cfg.remat)
@@ -294,7 +364,7 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     cache = {}
     with trace.span("lm.cache"):
         for i, kind in enumerate(kinds):
-            if kind == "ssm":
+            if kind in ("ssm", "mamba"):
                 cache[f"l{i}_{kind}"] = ssm_lib.init_ssm_cache(
                     cfg, batch, dt, device=device, stack=(n_super,))
             else:
@@ -307,7 +377,7 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def spec_lm_cache(cfg: ModelConfig) -> dict:
     kinds = superblock_layout(cfg)[1]
     return L.stack_spec({
-        f"l{i}_{kind}": (ssm_lib.spec_ssm_cache() if kind == "ssm"
+        f"l{i}_{kind}": (ssm_lib.spec_ssm_cache() if kind in ("ssm", "mamba")
                          else attn_lib.spec_cache())
         for i, kind in enumerate(kinds)})
 
@@ -319,14 +389,7 @@ def constrain_tree(tree, specs):
     return constrain(tree, *specs)
 
 
-def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict, pos) -> tuple[torch.Tensor, dict]:
-    """One decode step.  token: [B] int; pos: int or 0-d tensor (every row
-    at that position) or an int tensor [B] (row b at ``pos[b]``).
-    -> (logits [B, V], cache), the cache updated in place."""
-    x = L.embed_tokens(params["embed"], cfg, token[:, None])
-    x = constrain(x, "batch", None, "embed")
-    pos = attn_lib.row_positions(pos, x.shape[0], x.device)
+def _decode_layers(params, cfg, x, cache, pos):
     for l, name, kind, lp in _layers(params, cfg):
         lc = _layer(cache[name], l)
         if kind == "ssm":
@@ -338,9 +401,80 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         y, _ = attn_lib.decode_attention(lp["attn"], cfg, h, lc, pos)
         x = x + y
         x = x + _ffn_sublayer(lp, cfg, x)[0]
+    return x
+
+
+def _pattern_decode_layers(params, cfg, x, cache, pos):
+    r = cfg.residual_multiplier
+    for l, name, kind, lp in _layers(params, cfg):
+        lc = _layer(cache[name], l)
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        if kind == "mamba":
+            y, _ = ssm_lib.ssm_decode_step(lp["ssm"], cfg, h, lc)
+        else:
+            y, _ = attn_lib.decode_attention(lp["attn"], cfg, h, lc, pos,
+                                             rope=not cfg.nope)
+        x = x + y * r
+        x = x + _pattern_ffn(lp, cfg, x) * r
+    return x
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict, pos) -> tuple[torch.Tensor, dict]:
+    """One decode step.  token: [B] int; pos: int or 0-d tensor (every row
+    at that position) or an int tensor [B] (row b at ``pos[b]``).
+    -> (logits [B, V], cache), the cache updated in place."""
+    x = L.embed_tokens(params["embed"], cfg, token[:, None])
+    x = constrain(x, "batch", None, "embed")
+    pos = attn_lib.row_positions(pos, x.shape[0], x.device)
+    layers = _pattern_decode_layers if cfg.layer_pattern else _decode_layers
+    x = layers(params, cfg, x, cache, pos)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)[:, 0]
     return constrain(logits, "batch", "vocab"), cache
+
+
+def _prefill_layers(params, cfg, x, positions, cache):
+    for l, name, kind, lp in _layers(params, cfg):
+        lc = _layer(cache[name], l)
+        if kind == "ssm":
+            h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
+            y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
+            x = x + y
+            for key, t in c.items():
+                local_copy_(lc[key], t)
+            x = constrain(x, "batch", "seq", "embed")
+            continue
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
+                                       return_kv=True)
+        attn_lib.prefill_into_cache(lc, k, v)
+        x = x + y
+        x = x + _ffn_sublayer(lp, cfg, x)[0]
+        x = constrain(x, "batch", "seq", "embed")
+    return x
+
+
+def _pattern_prefill_layers(params, cfg, x, positions, cache):
+    r = cfg.residual_multiplier
+    for l, name, kind, lp in _layers(params, cfg):
+        lc = _layer(cache[name], l)
+        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        if kind == "mamba":
+            with trace.span("lm.ssm"):
+                y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h,
+                                         return_cache=True)
+            with trace.span("lm.cache"):
+                for key, t in c.items():
+                    local_copy_(lc[key], t)
+        else:
+            y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
+                                           rope=not cfg.nope, return_kv=True)
+            attn_lib.prefill_into_cache(lc, k, v)
+        x = x + y * r
+        x = x + _pattern_ffn(lp, cfg, x) * r
+        x = constrain(x, "batch", "seq", "embed")
+    return x
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -357,23 +491,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         cache = constrain_tree(
             init_lm_cache(cfg, x.shape[0], max_len, device=x.device),
             spec_lm_cache(cfg))
-        for l, name, kind, lp in _layers(params, cfg):
-            lc = _layer(cache[name], l)
-            if kind == "ssm":
-                h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-                y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
-                x = x + y
-                for key, t in c.items():
-                    local_copy_(lc[key], t)
-                x = constrain(x, "batch", "seq", "embed")
-                continue
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
-                                           return_kv=True)
-            attn_lib.prefill_into_cache(lc, k, v)
-            x = x + y
-            x = x + _ffn_sublayer(lp, cfg, x)[0]
-            x = constrain(x, "batch", "seq", "embed")
+        layers = (_pattern_prefill_layers if cfg.layer_pattern
+                  else _prefill_layers)
+        x = layers(params, cfg, x, positions, cache)
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = L.unembed(params["embed"], cfg, x[:, -1:])[:, 0]
         return constrain(logits, "batch", "vocab"), cache

@@ -13,6 +13,12 @@ Under an active mesh the ``constrain`` calls stand where the JAX package's
 do: the groups split over the DP axes, then the expert buffer flips to the
 experts split over "data" (DTensor's redistribution is the expert-parallel
 all-to-all) and back.
+
+:func:`moe_dropless` is Granite 4.0's layer (``cfg.moe_dropless``), which
+the JAX package lacks: a softmax over each token's top-k router logits, no
+capacity, and only the experts this chip holds (``cfg.experts_first`` on,
+``cfg.held`` of them) computed, as one chip of an expert-parallel group
+computes its share; the router scores all ``n_experts``.
 """
 
 from __future__ import annotations
@@ -25,17 +31,19 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import truncated_normal
 from repro_torch.parallel.sharding import constrain
+from repro_torch.runtime import trace
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, *,
              stack: tuple = ()) -> dict:
-    """MoE params, each leaf with the leading ``stack`` axes."""
-    d, e, fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    """MoE params, each leaf with the leading ``stack`` axes: the router
+    over all ``n_experts``, the held experts' weights."""
+    d, e, fe, eh = cfg.d_model, cfg.n_experts, cfg.d_ff_expert, cfg.held
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(fe)
     p = {"router": truncated_normal(generator, stack + (d, e), s_in),
-         "wi": truncated_normal(generator, stack + (e, d, fe), s_in),
-         "wg": truncated_normal(generator, stack + (e, d, fe), s_in),
-         "wo": truncated_normal(generator, stack + (e, fe, d), s_out)}
+         "wi": truncated_normal(generator, stack + (eh, d, fe), s_in),
+         "wg": truncated_normal(generator, stack + (eh, d, fe), s_in),
+         "wo": truncated_normal(generator, stack + (eh, fe, d), s_out)}
     if cfg.n_shared_experts:
         f_sh = cfg.n_shared_experts * cfg.d_ff_shared
         p["shared"] = {
@@ -157,3 +165,85 @@ def moe_block(params: dict, cfg: ModelConfig,
     prob = probs[..., :n_act].mean(dim=(0, 1))
     aux = n_act * torch.sum(frac * prob)
     return y, aux.float()
+
+
+# ---------------------------------------------------------------------------
+# dropless, with the held experts alone (granite 4.0-h)
+# ---------------------------------------------------------------------------
+
+def dropless_rows(cfg: ModelConfig, tokens: int) -> int:
+    """Rows of the expert buffer for ``tokens`` tokens: every choice of a
+    held expert (a token makes at most ``min(top_k, held)``), and one
+    padding row that no choice takes."""
+    return tokens * min(cfg.top_k, cfg.held) + 1
+
+
+def moe_dropless(params: dict, cfg: ModelConfig,
+                 x: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, D] -> the held experts' part of the routed sum plus the
+    shared MLP (no aux loss).
+
+    Every choice of a held expert is kept: the choices are sorted by
+    expert (stable, so token-major within one), each held expert's run of
+    rows is one group of a grouped matmul (``torch._grouped_mm`` with the
+    groups' ends as device offsets: no count leaves the device), and the
+    buffer holds as many rows as the held experts could ever be given.
+    Rows past the last choice hold no value (the grouped matmul leaves
+    them unwritten, forward and backward): the combine reads the padding
+    row for every choice not computed, their input rows and gates are the
+    zero row and a ``where``, so nothing undefined reaches the output or a
+    gradient.  The gate multiplies each row before the down projection
+    (the same sum as after it).  While tracing counts, the layer counts its choices kept per
+    held expert (``moe.kept``) and dropped (``moe.dropped``: choices of
+    held experts past the buffer's rows, 0 by construction)."""
+    b, s, d = x.shape
+    t, k, eh = b * s, cfg.top_k, cfg.held
+    dt = x.dtype
+    xf = x.reshape(t, d)
+    with trace.span("moe.route"):
+        logits = torch.matmul(xf.float(), params["router"].float())  # [T,E]
+        top, idx = torch.topk(logits, k, dim=-1)
+        gates = torch.softmax(top, dim=-1).reshape(t * k)
+
+    with trace.span("moe.dispatch"):
+        rows = dropless_rows(cfg, t)
+        local = idx.reshape(t * k) - cfg.experts_first
+        held = (local >= 0) & (local < eh)
+        key = torch.where(held, local, eh)          # other experts last
+        order = torch.sort(key, stable=True).indices
+        counts = torch.zeros(eh + 1, dtype=torch.long, device=x.device)
+        counts = counts.scatter_add_(0, key, torch.ones_like(key))[:eh]
+        offs = torch.cumsum(counts, 0).clamp(max=rows - 1).to(torch.int32)
+        n = offs[-1]
+        slots = torch.arange(rows - 1, device=x.device)
+        head = order[: rows - 1]
+        used = slots < n
+        # each row's token (the zero row t past the last choice) and gate
+        src = torch.where(used, head // k, t)
+        gate_row = torch.where(used, gates[head], 0.0).to(dt)
+        xs = F.pad(xf, (0, 0, 0, 1))[F.pad(src, (0, 1), value=t)]
+        # each choice's row, the padding row where it is not computed
+        place = torch.empty_like(order).scatter_(
+            0, order, torch.arange(t * k, device=x.device))
+        slot = torch.where(held & (place < n), place, rows - 1)
+        if trace.counting():
+            trace.count("moe.kept", torch.diff(offs, prepend=offs.new_zeros(1)))
+            trace.count("moe.dropped", held.sum() - n)
+
+    with trace.span("moe.experts"):
+        h = torch._grouped_mm(xs, params["wi"].to(dt), offs=offs)
+        g = torch._grouped_mm(xs, params["wg"].to(dt), offs=offs)
+        a = h * F.silu(g) * F.pad(gate_row, (0, 1))[:, None]
+        out = torch._grouped_mm(a, params["wo"].to(dt), offs=offs)
+
+    with trace.span("moe.combine"):
+        y = F.embedding_bag(slot.reshape(t, k), out, mode="sum",
+                            padding_idx=rows - 1).reshape(b, s, d)
+
+    if cfg.n_shared_experts:
+        with trace.span("moe.shared"):
+            sh = params["shared"]
+            hs = torch.matmul(x, sh["wi"].to(dt))
+            gs = torch.matmul(x, sh["wg"].to(dt))
+            y = y + torch.matmul(hs * F.silu(gs), sh["wo"].to(dt))
+    return y

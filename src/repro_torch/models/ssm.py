@@ -5,7 +5,10 @@ the chunked dual form: within-chunk attention-like scores (C B^T masked by
 the decay kernel) plus an inter-chunk state recurrence (a loop over
 chunks).  Decode is the O(1) recurrent update on a [B, H, state, headdim]
 carry.  Single B/C group (n_groups=1) as in the mamba2-780m config; the
-causal depthwise conv (window ``ssm_conv``) is applied to x, B and C.
+causal depthwise conv (window ``ssm_conv``) is applied to x, B and C, with
+a bias on each channel under ``cfg.ssm_conv_bias`` (granite 4.0-h).  The
+block's parts run in the spans ``ssm.proj``, ``ssm.conv``, ``ssm.scan``
+and ``ssm.out``.
 No kernel of the JAX package runs here: these are plain torch.  Under an
 active mesh the chunked heads are constrained where the JAX package's are,
 and a decode step writes each rank's shard of a DTensor cache.
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import truncated_normal
 from repro_torch.parallel.sharding import constrain, local_copy_
+from repro_torch.runtime import trace
 
 
 def _uniform(generator: torch.Generator, shape, lo: float,
@@ -41,7 +45,12 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, *,
     a_init = torch.exp(_uniform(generator, stack + (h,), 0.0, math.log(16.0)))
     dt = torch.exp(_uniform(generator, stack + (h,), math.log(1e-3),
                             math.log(1e-1)))
-    return {
+    bias = {}
+    if cfg.ssm_conv_bias:  # torch's Conv1d draw: U[-1/sqrt(K), 1/sqrt(K))
+        bias = {f"{name}_bias": _uniform(generator, stack + (width,), -sc, sc)
+                for name, width in (("conv_x", di), ("conv_b", n),
+                                    ("conv_c", n))}
+    return {**bias,
         "w_z": truncated_normal(generator, stack + (d, di), s),
         "w_x": truncated_normal(generator, stack + (d, di), s),
         "w_b": truncated_normal(generator, stack + (d, n), s),
@@ -59,8 +68,12 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, *,
     }
 
 
-def spec_ssm() -> dict:
-    return {
+def spec_ssm(cfg: ModelConfig | None = None) -> dict:
+    bias = {}
+    if cfg is not None and cfg.ssm_conv_bias:
+        bias = {"conv_x_bias": ("conv_dim",), "conv_b_bias": (None,),
+                "conv_c_bias": (None,)}
+    return {**bias,
         "w_z": ("embed", "conv_dim"), "w_x": ("embed", "conv_dim"),
         "w_b": ("embed", None), "w_c": ("embed", None),
         "w_dt": ("embed", "ssm_heads"),
@@ -73,18 +86,19 @@ def spec_ssm() -> dict:
 
 
 def _causal_conv(seq: torch.Tensor, w: torch.Tensor,
-                 state: torch.Tensor | None = None):
+                 state: torch.Tensor | None = None, bias=0):
     """Depthwise causal conv along axis 1.  seq [B,S,C]; w [K,C]; state
-    [B,K-1,C] the history (zeros when None).  -> (silu(out), new history)."""
+    [B,K-1,C] the history (zeros when None); ``bias`` [C] (float32) or 0.
+    -> (silu(out) in seq's dtype, new history)."""
     k = w.shape[0]
     if state is None:
         pad = seq.new_zeros(seq.shape[0], k - 1, seq.shape[2])
     else:
         pad = state.to(seq.dtype)
     full = torch.cat([pad, seq], dim=1)
-    out = sum(full[:, i:i + seq.shape[1]] * w[i].to(seq.dtype)
-              for i in range(k))
-    return F.silu(out), full[:, full.shape[1] - (k - 1):]
+    out = sum((full[:, i:i + seq.shape[1]] * w[i].to(seq.dtype)
+               for i in range(k)), bias)
+    return F.silu(out).to(seq.dtype), full[:, full.shape[1] - (k - 1):]
 
 
 def _project(params, cfg: ModelConfig, u: torch.Tensor):
@@ -123,21 +137,41 @@ def _conv_tail(seq: torch.Tensor, k: int) -> torch.Tensor:
 def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
               return_cache: bool = False):
     """Chunked SSD scan over the full sequence.  u: [B, S, D]."""
-    b, s, _ = u.shape
-    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    s = u.shape[1]
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"seq {s} not divisible by ssm_chunk {q}")
+    with trace.span("ssm.proj"):
+        z, x, bb, cc, dt = _project(params, cfg, u)
+    with trace.span("ssm.conv"):
+        kc = cfg.ssm_conv
+        conv_tails = {"conv_x": _conv_tail(x, kc),
+                      "conv_b": _conv_tail(bb, kc),
+                      "conv_c": _conv_tail(cc, kc)}
+        x, _ = _causal_conv(x, params["conv_x"], None,
+                            params.get("conv_x_bias", 0))
+        bb, _ = _causal_conv(bb, params["conv_b"], None,
+                             params.get("conv_b_bias", 0))
+        cc, _ = _causal_conv(cc, params["conv_c"], None,
+                             params.get("conv_c_bias", 0))
+    with trace.span("ssm.scan"):
+        y, state = _scan(params, cfg, x, bb, cc, dt)
+    with trace.span("ssm.out"):
+        out = _gated_out(params, cfg, y, z)
+    if return_cache:
+        return out, {"state": state, **conv_tails}
+    return out
+
+
+def _scan(params, cfg: ModelConfig, x, bb, cc, dt):
+    """The chunked SSD over conv'd x [B,S,H*P], B, C [B,S,N] and dt
+    [B,S,H] (float32): (y [B,S,H*P] in x's dtype, with D's skip; the
+    state after the last token, float32 [B,H,N,P])."""
+    b, s, _ = x.shape
+    h, p, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s)
     nc = s // q
-
-    z, x, bb, cc, dt = _project(params, cfg, u)
-    kc = cfg.ssm_conv
-    conv_tails = {"conv_x": _conv_tail(x, kc), "conv_b": _conv_tail(bb, kc),
-                  "conv_c": _conv_tail(cc, kc)}
-    x, _ = _causal_conv(x, params["conv_x"])
-    bb, _ = _causal_conv(bb, params["conv_b"])
-    cc, _ = _causal_conv(cc, params["conv_c"])
-
+    dev = x.device
     a = -torch.exp(params["a_log"].float())                    # [H]
     da = dt * a                                                # [B,S,H] (<=0)
     xh = x.reshape(b, nc, q, h, p)
@@ -152,12 +186,12 @@ def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
 
     # ---- within-chunk (dual / attention-like) term ----
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # [B,nc,Qi,Qj,H]
-    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=u.device))
+    tri = torch.tril(torch.ones(q, q, dtype=torch.bool, device=dev))
     l_kernel = torch.where(tri[None, None, :, :, None], torch.exp(rel),
-                           torch.zeros((), device=u.device))
+                           torch.zeros((), device=dev))
     scores = torch.matmul(ccc, bc.transpose(-1, -2)).float()   # [B,nc,Qi,Qj]
     w = scores[..., None] * l_kernel * dtc[:, :, None]         # [B,nc,Qi,Qj,H]
-    y_intra = torch.matmul(w.to(u.dtype).permute(0, 1, 4, 2, 3),
+    y_intra = torch.matmul(w.to(x.dtype).permute(0, 1, 4, 2, 3),
                            xh.permute(0, 1, 3, 2, 4))          # [B,nc,H,Qi,P]
     y_intra = y_intra.permute(0, 1, 3, 2, 4)                   # [B,nc,Qi,H,P]
 
@@ -166,7 +200,7 @@ def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
     chunk_states = torch.einsum(
         "bcqn,bcqhp->bchnp", bc.float(),
         (dtc * decay_to_end)[..., None] * xh.float())
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=u.device)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=dev)
     prev = []
     for c in range(nc):                                        # state BEFORE c
         prev.append(state)
@@ -180,11 +214,7 @@ def ssm_block(params: dict, cfg: ModelConfig, u: torch.Tensor,
 
     y = y_intra.float() + y_inter
     y = y + xh.float() * params["d_skip"][:, None]
-    y = y.reshape(b, s, h * p).to(u.dtype)
-    out = _gated_out(params, cfg, y, z)
-    if return_cache:
-        return out, {"state": state, **conv_tails}
-    return out
+    return y.reshape(b, s, h * p).to(x.dtype), state
 
 
 # ---------------------------------------------------------------------------
@@ -219,9 +249,12 @@ def ssm_decode_step(params: dict, cfg: ModelConfig, u: torch.Tensor,
     b = u.shape[0]
     h, p = cfg.ssm_heads, cfg.ssm_headdim
     z, x, bb, cc, dt = _project(params, cfg, u)
-    x, ncx = _causal_conv(x, params["conv_x"], cache["conv_x"])
-    bb, ncb = _causal_conv(bb, params["conv_b"], cache["conv_b"])
-    cc, ncc = _causal_conv(cc, params["conv_c"], cache["conv_c"])
+    x, ncx = _causal_conv(x, params["conv_x"], cache["conv_x"],
+                          params.get("conv_x_bias", 0))
+    bb, ncb = _causal_conv(bb, params["conv_b"], cache["conv_b"],
+                           params.get("conv_b_bias", 0))
+    cc, ncc = _causal_conv(cc, params["conv_c"], cache["conv_c"],
+                           params.get("conv_c_bias", 0))
 
     a = -torch.exp(params["a_log"].float())
     da = torch.exp(dt[:, 0] * a)                               # [B,H]

@@ -21,6 +21,12 @@ starts a new list.
 times onto the Unix clock through them, which is the clock of the
 profiler's (Kineto's) event timestamps.
 
+Counters: while tracing is on, :func:`count` adds a device tensor into a
+named running sum on its device (no copy to the host, no synchronise);
+:func:`drain` hands the sums back in ``Recording.counters`` and starts
+new ones.  A caller computes what it counts only when :func:`counting`
+says so.  ``enable(spans=False)`` keeps the counters without the spans.
+
 A span wraps a call and nothing else: numerics and control flow are the
 same with tracing on and off.
 """
@@ -31,7 +37,9 @@ import threading
 import time
 
 _on = False
+_counting = False
 _lock = threading.Lock()
+_counters: dict = {}    # name -> running sum, a tensor on its device
 _spans: list = []       # [name, parent, root, start_ns, end_ns, thread]
 _anchors: list = []     # (perf_counter_ns, time_ns) pairs
 _local = threading.local()
@@ -91,32 +99,55 @@ def _anchor() -> tuple:
     return time.perf_counter_ns(), time.time_ns()
 
 
-def enable() -> None:
-    """Start recording (takes an anchor)."""
-    global _on
+def enable(spans: bool = True) -> None:
+    """Start counting and, with ``spans``, recording spans (takes an
+    anchor)."""
+    global _on, _counting
     with _lock:
-        _anchors.append(_anchor())
-        _on = True
+        if spans:
+            _anchors.append(_anchor())
+            _on = True
+        _counting = True
 
 
 def disable() -> None:
-    """Stop recording; what was recorded waits for :func:`drain`."""
-    global _on
-    _on = False
+    """Stop recording and counting; what was recorded waits for
+    :func:`drain`."""
+    global _on, _counting
+    _on = _counting = False
+
+
+def counting() -> bool:
+    """Whether :func:`count` keeps what it is given."""
+    return _counting
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a tensor) into the counter ``name`` on its device,
+    while counting is on."""
+    if not _counting:
+        return
+    with _lock:
+        old = _counters.get(name)
+        _counters[name] = value.detach().clone() if old is None \
+            else old + value
 
 
 class Recording:
     """What :func:`drain` hands back: ``spans``, a list of
     ``(name, parent, root, start_ns, end_ns, thread)`` tuples on the
-    ``perf_counter_ns`` clock (``end_ns`` None for a span still open), and
+    ``perf_counter_ns`` clock (``end_ns`` None for a span still open),
     ``anchors``, the ``(perf_counter_ns, time_ns)`` pairs taken by
-    ``enable`` and ``drain``."""
+    ``enable`` and ``drain``, and ``counters``, each counter's sum (a
+    tensor on the device it was counted on)."""
 
-    __slots__ = ("spans", "anchors")
+    __slots__ = ("spans", "anchors", "counters")
 
-    def __init__(self, spans: list, anchors: list):
+    def __init__(self, spans: list, anchors: list,
+                 counters: dict | None = None):
         self.spans = spans
         self.anchors = anchors
+        self.counters = counters or {}
 
     def __len__(self) -> int:
         return len(self.spans)
@@ -134,14 +165,16 @@ def drain() -> Recording:
     """The spans recorded since the last drain, and the anchors that map
     them; starts a new list.  Empty when nothing was recorded and tracing
     is off.  Call it with no span open: a parent index points into the
-    list its span was recorded in."""
-    global _spans, _anchors
+    list its span was recorded in, and with no count under way."""
+    global _spans, _anchors, _counters
     with _lock:
+        counters, _counters = _counters, {}
         if not _spans and not _on:
             _anchors = []
-            return Recording([], [])
+            return Recording([], [], counters)
         a = _anchor()
-        out = Recording([tuple(r) for r in _spans], _anchors + [a])
+        out = Recording([tuple(r) for r in _spans], _anchors + [a],
+                        counters)
         _spans = []
         _anchors = [a] if _on else []
     return out

@@ -168,6 +168,24 @@ def test_plain_version_is_the_dense_twin():
             t_ref.flash_attention_ref(q, k, v, causal=causal))
 
 
+def test_plain_version_takes_a_score_scale():
+    """``scale`` multiplies the scores (Granite 4.0's attention_multiplier);
+    0 keeps 1/sqrt(hd)."""
+    q, k, v = _torch(_qkv(7, 1, 2, 40, 16))
+    q = q * 8
+    for causal in (True, False):
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k) / 128
+        if causal:
+            s = s.masked_fill(torch.ones(40, 40, dtype=torch.bool).triu(1),
+                              -1e30)
+        want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+        got = t_flash.flash_attention(q, k, v, causal=causal, bq=8, bk=8,
+                                      scale=1 / 128)
+        torch.testing.assert_close(got, want, atol=F32_TOL, rtol=0)
+        assert float((got - t_flash.flash_attention(
+            q, k, v, causal=causal, bq=8, bk=8)).abs().max()) > 0.1
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel on the card
 # ---------------------------------------------------------------------------
@@ -220,6 +238,33 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, hd):
                 err = float((got.float() - want.float()).abs().max())
                 assert err <= tol, (s, dtype, layout, causal, err)
                 assert dtype == torch.float32 or _bf16_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [96, 1024])
+def test_flash_kernel_takes_its_callers_scale_on_card(cuda_device, s):
+    """B9 with Granite 4.0's score scale, 1/128 at hd 128, against its plain
+    version at the same scale, float32 and bfloat16, causal and not; q 16
+    times wider than k so that the scores spread and the default scale's
+    output lies far away."""
+    arrays = _qkv(s, 2, 4, s, 128)
+    arrays = (arrays[0] * 16,) + arrays[1:]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        q, k, v = _torch(arrays, dtype, cuda_device)
+        for causal in (True, False):
+            before = t_flash.LAUNCHES["flash_attn_fwd"]
+            got = t_flash.flash_attention(q, k, v, causal=causal, bq=32,
+                                          bk=32, scale=1 / 128)
+            torch.cuda.synchronize()
+            assert t_flash.LAUNCHES["flash_attn_fwd"] == before + 1
+            want = t_flash.flash_attention_plain(q, k, v, causal=causal,
+                                                 scale=1 / 128)
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= tol, (dtype, causal, err)
+            assert dtype == torch.float32 or _bf16_close(got, want)
+            unscaled = t_flash.flash_attention_plain(q, k, v, causal=causal)
+            assert float((got.float() - unscaled.float()).abs().max()) \
+                > 10 * BF16_TOL
 
 
 @pytest.mark.gpu
