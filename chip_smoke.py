@@ -8,13 +8,14 @@ Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, ``PATH`` or
 imports nothing of JAX.  Phases (each raises on failure, so the script
 exits non-zero):
 
-1. card name and power limit; build the eight CUDA libraries from ``csrc/``
+1. card name and power limit; build the nine CUDA libraries from ``csrc/``
    (``mesh_fwd.cu``, ``mesh_bwd.cu``, ``rfnn_fwd.cu``, ``rfnn_bwd.cu``,
    ``deepgrid_fwd.cu``, ``deepgrid_bwd.cu``, all including the shared
-   ``mesh_sweep.cuh``, ``flash_attn_fwd.cu`` and ``adamw_fused.cu``), one
-   ``nvcc`` each, started together, beside one more ``nvcc -Xptxas -v``
-   each (registers and spill bytes of every B1-B8 and A1 instantiation
-   printed; no kernel of B1-B9 or A1 may spill registers);
+   ``mesh_sweep.cuh``, ``flash_attn_fwd.cu``, ``adamw_fused.cu`` and
+   ``rope_fused.cu``), one ``nvcc`` each, started together, beside one more
+   ``nvcc -Xptxas -v`` each (registers and spill bytes of every B1-B8, A1
+   and A2 instantiation printed; no kernel of B1-B9, A1 or A2 may spill
+   registers);
 2. the forward kernel (B1) against its plain PyTorch version on the card,
    for n in {2, 8, 16, 64, 128}, B in {1, 7, 130, 4096}, ideal and
    PROTOTYPE coefficients, a mixed-parity schedule and the main path's own
@@ -136,7 +137,9 @@ exits non-zero):
     seeds, and within 1e-3 in float32; the kernel path's prefill logits against the ``"xla"`` path's on
     the same params, float32 within 1e-3 of scale, and bf16 printed; device
     events and busy time of a prefill and of a decode step under
-    ``torch.profiler``;
+    ``torch.profiler``; A2 once an attention call, prefill and decode, the
+    xla path's too (phases 17 to 20, and no call of its plain version on
+    the card);
 18. (c) the reduced TinyLlama in float32, card against CPU: a 61-token
     prefill and 8 decode steps within 1e-5 of the logits' scale;
 19. (d) the engine's LM slot family on the full-width model: slots=8, 16
@@ -216,7 +219,9 @@ exits non-zero):
     events and busy share, the model-FLOPs share of the bf16 dense peak;
     finite losses and gradient norms, every leaf (every super-block's)
     changed, step 0's loss equal across the modes and step 1's within 1e-3,
-    a lower peak with ``"full"``, no kernel but A1 launched; (b) the reduced
+    a lower peak with ``"full"``, no kernel but A1 and A2 launched (A2 one
+    a layer a step each way, and once more forward under ``"full"``); (b)
+    the reduced
     TinyLlama in float32, 3 steps at ``accum_steps`` 1 and 2, card against
     CPU: losses within 1e-5, updates within the CPU tests' AdamW rule; a
     gradient through ``attn_impl="pallas"`` raising on the card (B9 is
@@ -240,7 +245,17 @@ exits non-zero):
     within 1e-6 relative; without clipping the same bits; the same bits on
     a second call), then its device ms, the plain version's ms,
     ``torch._fused_adamw_``'s device ms (timed only) and each kernel's
-    device ms; (a) counts A1's update launches, one a leaf a step;
+    device ms; (f) A2, the RoPE kernel, through ``layers.rope_qk`` on
+    leaves that require grad: one launch a call each way, q' and k'
+    against the plain version and the backward against autograd through
+    the plain version on the same card tensors (within one ulp of the
+    dtype, the outputs that differ counted), at granite-3-2b's heads (q 32
+    and k 8 heads of 64, bf16) at batch 8 x 4032 and 8 x 512, at decode's
+    per-row [8, 1] positions with TinyLlama's heads, at qwen2-moe's head
+    dim 128 and at TinyLlama's float32 prefill; at granite-3-2b's shapes
+    also the forward's and backward's device ms, the plain version's ms and
+    the bytes bound; (a), (b) and (c) count A1's update launches, one a
+    leaf a step, and A2's both ways;
 25. the analog processor across ranks, all on the one card (``spawn``ed
     processes that load phase 1's libraries; a gloo group whose CUDA tensors
     go through gloo, ``cpu:gloo,cuda:gloo``, then one rank on NCCL): (a)
@@ -283,7 +298,9 @@ exits non-zero):
     profile's AdamW) the same bits on every rank, step ms per rank beside
     the single-device step; the collectives on CUDA tensors and through
     host memory;
-27. the ``kernels`` line (ten entries, A1's at 24 (e)'s leaves) and, last,
+27. the ``kernels`` line (eleven entries, A1's at 24 (e)'s leaves, A2's at
+    24 (f)'s 8 x 4032 with its 8 x 512 beside it, its launches the main
+    path's) and, last,
     the ``ok``/``device`` line.
 
 Every launch count is reset just before each main-path phase (3 to 8, 11
@@ -322,7 +339,7 @@ FLOPS_PER_CELL_INV = 43        # det, |det|^2, 1/det and adj(t)/det, per cell
 FLOPS_PER_CHANNEL_FUSED = 16
 FLOPS_PER_CHANNEL_FUSED_BWD = 41
 LIBRARIES = ("mesh_fwd", "mesh_bwd", "rfnn_fwd", "rfnn_bwd", "deepgrid_fwd",
-             "deepgrid_bwd", "flash_attn_fwd", "adamw_fused")
+             "deepgrid_bwd", "flash_attn_fwd", "adamw_fused", "rope_fused")
 SGD_BATCH = 10                 # the paper's minibatch
 PROC_BATCH = 4096              # inputs through the programmed processor
 FUSED_BATCH = 1000             # the fused layer's training batch
@@ -486,6 +503,15 @@ ADAMW_TRAFFIC = "bench/traffic/train-8x512.json"
 ADAMW_GRAD, ADAMW_STEP = 1e-4, 1000
 ADAMW_BYTES_PER_PARAM = 32
 ADAMW_REL = 1e-6               # the card tests' limit with clipping
+# (f) A2 at granite-3-2b's heads in bf16: batch 8 at the prefill cell's
+# longest length and the train cell's length; 2 bytes read and 2 written an
+# element of q and k
+ROPE_SHAPES = ((8, 4032), (8, 512))
+# A2 held to its plain version at the other paths' shapes (phase 24 (f)):
+# name -> (config, dtype, batch, length)
+ROPE_CASES = {"decode": ("tinyllama-1.1b", "bfloat16", 8, 1),
+              "hd128": ("qwen2-moe-a2.7b", "bfloat16", 4, 512),
+              "float32": ("tinyllama-1.1b", "float32", 8, 1024)}
 # phase 25: the analog processor across ranks sharing the one card
 SHARDED_BACKEND = "cpu:gloo,cuda:gloo"
 SHARDED_MESHES = ((2, 2), (4, 1))   # rows x data, four ranks
@@ -544,6 +570,16 @@ def mesh_params(n: int, seed: int) -> dict:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def check_rope(counts: dict, fwd: int, bwd: int, what: str,
+               plain: int = 0) -> None:
+    """A2's launches in a phase's counts: ``fwd`` forward (one an attention
+    call), ``bwd`` backward (one a call in the backward) and ``plain``
+    calls of its plain version (CPU tensors')."""
+    got = {k: counts[k] for k in ("rope_fwd", "rope_bwd", "rope_plain")}
+    want = {"rope_fwd": fwd, "rope_bwd": bwd, "rope_plain": plain}
+    check(got == want, f"{what}: A2 {got}, not {want}")
 
 
 def card_line() -> str:
@@ -1750,6 +1786,9 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
     baseline = torch.cuda.memory_allocated()
     lm = {}
     a1_updates = 0  # A1's update launches due: one a leaf a step
+    # A2's due: one a layer a step each way, and under remat 'full' the
+    # recomputation's forward once more
+    a2 = {"rope_fwd": 0, "rope_bwd": 0, "rope_plain": 0}
     reset_launches()
     for remat, n_steps in TRAIN_LM_STEPS.items():
         model = Model(dataclasses.replace(cfg, remat=remat))
@@ -1758,6 +1797,9 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
                            torch.Generator(device=dev).manual_seed(seed),
                            device=dev)
         a1_updates += (n_steps + 1) * len(pytree.tree_leaves(state.params))
+        a2["rope_fwd"] += (n_steps + 1) * cfg.n_layers * (
+            2 if remat == "full" else 1)
+        a2["rope_bwd"] += (n_steps + 1) * cfg.n_layers
         before = leaf_samples(state.params)
         step = make_train_step(model, opt)
         torch.cuda.synchronize()
@@ -1818,9 +1860,11 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
         del state, step, model
         torch.cuda.empty_cache()
     report["launches"]["train_lm"] = counts = all_launches()
-    check(counts["adamw_update"] == a1_updates == sum(counts.values()),
-          f"the digital LM's training launched {counts}, not A1 alone "
-          f"{a1_updates} times (one a leaf a step)")
+    check(counts["adamw_update"] == a1_updates
+          and {k: counts[k] for k in a2} == a2
+          and sum(counts.values()) == a1_updates + sum(a2.values()),
+          f"the digital LM's training launched {counts}, not A1 and A2 "
+          f"alone: A1 {a1_updates} times (one a leaf a step), A2 {a2}")
     none, full = lm["none"], lm["full"]
     check(full["losses"][0] == none["losses"][0],
           f"step 0's loss differs between remat modes: {none['losses'][0]} "
@@ -1858,6 +1902,9 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
             s_card, m = step(s_card, on(b))
             l_card.append(float(m["loss"]))
         report["launches"][f"train_reduced_accum{accum}"] = all_launches()
+        check_rope(report["launches"][f"train_reduced_accum{accum}"],
+                   3 * accum * rcfg.n_layers, 3 * accum * rcfg.n_layers,
+                   f"reduced TinyLlama, accum {accum}, 3 steps")
         for b in rbatches:
             s_cpu, m = step(s_cpu, {k: torch.from_numpy(v)
                                     for k, v in b.items()})
@@ -1893,6 +1940,7 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
         logits, _ = pmodel.prefill(pparams, on(rbatches[0]))
     torch.cuda.synchronize()
     b9 = all_launches()["flash_attn_fwd"]
+    check_rope(all_launches(), rcfg.n_layers, 0, "a no_grad prefill")
     check(b9 == rcfg.n_layers and bool(torch.isfinite(logits).all()),
           f"no_grad prefill through B9: {b9} launches")
     print(f"[24] (b) attn_impl='pallas' under autograd on the card raises "
@@ -1936,6 +1984,9 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
           f"{3 * layers} B7 and {3 * layers} B8")
     check(n_full["deepgrid_bwd"] == 3 * layers,
           f"remat 'full' launched {n_full}")
+    check_rope(n_none, layers, layers, "one rfnn LM gradient, remat 'none'")
+    check_rope(n_full, 2 * layers, layers, "one rfnn LM gradient, remat "
+               "'full'")
     check(loss_err <= 1e-5 and err_ref <= 1e-5,
           f"rfnn LM kernel against reference backend: loss {loss_err}, "
           f"gradients {err_ref} of scale")
@@ -1969,6 +2020,8 @@ def training_phase(torch, dev, card: str, seed: int, reset_launches,
     check(n_train["deepgrid_fwd_res"] == 3 * layers * (TRAIN_RFNN_STEPS + 1)
           and n_train["deepgrid_bwd"] == 3 * layers * (TRAIN_RFNN_STEPS + 1),
           f"rfnn LM training launched {n_train}")
+    check_rope(n_train, layers * (TRAIN_RFNN_STEPS + 1),
+               layers * (TRAIN_RFNN_STEPS + 1), "rfnn LM training")
     print(f"[24] (c) rfnn LM, {TRAIN_RFNN_STEPS + 1} AdamW steps (lr "
           f"{TRAIN_RFNN_LR}) on one batch: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; {1e3 * rf_s / len(losses):.2f} ms a step on "
@@ -2097,6 +2150,121 @@ def adamw_gaps(torch, got, want) -> dict:
     out["max_abs"] = float(torch.stack(abs_max).max())
     out["rel"] = float(torch.stack(rel).max())
     return out
+
+
+def rope_phase(torch, dev, card: str, seed: int) -> dict:
+    """A2, the RoPE kernel (phase 24 (f)), through ``layers.rope_qk`` as the
+    model calls it: on leaves that require grad, the forward's q' and k'
+    against the plain version and the backward of ``_Rope`` against
+    autograd through the plain version, on the same card tensors, each
+    within one ulp of the dtype (the outputs that differ counted) and one
+    launch each way.  At ``ROPE_SHAPES`` (granite-3-2b's heads, bf16, [S]
+    positions), then at the other paths' shapes (``ROPE_CASES``): decode's
+    per-row [B, 1] positions at TinyLlama's heads, qwen2-moe's head dim
+    128, TinyLlama's float32 prefill.  At ``ROPE_SHAPES`` also the
+    forward's and backward's device ms, the plain version's ms and the
+    bytes bound."""
+    from repro_torch import configs
+    from repro_torch.kernels import rope_fused
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    report: dict = {"cases": {}}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def plain(cfg, q, k, pos):
+        cos, sin = layers.rope_frequencies(cfg, pos)
+        return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin)
+
+    def gap(got, want):
+        """The largest gap in ulps of the dtype (bf16 is float32's top
+        half: one bf16 step is 2^16 float32 steps), the outputs that
+        differ and the largest absolute gap."""
+        shift = 16 if got[0].dtype == torch.bfloat16 else 0
+        d = [(ordered(torch, a.float()) - ordered(torch, b.float())).abs()
+             for a, b in zip(got, want)]
+        return (max(int(t.max()) for t in d) >> shift,
+                sum(int((t > 0).sum()) for t in d),
+                max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)))
+
+    def compare(name, cfg, q, k, pos):
+        gq, gk = randn(q.shape, q.dtype), randn(k.shape, k.dtype)
+        before = {**rope_fused.LAUNCHES, **rope_fused.PLAIN}
+        live = [t.detach().requires_grad_(True) for t in (q, k)]
+        got = layers.rope_qk(cfg, *live, pos)
+        torch.autograd.backward(got, (gq, gk))
+        torch.cuda.synchronize()
+        after = {**rope_fused.LAUNCHES, **rope_fused.PLAIN}
+        check(after == {**before, "rope_fwd": before["rope_fwd"] + 1,
+                        "rope_bwd": before["rope_bwd"] + 1},
+              f"A2 at {name}: {before} -> {after}, not one launch each way")
+        ref = [t.detach().requires_grad_(True) for t in (q, k)]
+        want = plain(cfg, *ref, pos)
+        torch.autograd.backward(want, (gq, gk))
+        fwd = gap([t.detach() for t in got], [t.detach() for t in want])
+        bwd = gap([t.grad for t in live], [t.grad for t in ref])
+        check(fwd[0] <= 1 and bwd[0] <= 1,
+              f"A2 at {name} against the plain version: forward {fwd}, "
+              f"backward {bwd} (ulps, outputs that differ, largest gap)")
+        row = {"ulps": fwd[0], "differ": fwd[1], "max_abs": fwd[2],
+               "bwd_ulps": bwd[0], "bwd_differ": bwd[1],
+               "bwd_max_abs": bwd[2], "elements": q.numel() + k.numel()}
+        print(f"[24] (f) A2 at {name}: {fwd[1]} of {row['elements']} "
+              f"outputs differ from the plain version (at most {fwd[0]} "
+              f"ulp), backward {bwd[1]} (at most {bwd[0]})", flush=True)
+        return row
+
+    cfg = configs.get_config("granite-3-2b")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for b, s in ROPE_SHAPES:
+        q, k = randn((b, s, hq, hd), torch.bfloat16), \
+            randn((b, s, hkv, hd), torch.bfloat16)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)
+        row = compare(f"q [{b}, {s}, {hq}, {hd}], k {hkv} heads, bf16", cfg,
+                      q, k, pos)
+        gq, gk = randn(q.shape, q.dtype), randn(k.shape, k.dtype)
+        inv = layers.rope_inv_freq(hd, cfg.rope_theta, dev)
+        with torch.no_grad():
+            row.update(
+                device_ms=device_ms(
+                    torch, lambda: layers.rope_qk(cfg, q, k, pos), 20),
+                bwd_device_ms=device_ms(
+                    torch, lambda: rope_fused.launch(gq, gk, pos, inv,
+                                                     backward=True), 20),
+                plain_ms=cuda_ms(torch, lambda: plain(cfg, q, k, pos), 10),
+                bound_ms=2 * 2 * (q.numel() + k.numel()) / HBM_BYTES_PER_S
+                * 1e3)
+        report[f"{b}x{s}"] = row
+        print(f"[24] (f) {card} | A2 at q [{b}, {s}, {hq}, {hd}], k "
+              f"{hkv} heads, bf16: {row['device_ms']:.4f} device ms "
+              f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of its "
+              f"{row['bound_ms']:.4f} ms bytes bound), backward "
+              f"{row['bwd_device_ms']:.4f}; the plain version "
+              f"{row['plain_ms']:.4f} ms", flush=True)
+        del q, k, gq, gk
+        torch.cuda.empty_cache()
+    for name, (arch, dtype, b, s) in ROPE_CASES.items():
+        cfg = configs.get_config(arch)
+        q = randn((b, s, cfg.n_heads, cfg.head_dim), getattr(torch, dtype))
+        k = randn((b, s, cfg.n_kv_heads, cfg.head_dim), q.dtype)
+        if s == 1:  # decode: each row at its own position, pos[:, None]
+            pos = torch.randint(0, 4096, (b,), generator=gen, device=dev,
+                                dtype=torch.int32)[:, None]
+        else:
+            pos = torch.arange(s, dtype=torch.int32, device=dev)
+        report["cases"][name] = compare(
+            f"{name} ({arch}: q [{b}, {s}, {cfg.n_heads}, {cfg.head_dim}], "
+            f"k {cfg.n_kv_heads} heads, {dtype}, positions "
+            f"{list(pos.shape)})", cfg, q, k, pos)
+        del q, k
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[24] (f) in {report['seconds']:.1f} s", flush=True)
+    return report
 
 
 def adamw_phase(torch, dev, card: str, seed: int) -> dict:
@@ -3116,7 +3284,7 @@ def main(argv=None) -> int:
     from repro_torch.data.digits import load_digits
     from repro_torch.data.toys import make_toy_dataset
     from repro_torch.kernels import (adamw_fused, cuda_build, givens_mesh, ops,
-                                     ref, schedule)
+                                     ref, rope_fused, schedule)
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model, ModelConfig
@@ -3174,7 +3342,8 @@ def main(argv=None) -> int:
         sweep_usage = {k: usage[k].result() for k in ("mesh_fwd", "mesh_bwd",
                                                     "rfnn_fwd", "rfnn_bwd",
                                                     "deepgrid_bwd",
-                                                    "adamw_fused")}
+                                                    "adamw_fused",
+                                                    "rope_fused")}
     print("[1] built " + ", ".join(f"{k}.cu in {v:.2f} s"
                                     for k, v in build_s.items())
           + f" (together {time.perf_counter() - t0:.2f} s)", flush=True)
@@ -3204,14 +3373,17 @@ def main(argv=None) -> int:
 
     def reset_launches():
         for counts in (givens_mesh.LAUNCHES, flash.LAUNCHES,
-                       adamw_fused.LAUNCHES):
+                       adamw_fused.LAUNCHES, rope_fused.LAUNCHES,
+                       rope_fused.PLAIN):
             for k in counts:
                 counts[k] = 0
 
     def all_launches():
-        # A1 by its update kernel, one launch a leaf an optimizer step
+        # A1 by its update kernel, one launch a leaf an optimizer step; A2
+        # both ways, and the RoPE calls that took its plain version
         return {**givens_mesh.LAUNCHES, **flash.LAUNCHES,
-                "adamw_update": adamw_fused.LAUNCHES["adamw_update"]}
+                "adamw_update": adamw_fused.LAUNCHES["adamw_update"],
+                **rope_fused.LAUNCHES, **rope_fused.PLAIN}
 
     def to_cpu(tree):
         return tree_map(lambda t: t.cpu(), tree)
@@ -5005,6 +5177,8 @@ def main(argv=None) -> int:
     check(launches["lm_serve"]["flash_attn_fwd"] == 2 * n_layers,
           f"serve: {launches['lm_serve']['flash_attn_fwd']} B9 launches for "
           f"two prefills of {n_layers} layers")
+    # A2 once an attention call: two prefills and 2 + LM_GEN decode steps
+    check_rope(launches["lm_serve"], (4 + LM_GEN) * n_layers, 0, "serve")
     toks = served_lm["tokens"]
     check(toks.shape == (LM_BATCH, LM_GEN + 1)
           and int(toks.min()) >= 0 and int(toks.max()) < lm_cfg.vocab_size,
@@ -5075,6 +5249,9 @@ def main(argv=None) -> int:
           f"teacher forcing: {launches['lm_teacher']['flash_attn_fwd']} B9 "
           f"launches for the {LM_PROMPT}-token forward and the "
           f"{LM_TEACHER_PREFIX}-token prefill of {n_layers} layers")
+    # the forward, the prefill and LM_GEN decode steps
+    check_rope(launches["lm_teacher"], (2 + LM_GEN) * n_layers, 0,
+               "teacher forcing")
     # the bound across weight and token seeds (these launches are not counted)
     tf_by_seed = {args.seed: max(tf_errs)}
     for seed in range(args.seed + 1, args.seed + LM_TF_SEEDS):
@@ -5102,6 +5279,8 @@ def main(argv=None) -> int:
     launches["lm_paths"] = all_launches()
     check(launches["lm_paths"]["flash_attn_fwd"] == 2 * n_layers,
           "the kernel path's prefills did not launch B9 once per layer")
+    # A2 in all four prefills, the xla path's too
+    check_rope(launches["lm_paths"], 4 * n_layers, 0, "the four prefills")
     f32_gap = lm_rel(paths["float32", "pallas"], paths["float32", "xla"])
     bf16_gap = lm_rel(paths["bfloat16", "pallas"], paths["bfloat16", "xla"])
     check(f32_gap <= 1e-3, f"kernel path against xla path, float32: {f32_gap}")
@@ -5181,6 +5360,10 @@ def main(argv=None) -> int:
     launches["lm_card_cpu"] = all_launches()
     check(launches["lm_card_cpu"]["flash_attn_fwd"] == red_cfg.n_layers,
           "reduced prefill on the card did not launch B9 once per layer")
+    # a prefill and 8 decode steps a side: A2 on the card, plain on the CPU
+    check_rope(launches["lm_card_cpu"], 9 * red_cfg.n_layers, 0,
+               "reduced TinyLlama card against CPU",
+               plain=9 * red_cfg.n_layers)
     check(max(red_errs) <= 1e-5, f"reduced TinyLlama card against CPU: "
           f"{max(red_errs)}")
     print(f"[18] reduced TinyLlama float32, card against CPU: 61-token "
@@ -5217,6 +5400,13 @@ def main(argv=None) -> int:
 
         engine = ServingEngine(model, lm_params, slots=ENGINE_SLOTS,
                                max_len=64, device=dev, sample=record)
+        decode, decodes = engine._impl._decode, [0]
+
+        def counted(*args):
+            decodes[0] += 1
+            return decode(*args)
+
+        engine._impl._decode = counted
         t0 = time.perf_counter()
         for r in reqs:
             engine.submit(r)
@@ -5226,6 +5416,7 @@ def main(argv=None) -> int:
         check(all(r.done and not r.failed and len(r.result) == m
                   and int(r.result.min()) >= 0 for r, m in zip(reqs, eng_new)),
               "LM engine: a request failed or came back short")
+        engine.decode_calls = decodes[0]
         return reqs, seen, seconds, engine
 
     def against_batch1(model, reqs, seen, margin):
@@ -5263,6 +5454,12 @@ def main(argv=None) -> int:
           == n_layers * ENGINE_REQUESTS,
           f"LM engine: {launches['lm_engine']['flash_attn_fwd']} B9 launches "
           f"for {ENGINE_REQUESTS} admissions of {n_layers} layers")
+    # a prefill an admission, and every decode call (ticks and the prompt
+    # tokens an admission feeds one at a time)
+    check_rope(launches["lm_engine"],
+               n_layers * (ENGINE_REQUESTS + lm_engine.decode_calls), 0,
+               f"LM engine ({ENGINE_REQUESTS} prefills, "
+               f"{lm_engine.decode_calls} decode calls)")
     lm_stats = lm_engine.stats
     bf16_rel, n_steps, bf16_same, bf16_differ = against_batch1(
         lm_model, lm_reqs, eng_logits, 4e-2)
@@ -5327,6 +5524,7 @@ def main(argv=None) -> int:
     check(rf_l["flash_attn_fwd"] == RFNN_LM["n_layers"]
           and rf_l["deepgrid_fwd"] == 3 * RFNN_LM["n_layers"] * 5,
           f"rfnn LM launches: {rf_l}")
+    check_rope(rf_l, 5 * RFNN_LM["n_layers"], 0, "rfnn LM")
     check(max(rf_errs) <= 1e-5, f"rfnn LM kernel against reference backend: "
           f"{max(rf_errs)}")
     print(f"[20] rfnn LM (d 64, d_ff 128, 4x8 and 8x4 tiles of 16): prefill "
@@ -5434,6 +5632,7 @@ def main(argv=None) -> int:
                                         time_deep_shape)
     launches.update(report["training"]["launches"])
     report["adamw"] = adamw_phase(torch, dev, card, args.seed)
+    report["rope"] = rope_phase(torch, dev, card, args.seed)
 
     # -- phase 25: the analog processor across ranks sharing the card ----------
     step_ms = []
@@ -5609,6 +5808,29 @@ def main(argv=None) -> int:
         "bound_by": "bytes",
         # torch._fused_adamw_, timed only: no clipping, so no norm pass
         "library_ms": a1["library_ms"],
+    })
+    # A2 at granite-3-2b's heads (phase 24 (f)): no TPU kernel, as XLA fuses
+    # the JAX package's RoPE; its launches are the main path's forward ones
+    a2 = report["rope"]
+    big, small = (a2[f"{b}x{s}"] for b, s in ROPE_SHAPES)
+    kernels.append({
+        "name": "rope_fused",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rope_fused.cu",
+        "replaces": None,
+        "launches": sum(launches[k].get("rope_fwd", 0) for k in main_path),
+        "bwd_launches": sum(launches[k].get("rope_bwd", 0)
+                            for k in main_path),
+        "max_abs_err": max(r["max_abs"] for r in (big, small,
+                                                  *a2["cases"].values())),
+        "ms": big["device_ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": "bytes",
+        # no single PyTorch call rotates q and k
+        "library_ms": None,
+        "at_8x512": {k: small[k] for k in ("device_ms", "plain_ms",
+                                           "bound_ms", "max_abs")},
     })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")

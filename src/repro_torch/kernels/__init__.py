@@ -17,6 +17,10 @@ adamw_fused  — the fused AdamW update: CUDA kernels ``csrc/adamw_fused.cu``
                (the clipping norm's partial sums, its finalize, one update
                pass a leaf) and the plain version ``optim.AdamW`` runs on
                the CPU and on DTensors
+rope_fused   — A2, the rotary position embedding of q and k in one launch:
+               CUDA kernel ``csrc/rope_fused.cu`` (forward, and the backward
+               as the same kernel with the sine negated); its plain version
+               is ``models/layers.py``'s, which DTensors and the CPU take
 ops          — public wrappers (``mesh_apply``, ``mesh_apply_cells``,
                ``rfnn_linear``, ``deep_apply``, ``rfnn_network``,
                ``tiled_apply``) and the deep grid's pack cache

@@ -27,8 +27,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_rope, rope_frequencies,
-                                       truncated_normal)
+from repro_torch.models.layers import rope_qk, truncated_normal
 from repro_torch.parallel.sharding import (constrain, local_call,
                                            local_index_put_, local_window,
                                            replicated)
@@ -200,9 +199,7 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
                                   device=x.device)
         if rope and kv_override is None:
             with trace.span("attn.rope"):
-                cos, sin = rope_frequencies(cfg, positions)
-                q = apply_rope(q, cos, sin)
-                k = apply_rope(k, cos, sin)
+                q, k = rope_qk(cfg, q, k, positions)
         q = constrain(q, "batch", "seq", "heads", "head_dim")
         k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
         v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
@@ -327,9 +324,7 @@ def decode_attention(params, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     q = constrain(q, "batch", None, "heads", "head_dim")
     q = constrain(q, "batch", None, None, None)
     if rope:
-        cos, sin = rope_frequencies(cfg, pos[:, None])         # [B, 1]
-        q = apply_rope(q, cos, sin)
-        k_new = apply_rope(k_new, cos, sin)
+        q, k_new = rope_qk(cfg, q, k_new, pos[:, None])        # [B, 1]
     k, v = cache["k"], cache["v"]
     s_len = k.shape[1]
     if update_cache:

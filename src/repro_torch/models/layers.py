@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import rope_fused
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import (constrain, local_call,
                                            replicated, whole)
@@ -120,14 +121,19 @@ def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # Rotary position embedding
 # ---------------------------------------------------------------------------
 
+def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """The inverse frequencies ``theta ** (-2i / head_dim)``, float32
+    ``[head_dim / 2]``.  The base is a Python float, so it reaches the card
+    as a kernel argument: no copy from the host, no wait."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(float(theta), exps)
+
+
 def rope_frequencies(cfg: ModelConfig, positions: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [..., head_dim/2] for integer positions."""
-    half = cfg.head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    freqs = rope_inv_freq(cfg.head_dim, cfg.rope_theta, positions.device)
     ang = positions[..., None].float() * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -142,6 +148,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     sin = sin[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+_INV_FREQ: dict = {}  # (device, head_dim, theta) -> rope_inv_freq on the card
+
+
+def rope_qk(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+            positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B, S, Hq, hd] and k [B, S, Hkv, hd] rotated by ``positions``
+    ([S], or [B, S] as decode's [B, 1]).  Plain CUDA tensors take the
+    kernel A2 (``kernels/rope_fused.py``: one launch for both, the angles
+    made on the card from ``inv_freq``, built once a device and kept);
+    DTensors and CPU tensors take :func:`rope_frequencies` and
+    :func:`apply_rope`, counted in ``rope_fused.PLAIN``."""
+    if not rope_fused.takes(q, k, positions):
+        rope_fused.PLAIN["rope_plain"] += 1
+        cos, sin = rope_frequencies(cfg, positions)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    key = (q.device, cfg.head_dim, float(cfg.rope_theta))
+    inv_freq = _INV_FREQ.get(key)
+    if inv_freq is None:
+        with torch.inference_mode(False), torch.no_grad():
+            inv_freq = _INV_FREQ[key] = rope_inv_freq(*key[1:], q.device)
+    return rope_fused.rope(q, k, positions, inv_freq)
 
 
 # ---------------------------------------------------------------------------
