@@ -120,21 +120,20 @@ class Model:
         * vlm and encdec: none (their prefill needs patch embeddings or
           encoder frames, which a request does not carry; an encdec request
           is decoded against an empty cross cache, as the JAX engine does);
-        * moe: none, as the JAX engine admits every prompt, since a prefill
-          can drop expert choices that token-by-token decode keeps;
-        * ssm and hybrid: ``n`` up to ``ssm_chunk``, above it the largest
+        * a capacity MoE layer: none, as the JAX engine admits every
+          prompt, since a prefill can drop expert choices that
+          token-by-token decode keeps (the dropless MoE keeps them all);
+        * an SSM mixer: ``n`` up to ``ssm_chunk``, above it the largest
           multiple of the chunk (``ssm_block`` takes no ragged last chunk);
-        * a ``layer_pattern`` (its MoE dropless: a prefill keeps every
-          choice that decode keeps): as hybrid with mamba layers, else as
-          dense;
-        * dense: all ``n``.
+        * else all ``n``.
         """
-        fam = self.cfg.family
-        if self.cfg.layer_pattern:
-            fam = "hybrid" if "M" in self.cfg.layer_pattern else "dense"
-        if fam in ("vlm", "encdec", "moe"):
+        if self.cfg.family in ("vlm", "encdec"):
             return 0
-        if fam in ("ssm", "hybrid") and n > self.cfg.ssm_chunk:
+        kinds = [lm_lib.LAYER_KINDS[k]
+                 for k in lm_lib.superblock_layout(self.cfg)[1]]
+        if not self.cfg.moe_dropless and any(f == "moe" for _, f in kinds):
+            return 0
+        if any(m == "ssm" for m, _ in kinds) and n > self.cfg.ssm_chunk:
             return n - n % self.cfg.ssm_chunk
         return n
 

@@ -2,24 +2,29 @@
 
 The JAX package's ``models/lm.py`` on torch.  Parameters are stacked over a
 leading super-block axis, as in the JAX package, and a Python loop over the
-super-blocks indexes each leaf (the JAX package scans).  A super-block is
-the family's repeating pattern:
+super-blocks indexes each leaf (the JAX package scans).  A super-block is a
+list of layer kinds (``superblock_layout``), the family's repeating pattern
+or ``cfg.layer_pattern``'s letters (``M`` mamba, ``A`` attn).  Each kind is
+a mixer and an FFN (``LAYER_KINDS``):
 
-  dense/vlm    1 layer  (attn + mlp; vlm prepends patch embeddings)
-  moe          ``moe_interleave`` layers (dense..., moe)
-  ssm          1 mamba2 layer
-  hybrid       ``attn_every`` mamba2 layers + one invocation of the *shared*
-               attention block (one parameter set outside the stack, reused
-               by every invocation, each with its own KV cache: zamba2's
-               weight tying)
-  pattern      ``cfg.layer_pattern``'s layers (granite 4.0-h's
-               ``MMMMMAMMMM``), each a mixer (``M`` mamba2, ``A`` attention
-               without RoPE under ``cfg.nope``) and then the dropless MoE
-               with its shared MLP, every sub-layer's output scaled by
-               ``cfg.residual_multiplier``; one cache tree holds the mamba
-               layers' states beside the attention layers' KV caches.  Its
-               layers run in functions of their own (``_pattern_*``), picked
-               once a call, so the other layouts run no step of theirs.
+  kind         mixer      FFN    used by
+  dense        attention  MLP    dense, vlm (patch embeddings prepended),
+                                 moe's first ``moe_interleave - 1`` layers
+  moe          attention  MoE    moe's last layer
+  shared_attn  attention  MLP    hybrid: after ``attn_every`` ssm layers,
+                                 one parameter set outside the stack reused
+                                 by every invocation, each with its own KV
+                                 cache (zamba2's weight tying)
+  ssm          mamba2     -      ssm, hybrid
+  mamba        mamba2     MoE    ``layer_pattern``'s ``M`` (granite 4.0-h)
+  attn         attention  MoE    ``layer_pattern``'s ``A``
+
+A layer with an FFN norms the mixer's input with ``ln1`` and the FFN's with
+``ln2``; one without norms with ``ln``.  Attention takes no RoPE under
+``cfg.nope``, the MoE is ``moe_dropless`` under ``cfg.moe_dropless`` (with
+its shared MLP, no aux loss), and every sub-layer's output joins the
+residual stream scaled by ``cfg.residual_multiplier``.  One cache tree holds
+the mamba2 layers' states beside the attention layers' KV caches.
 
 Modes: ``forward`` (training and evaluation over a full sequence),
 ``prefill`` (forward plus cache) and ``decode_step`` (one token).  Caches
@@ -102,26 +107,22 @@ def superblock_layout(cfg: ModelConfig) -> tuple[int, list[str]]:
     raise ValueError(cfg.family)
 
 
-def _spec_attn_layer(cfg, ffn):
-    p = {"ln1": L.spec_rmsnorm(), "attn": attn_lib.spec_attention(),
-         "ln2": L.spec_rmsnorm()}
-    if ffn == "moe":
-        p["moe"] = moe_lib.spec_moe(cfg)
-    else:
-        p["mlp"] = L.spec_mlp(cfg)
-    return p
+LAYER_KINDS = {"dense": ("attn", "mlp"), "moe": ("attn", "moe"),
+               "shared_attn": ("attn", "mlp"), "ssm": ("ssm", None),
+               "mamba": ("ssm", "moe"), "attn": ("attn", "moe")}
+
+_SPEC = {"attn": lambda cfg: attn_lib.spec_attention(),
+         "ssm": ssm_lib.spec_ssm, "mlp": L.spec_mlp, "moe": moe_lib.spec_moe}
+_INIT = {"attn": attn_lib.init_attention, "ssm": ssm_lib.init_ssm,
+         "mlp": L.init_mlp, "moe": moe_lib.init_moe}
 
 
 def _spec_layer(kind, cfg):
-    if kind in ("dense", "moe"):
-        return _spec_attn_layer(cfg, "moe" if kind == "moe" else "mlp")
-    if kind in ("mamba", "attn"):
-        p = {"ln1": L.spec_rmsnorm(), "ln2": L.spec_rmsnorm(),
-             "moe": moe_lib.spec_moe(cfg)}
-        p.update({"ssm": ssm_lib.spec_ssm(cfg)} if kind == "mamba"
-                 else {"attn": attn_lib.spec_attention()})
-        return p
-    return {"ln": L.spec_rmsnorm(), "ssm": ssm_lib.spec_ssm()}
+    mixer, ffn = LAYER_KINDS[kind]
+    if ffn is None:
+        return {"ln": L.spec_rmsnorm(), mixer: _SPEC[mixer](cfg)}
+    return {"ln1": L.spec_rmsnorm(), mixer: _SPEC[mixer](cfg),
+            "ln2": L.spec_rmsnorm(), ffn: _SPEC[ffn](cfg)}
 
 
 def spec_lm(cfg: ModelConfig) -> dict:
@@ -133,38 +134,23 @@ def spec_lm(cfg: ModelConfig) -> dict:
                                      for i, kind in enumerate(kinds)
                                      if kind != "shared_attn"})}
     if "shared_attn" in kinds:
-        specs["shared_attn"] = _spec_attn_layer(cfg, "mlp")
+        specs["shared_attn"] = _spec_layer("shared_attn", cfg)
     return specs
 
 
-def _init_attn_layer(generator, cfg, stack, ffn):
-    dev = generator.device
-    p = {"ln1": L.init_rmsnorm(cfg.d_model, dev, stack=stack),
-         "attn": attn_lib.init_attention(generator, cfg, stack=stack),
-         "ln2": L.init_rmsnorm(cfg.d_model, dev, stack=stack)}
-    if ffn == "moe":
-        p["moe"] = moe_lib.init_moe(generator, cfg, stack=stack)
-    else:
-        p["mlp"] = L.init_mlp(generator, cfg, stack=stack)
-    return p
-
-
 def _init_layer(kind, generator, cfg, stack):
-    if kind in ("dense", "moe"):
-        return _init_attn_layer(generator, cfg, stack,
-                                "moe" if kind == "moe" else "mlp")
-    if kind in ("mamba", "attn"):
-        dev = generator.device
-        p = {"ln1": L.init_rmsnorm(cfg.d_model, dev, stack=stack)}
-        p.update({"ssm": ssm_lib.init_ssm(generator, cfg, stack=stack)}
-                 if kind == "mamba" else
-                 {"attn": attn_lib.init_attention(generator, cfg,
-                                                  stack=stack)})
-        p["ln2"] = L.init_rmsnorm(cfg.d_model, dev, stack=stack)
-        p["moe"] = moe_lib.init_moe(generator, cfg, stack=stack)
-        return p
-    return {"ln": L.init_rmsnorm(cfg.d_model, generator.device, stack=stack),
-            "ssm": ssm_lib.init_ssm(generator, cfg, stack=stack)}
+    """A layer's params, drawn in the order ``{ln1, mixer, ln2, ffn}``."""
+    mixer, ffn = LAYER_KINDS[kind]
+
+    def norm():
+        return L.init_rmsnorm(cfg.d_model, generator.device, stack=stack)
+
+    def part(name):
+        return _INIT[name](generator, cfg, stack=stack)
+
+    if ffn is None:
+        return {"ln": norm(), mixer: part(mixer)}
+    return {"ln1": norm(), mixer: part(mixer), "ln2": norm(), ffn: part(ffn)}
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
@@ -178,7 +164,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
               "final_norm": L.init_rmsnorm(cfg.d_model, generator.device),
               "blocks": blocks}
     if "shared_attn" in kinds:
-        params["shared_attn"] = _init_attn_layer(generator, cfg, (), "mlp")
+        params["shared_attn"] = _init_layer("shared_attn", generator, cfg, ())
     return params
 
 
@@ -248,23 +234,51 @@ def checkpointed(fn, remat: str):
     return run
 
 
-def _attn_sublayer(lp, cfg, x, positions):
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    return attn_lib.attention(lp["attn"], cfg, h, positions)
+def _mixer_input(kind, lp, cfg, x):
+    norm = "ln" if LAYER_KINDS[kind][1] is None else "ln1"
+    return L.rmsnorm(lp[norm], x, cfg.norm_eps)
 
 
-def _ffn_sublayer(lp, cfg, x):
-    """(y, moe aux or None)."""
+def _mixer(kind, lp, cfg, x, positions, lc=None):
+    """A layer's mixer over its normed input; a prefill passes the layer's
+    cache ``lc``, which it fills."""
+    h = _mixer_input(kind, lp, cfg, x)
+    if LAYER_KINDS[kind][0] == "ssm":
+        with trace.span("lm.ssm"):
+            out = ssm_lib.ssm_block(lp["ssm"], cfg, h,
+                                    return_cache=lc is not None)
+        if lc is None:
+            return out
+        y, c = out
+        with trace.span("lm.cache"):
+            for key, t in c.items():
+                local_copy_(lc[key], t)
+        return y
+    if lc is None:
+        return attn_lib.attention(lp["attn"], cfg, h, positions,
+                                  rope=not cfg.nope)
+    y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
+                                   rope=not cfg.nope, return_kv=True)
+    attn_lib.prefill_into_cache(lc, k, v)
+    return y
+
+
+def _ffn_sublayer(kind, lp, cfg, x):
+    """A layer's FFN over its normed input: (y, moe aux or None)."""
     h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
     with trace.span("lm.ffn"):
-        if "moe" in lp:
+        if LAYER_KINDS[kind][1] == "mlp":
+            return L.mlp(lp["mlp"], cfg, h), None
+        with trace.span("lm.moe"):
+            if cfg.moe_dropless:
+                return moe_lib.moe_dropless(lp["moe"], cfg, h), None
             return moe_lib.moe_block(lp["moe"], cfg, h)
-        return L.mlp(lp["mlp"], cfg, h), None
 
 
-def _ssm_sublayer(lp, cfg, x):
-    return ssm_lib.ssm_block(lp["ssm"], cfg, L.rmsnorm(lp["ln"], x,
-                                                        cfg.norm_eps))
+def _residual(cfg, x, y):
+    """The residual stream after a sub-layer whose output is ``y``."""
+    r = cfg.residual_multiplier
+    return x + y if r == 1 else x + y * r
 
 
 def _layers(params, cfg):
@@ -288,47 +302,13 @@ def _superblock(cfg, kinds, shared, positions, bp, x, aux):
     sub = checkpointed(_call, "full") if cfg.remat == "outputs" else _call
     for i, kind in enumerate(kinds):
         lp = shared if kind == "shared_attn" else bp[f"l{i}_{kind}"]
-        if kind == "ssm":
-            x = x + sub(functools.partial(_ssm_sublayer, lp, cfg), x)
-            x = constrain(x, "batch", "seq", "embed")
-            continue
-        x = x + sub(functools.partial(_attn_sublayer, lp, cfg), x, positions)
-        y, a = sub(functools.partial(_ffn_sublayer, lp, cfg), x)
-        x = x + y
-        if a is not None:
-            aux = aux + a
-        x = constrain(x, "batch", "seq", "embed")
-    return x, aux
-
-
-def _pattern_mixer(kind, lp, cfg, x, positions):
-    """A ``layer_pattern`` layer's mixer over its normed input."""
-    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    if kind == "mamba":
-        with trace.span("lm.ssm"):
-            return ssm_lib.ssm_block(lp["ssm"], cfg, h)
-    return attn_lib.attention(lp["attn"], cfg, h, positions,
-                              rope=not cfg.nope)
-
-
-def _pattern_ffn(lp, cfg, x):
-    """A ``layer_pattern`` layer's FFN, the dropless MoE with its shared
-    MLP, over its normed input."""
-    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    with trace.span("lm.ffn"), trace.span("lm.moe"):
-        return moe_lib.moe_dropless(lp["moe"], cfg, h)
-
-
-def _pattern_superblock(cfg, kinds, shared, positions, bp, x, aux):
-    """One ``layer_pattern`` super-block over the full sequence: (x, aux;
-    the dropless MoE adds no aux loss)."""
-    sub = checkpointed(_call, "full") if cfg.remat == "outputs" else _call
-    r = cfg.residual_multiplier
-    for i, kind in enumerate(kinds):
-        lp = bp[f"l{i}_{kind}"]
-        x = x + sub(functools.partial(_pattern_mixer, kind, lp, cfg), x,
-                    positions) * r
-        x = x + sub(functools.partial(_pattern_ffn, lp, cfg), x) * r
+        x = _residual(cfg, x, sub(functools.partial(_mixer, kind, lp, cfg),
+                                  x, positions))
+        if LAYER_KINDS[kind][1] is not None:
+            y, a = sub(functools.partial(_ffn_sublayer, kind, lp, cfg), x)
+            x = _residual(cfg, x, y)
+            if a is not None:
+                aux = aux + a
         x = constrain(x, "batch", "seq", "embed")
     return x, aux
 
@@ -341,8 +321,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_super, kinds = superblock_layout(cfg)
-    body = _pattern_superblock if cfg.layer_pattern else _superblock
-    run = functools.partial(body, cfg, kinds,
+    run = functools.partial(_superblock, cfg, kinds,
                             params.get("shared_attn"), positions)
     if cfg.remat in ("full", "dots"):
         run = checkpointed(run, cfg.remat)
@@ -364,7 +343,7 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     cache = {}
     with trace.span("lm.cache"):
         for i, kind in enumerate(kinds):
-            if kind in ("ssm", "mamba"):
+            if LAYER_KINDS[kind][0] == "ssm":
                 cache[f"l{i}_{kind}"] = ssm_lib.init_ssm_cache(
                     cfg, batch, dt, device=device, stack=(n_super,))
             else:
@@ -377,7 +356,8 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def spec_lm_cache(cfg: ModelConfig) -> dict:
     kinds = superblock_layout(cfg)[1]
     return L.stack_spec({
-        f"l{i}_{kind}": (ssm_lib.spec_ssm_cache() if kind in ("ssm", "mamba")
+        f"l{i}_{kind}": (ssm_lib.spec_ssm_cache()
+                         if LAYER_KINDS[kind][0] == "ssm"
                          else attn_lib.spec_cache())
         for i, kind in enumerate(kinds)})
 
@@ -392,30 +372,15 @@ def constrain_tree(tree, specs):
 def _decode_layers(params, cfg, x, cache, pos):
     for l, name, kind, lp in _layers(params, cfg):
         lc = _layer(cache[name], l)
-        if kind == "ssm":
-            h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-            y, _ = ssm_lib.ssm_decode_step(lp["ssm"], cfg, h, lc)
-            x = x + y
-            continue
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        y, _ = attn_lib.decode_attention(lp["attn"], cfg, h, lc, pos)
-        x = x + y
-        x = x + _ffn_sublayer(lp, cfg, x)[0]
-    return x
-
-
-def _pattern_decode_layers(params, cfg, x, cache, pos):
-    r = cfg.residual_multiplier
-    for l, name, kind, lp in _layers(params, cfg):
-        lc = _layer(cache[name], l)
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        if kind == "mamba":
+        h = _mixer_input(kind, lp, cfg, x)
+        if LAYER_KINDS[kind][0] == "ssm":
             y, _ = ssm_lib.ssm_decode_step(lp["ssm"], cfg, h, lc)
         else:
             y, _ = attn_lib.decode_attention(lp["attn"], cfg, h, lc, pos,
                                              rope=not cfg.nope)
-        x = x + y * r
-        x = x + _pattern_ffn(lp, cfg, x) * r
+        x = _residual(cfg, x, y)
+        if LAYER_KINDS[kind][1] is not None:
+            x = _residual(cfg, x, _ffn_sublayer(kind, lp, cfg, x)[0])
     return x
 
 
@@ -427,8 +392,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     x = L.embed_tokens(params["embed"], cfg, token[:, None])
     x = constrain(x, "batch", None, "embed")
     pos = attn_lib.row_positions(pos, x.shape[0], x.device)
-    layers = _pattern_decode_layers if cfg.layer_pattern else _decode_layers
-    x = layers(params, cfg, x, cache, pos)
+    x = _decode_layers(params, cfg, x, cache, pos)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)[:, 0]
     return constrain(logits, "batch", "vocab"), cache
@@ -436,43 +400,10 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
 def _prefill_layers(params, cfg, x, positions, cache):
     for l, name, kind, lp in _layers(params, cfg):
-        lc = _layer(cache[name], l)
-        if kind == "ssm":
-            h = L.rmsnorm(lp["ln"], x, cfg.norm_eps)
-            y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h, return_cache=True)
-            x = x + y
-            for key, t in c.items():
-                local_copy_(lc[key], t)
-            x = constrain(x, "batch", "seq", "embed")
-            continue
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
-                                       return_kv=True)
-        attn_lib.prefill_into_cache(lc, k, v)
-        x = x + y
-        x = x + _ffn_sublayer(lp, cfg, x)[0]
-        x = constrain(x, "batch", "seq", "embed")
-    return x
-
-
-def _pattern_prefill_layers(params, cfg, x, positions, cache):
-    r = cfg.residual_multiplier
-    for l, name, kind, lp in _layers(params, cfg):
-        lc = _layer(cache[name], l)
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        if kind == "mamba":
-            with trace.span("lm.ssm"):
-                y, c = ssm_lib.ssm_block(lp["ssm"], cfg, h,
-                                         return_cache=True)
-            with trace.span("lm.cache"):
-                for key, t in c.items():
-                    local_copy_(lc[key], t)
-        else:
-            y, (k, v) = attn_lib.attention(lp["attn"], cfg, h, positions,
-                                           rope=not cfg.nope, return_kv=True)
-            attn_lib.prefill_into_cache(lc, k, v)
-        x = x + y * r
-        x = x + _pattern_ffn(lp, cfg, x) * r
+        x = _residual(cfg, x, _mixer(kind, lp, cfg, x, positions,
+                                     _layer(cache[name], l)))
+        if LAYER_KINDS[kind][1] is not None:
+            x = _residual(cfg, x, _ffn_sublayer(kind, lp, cfg, x)[0])
         x = constrain(x, "batch", "seq", "embed")
     return x
 
@@ -481,7 +412,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vis_embed: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Prefill: full-sequence pass producing last-position logits + cache.
-    An ``ssm``/``hybrid`` prompt longer than ``ssm_chunk`` must be a
+    A prompt through mamba2 mixers longer than ``ssm_chunk`` must be a
     multiple of it (``ssm_block`` raises otherwise)."""
     with trace.span("lm.prefill"):
         x = _embed_input(params, cfg, tokens, vis_embed)
@@ -491,9 +422,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         cache = constrain_tree(
             init_lm_cache(cfg, x.shape[0], max_len, device=x.device),
             spec_lm_cache(cfg))
-        layers = (_pattern_prefill_layers if cfg.layer_pattern
-                  else _prefill_layers)
-        x = layers(params, cfg, x, positions, cache)
+        x = _prefill_layers(params, cfg, x, positions, cache)
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = L.unembed(params["embed"], cfg, x[:, -1:])[:, 0]
         return constrain(logits, "batch", "vocab"), cache

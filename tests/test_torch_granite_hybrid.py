@@ -372,6 +372,43 @@ def test_the_new_fields_are_off_in_every_registered_config():
             assert cfg.held == cfg.n_experts
 
 
+@pytest.mark.parametrize("r", [0.22, 4.0])
+def test_a_dense_layout_takes_the_residual_multiplier_and_nope(r):
+    """A dense ``PatternConfig`` with ``residual_multiplier`` r gives the
+    logits of the same model with every attention and MLP ``wo`` scaled by
+    r (each sub-layer's output is linear in its ``wo``): in the forward, the
+    prefill and a decode step.  Under ``nope`` no ``attn.rope`` opens."""
+    base = dataclasses.asdict(dataclasses.replace(
+        t_configs.get_reduced("granite-3-2b"), dtype="float32"))
+    cfg = PatternConfig(**base, residual_multiplier=r, nope=True)
+    plain = PatternConfig(**base, nope=True)
+    params = Model(cfg).init(torch.Generator().manual_seed(5), device="cpu")
+    scaled = {**params, "blocks": {
+        name: {**lp, **{part: {**lp[part], "wo": lp[part]["wo"] * r}
+                        for part in ("attn", "mlp")}}
+        for name, lp in params["blocks"].items()}}
+    tok = _tokens(cfg)
+
+    def logits(model, p):
+        fwd, _ = model.forward(p, {"tokens": tok})
+        pre, cache = model.prefill(p, {"tokens": tok[:, :PREFIX]},
+                                   max_len=S)
+        dec, _ = model.decode_step(p, tok[:, PREFIX], cache, PREFIX)
+        return fwd, pre, dec
+
+    with torch.no_grad():
+        want = logits(Model(plain), scaled)
+        trace.drain()
+        trace.enable()
+        try:
+            got = logits(Model(cfg), params)
+        finally:
+            trace.disable()
+    assert "attn.rope" not in {s[0] for s in trace.drain().spans}
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
 def test_a_bad_layout_is_refused():
     with pytest.raises(ValueError):
         Model(dataclasses.replace(granite.REDUCED, layer_pattern="MMX"))

@@ -213,6 +213,40 @@ def test_prefill_tree_and_bit_equal_outputs():
     assert counts["lm.cache"] == cfg.n_layers + 1
 
 
+@pytest.mark.parametrize("arch, layer", [
+    ("mamba2-780m", ["lm.norm", "lm.ssm", "lm.cache"]),
+    ("qwen2-moe-a2.7b", ["lm.norm", "lm.attention", "lm.cache", "lm.norm",
+                         "lm.ffn"])])
+def test_prefill_tree_of_the_ssm_and_moe_layers(arch, layer):
+    """Every layout's mamba2 mixer runs inside ``lm.ssm`` with its state
+    copied inside ``lm.cache``, and every MoE inside ``lm.moe`` under
+    ``lm.ffn``."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    tokens = batch_of(cfg, s=16)["tokens"]
+
+    def run():
+        with torch.no_grad():
+            return model.prefill(params, {"tokens": tokens})
+
+    off = run()
+    on, rec = traced(run)
+    assert same(off, on)
+    children_inside_parents(rec)
+    assert names(rec, -1) == ["lm.prefill"]
+    assert names(rec, 0) == (["lm.embed", "lm.cache"] + layer * cfg.n_layers
+                             + ["lm.norm", "lm.unembed"])
+    for k, s in enumerate(rec.spans):
+        if s[0] == "lm.ssm":
+            assert names(rec, k) == ["ssm.proj", "ssm.conv", "ssm.scan",
+                                     "ssm.out"]
+        elif s[0] == "lm.ffn":
+            assert names(rec, k) == ["lm.moe"]
+        elif s[0] == "lm.cache":
+            assert names(rec, k) == []
+
+
 def test_compiled_apply_tree_and_bit_equal_outputs():
     rng = np.random.default_rng(5)
     place = T.TilePlacement((1, 0), (1, 0))
